@@ -1,0 +1,258 @@
+"""ButterFly BFS (paper Alg. 2) on PyTorch: distributed breadth-first search
+over P ranks simulated as the leading axis of ``[P, ...]`` tensors.
+
+The port of ``repro.core.bfs``.  Per level:
+
+* **Phase 1 — traversal**: every rank expands the frontier over its owned
+  edges, top-down (push), bottom-up (pull) or with Beamer's
+  direction-optimizing switch, into its "global queue" bitmap.
+* **Phase 2 — frontier synchronization**: the per-rank bitmaps are
+  OR-merged across ranks with the butterfly (configurable fanout) or the
+  all-to-all baseline of :mod:`repro_torch.core.collectives`.
+
+The level loop runs on the host and reads one small tensor per level (the
+new frontier's size and the two edge counts Beamer's switch needs).
+``use_kernels=True`` runs phase 1 and the butterfly merge through the
+CUDA kernels of :mod:`repro_torch.kernels`; on CPU tensors the same calls
+take the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import collectives
+from repro_torch.core import frontier as fr
+from repro_torch.core import loop
+from repro_torch.graph.csr import Graph
+from repro_torch.graph.partition import PartitionedGraph
+from repro_torch.kernels import blocks
+from repro_torch.kernels import ops as kops
+
+INF = int(np.iinfo(np.int32).max)
+
+MODES = ("top_down", "bottom_up", "direction_optimizing")
+SYNCS = ("butterfly", "sparse", "adaptive", "rabenseifner", "all_to_all", "xla")
+_NOT_PORTED = {
+    "sparse": "ROADMAP.md Queue 1, sparse and adaptive frontier sync",
+    "adaptive": "ROADMAP.md Queue 1, sparse and adaptive frontier sync",
+    "rabenseifner": "ROADMAP.md Queue 1, Rabenseifner and xla syncs",
+    "xla": "ROADMAP.md Queue 1, Rabenseifner and xla syncs",
+}
+# Layout planes indexed by torch.gather, which wants int64 indices.
+_INDEX_KEYS = ("tds_perm", "pus_perm")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`; a CUDA device that is not
+    there raises rather than falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain path on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Host oracle (paper Alg. 1 semantics)
+# ---------------------------------------------------------------------------
+
+
+def bfs_reference(g: Graph, root: int) -> np.ndarray:
+    """Sequential frontier BFS — the ground truth for small graphs."""
+    d = np.full(g.n, INF, dtype=np.int64)
+    d[root] = 0
+    frontier = [root]
+    level = 0
+    while frontier:
+        nxt = []
+        for v in frontier:
+            for u in g.neighbors(v):
+                if d[u] > level + 1:
+                    d[u] = level + 1
+                    nxt.append(u)
+        frontier = nxt
+        level += 1
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Distributed ButterFly BFS
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BFSConfig:
+    """Algorithm knobs (paper Sec. 3/4)."""
+
+    fanout: int = 2  # paper fanout: 1 -> pairwise, 4 -> radix-4 rounds
+    sync: str = "butterfly"  # butterfly | all_to_all
+    mode: str = "top_down"  # top_down | bottom_up | direction_optimizing
+    alpha: float = 15.0  # Beamer push->pull threshold
+    beta: float = 18.0  # Beamer pull->push threshold
+    max_levels: Optional[int] = None
+    use_kernels: bool = False  # phase 1 + merge via the CUDA kernels
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown BFS mode {self.mode!r}; expected one of {MODES}")
+        if self.sync not in SYNCS:
+            raise ValueError(f"unknown frontier sync {self.sync!r}; expected one of {SYNCS}")
+        if self.sync in _NOT_PORTED:
+            raise NotImplementedError(
+                f"sync {self.sync!r} is not ported yet ({_NOT_PORTED[self.sync]})"
+            )
+
+
+def _expand_push(arrays, frontier, n_words, use_kernels, meta):
+    """Top-down: scatter frontier bits along owned out-edges (paper Alg. 2
+    phase 1).  Returns every rank's 'global queue' bitmap ``[P, n_words]``."""
+    if use_kernels:
+        return kops.expand_push(frontier, arrays, meta, n_words)
+    src, dst = arrays["edge_src"], arrays["edge_dst"]
+    mask = torch.arange(src.shape[1], device=src.device) < arrays["edge_count"][:, None]
+    active = fr.get_bits(frontier, src) & mask
+    return fr.scatter_or(n_words, dst, active)
+
+
+def _expand_pull(arrays, frontier, visited, n_words, use_kernels, meta):
+    """Bottom-up: every unvisited owned vertex probes its in-edges for a
+    parent in the frontier (Beamer; paper Sec. 3)."""
+    if use_kernels:
+        return kops.expand_pull(frontier, visited, arrays, meta, n_words)
+    src, dst = arrays["in_src"], arrays["in_dst"]
+    mask = torch.arange(src.shape[1], device=src.device) < arrays["in_count"][:, None]
+    found = fr.get_bits(frontier, src) & mask & ~fr.get_bits(visited, dst)
+    return fr.scatter_or(n_words, dst, found)
+
+
+def place_arrays(pg: PartitionedGraph, layout: Optional[blocks.BFSKernelLayout] = None,
+                 *, device="cuda") -> Dict[str, torch.Tensor]:
+    """The stacked partition (and layout) planes as tensors on ``device``."""
+    dev = resolve_device(device)
+    planes = dict(pg.arrays())
+    if layout is not None:
+        planes.update(layout.arrays)
+    out = {}
+    for k, v in planes.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.long() if k in _INDEX_KEYS else t).to(dev)
+    return out
+
+
+class _State(NamedTuple):
+    frontier: torch.Tensor  # int32[P, n_words]
+    visited: torch.Tensor  # int32[P, n_words]
+    d_owned: torch.Tensor  # int32[P, vmax]
+    level: int
+    scanned: torch.Tensor  # float32[P] edges examined per rank
+    pull: bool  # this level's direction
+    n_front: int  # popcount of the frontier
+
+
+def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
+                 layout: Optional[blocks.BFSKernelLayout] = None, *, device="cuda"):
+    """Distributed BFS over ``pg``'s P simulated ranks.
+
+    Returns ``run(arrays, root, comm=None)`` with ``arrays`` from
+    :func:`place_arrays` on the same device.  Output: per-rank owned
+    distances ``int32[P, vmax]`` (``INF`` for unreached), levels executed,
+    and edges examined (float32, as the reference counts them, for honest
+    TEPS).  ``comm`` (a :class:`~repro_torch.core.collectives.Communicator`)
+    collects the merge's bytes per rank."""
+    dev = resolve_device(device)
+    if cfg.use_kernels and layout is None:
+        raise ValueError("use_kernels=True requires a BFSKernelLayout")
+    meta = layout.meta if layout is not None else None
+    p, n_words, vmax = pg.p, pg.n_words, pg.vmax
+    max_levels = cfg.max_levels if cfg.max_levels is not None else pg.n
+    word_cols = (torch.as_tensor(pg.word_start, dtype=torch.int64, device=dev)[:, None]
+                 + torch.arange(pg.wmax, device=dev))
+    owned = (torch.arange(vmax, device=dev)[None, :]
+             < torch.as_tensor(pg.v_count, device=dev)[:, None])
+    alpha = np.float32(cfg.alpha)
+    push_below = np.float32(pg.n / cfg.beta)
+
+    def own(words):
+        """bool[P, vmax]: each rank's bits of its owned vertex range."""
+        return fr.unpack(torch.gather(words, 1, word_cols))[:, :vmax]
+
+    def run(arrays, root: int, comm: Optional[collectives.Communicator] = None):
+        root = int(root)
+        if not 0 <= root < pg.n:
+            raise ValueError(f"root {root} outside [0, {pg.n})")
+        if comm is None:
+            comm = collectives.Communicator(p, dev)
+        deg_out = arrays["deg_out"]
+        visited = fr.set_bit(torch.zeros((p, n_words), dtype=torch.int32, device=dev), root)
+        d_owned = torch.full((p, vmax), INF, dtype=torch.int32, device=dev)
+        owner = pg.owner_of(root)
+        d_owned[owner, root - int(pg.v_start[owner])] = 0
+
+        def sync(gq):
+            if cfg.sync == "butterfly":
+                return collectives.butterfly_or(gq, comm, fanout=cfg.fanout,
+                                                use_kernels=cfg.use_kernels)
+            return collectives.all_to_all_merge(gq, comm)
+
+        def cond(s: _State) -> bool:
+            return s.n_front > 0 and s.level < max_levels
+
+        def step(s: _State) -> _State:
+            # -- Phase 1: traversal
+            if s.pull:
+                gq = _expand_pull(arrays, s.frontier, s.visited, n_words,
+                                  cfg.use_kernels, meta)
+            else:
+                gq = _expand_push(arrays, s.frontier, n_words, cfg.use_kernels, meta)
+            # edges examined this level (honest TEPS accounting)
+            m_f = (deg_out * (own(s.frontier) & owned)).sum(1)
+            m_u = (deg_out * (~own(s.visited) & owned)).sum(1)
+            # -- Phase 2: frontier synchronization
+            new = sync(gq) & ~s.visited
+            visited = s.visited | new
+            d_owned = s.d_owned.masked_fill_(own(new) & owned, s.level + 1)
+            scanned = s.scanned + (m_u if s.pull else m_f).to(torch.float32)
+            n_new, g_mf, g_mu = torch.stack(
+                [fr.popcount(new[0]), m_f.sum(), m_u.sum()]).tolist()
+            # -- Direction-optimizing switch (Beamer alpha/beta), in
+            # float32 as the reference compares
+            pull = s.pull
+            if cfg.mode == "direction_optimizing":
+                if pull:
+                    pull = not np.float32(n_new) < push_below
+                else:
+                    pull = bool(np.float32(g_mf) > np.float32(g_mu) / alpha)
+            return _State(new, visited, d_owned, s.level + 1, scanned, pull, n_new)
+
+        init = _State(visited, visited, d_owned, 0,
+                      torch.zeros(p, dtype=torch.float32, device=dev),
+                      cfg.mode == "bottom_up", 1)
+        s = loop.host_while(cond, step, init)
+        return s.d_owned, s.level, float(s.scanned.sum())
+
+    return run
+
+
+def assemble_distances(pg: PartitionedGraph, d_owned: torch.Tensor) -> np.ndarray:
+    """Per-rank owned distances ``[P, vmax]`` -> global ``int64[n]``."""
+    d_owned = d_owned.cpu().numpy()
+    dist = np.full(pg.n, INF, dtype=np.int64)
+    for i in range(pg.p):
+        s, c = int(pg.v_start[i]), int(pg.v_count[i])
+        dist[s : s + c] = d_owned[i, :c]
+    return dist
+
+
+def distributed_bfs(pg: PartitionedGraph, root: int, cfg: BFSConfig = BFSConfig(),
+                    *, device="cuda") -> Tuple[np.ndarray, int, float]:
+    """End-to-end helper: lay out, place, run, assemble global distances."""
+    dev = resolve_device(device)
+    layout = blocks.build_bfs_layout(pg) if cfg.use_kernels else None
+    arrays = place_arrays(pg, layout, device=dev)
+    d_owned, levels, scanned = build_bfs_fn(pg, cfg, layout, device=dev)(arrays, root)
+    return assemble_distances(pg, d_owned), levels, scanned

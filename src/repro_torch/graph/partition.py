@@ -1,0 +1,167 @@
+"""1D edge-balanced partitioning (paper Sec. 4 "Graph Partitioning").
+
+A copy of ``repro.graph.partition`` for unweighted graphs, in NumPy.
+Vertices are split into contiguous ranges of near-equal edge counts, with
+boundaries rounded to multiples of 32 so each rank's owned range is a
+whole number of bitmap words; per-rank edge arrays are padded to a common
+shape and stacked into ``[P, emax]``, the simulated-rank axis the torch
+traversal runs over.
+
+Out-edges are kept sorted by (src, dst) and in-edges by (dst, src).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+
+from repro_torch.graph import csr
+from repro_torch.graph.csr import WORD_BITS
+
+#: The scalar fields of :class:`PartitionedGraph`; the rest are arrays.
+SCALARS = ("p", "n", "n_words", "n_edges", "vmax", "emax", "wmax")
+
+
+@dataclasses.dataclass
+class PartitionedGraph:
+    """Static-shape, rank-stacked view of a 1D-partitioned graph."""
+
+    p: int
+    n: int  # global vertex count (multiple of 32)
+    n_words: int  # bitmap words EXCHANGED (includes slack, multiple of 128)
+    n_edges: int  # global directed edge count
+    vmax: int  # max owned vertices per rank
+    emax: int  # max owned edges per rank (same pad for out and in)
+    v_start: np.ndarray  # int32[P]
+    v_count: np.ndarray  # int32[P]
+    word_start: np.ndarray  # int32[P] == v_start // 32
+    wmax: int  # max owned bitmap words per rank
+    edge_src: np.ndarray  # int32[P, emax]   out-edges, sorted by (src, dst)
+    edge_dst: np.ndarray  # int32[P, emax]
+    edge_count: np.ndarray  # int32[P]
+    in_src: np.ndarray  # int32[P, emax]   in-edges, sorted by (dst, src)
+    in_dst: np.ndarray  # int32[P, emax]
+    in_count: np.ndarray  # int32[P]
+    deg_out: np.ndarray  # int32[P, vmax]  out-degree of owned vertices
+
+    def owner_of(self, v: int) -> int:
+        return int(np.searchsorted(self.v_start, v, side="right") - 1)
+
+    def scalars(self) -> Dict[str, int]:
+        return {k: int(getattr(self, k)) for k in SCALARS}
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The ``[P, ...]`` planes handed to the traversal."""
+        return dict(
+            v_start=self.v_start,
+            v_count=self.v_count,
+            word_start=self.word_start,
+            edge_src=self.edge_src,
+            edge_dst=self.edge_dst,
+            edge_count=self.edge_count,
+            in_src=self.in_src,
+            in_dst=self.in_dst,
+            in_count=self.in_count,
+            deg_out=self.deg_out,
+        )
+
+
+def from_reference(scalars: dict, arrays: Dict[str, np.ndarray]) -> PartitionedGraph:
+    """Build the port's :class:`PartitionedGraph` from the JAX package's
+    state: its scalars (``p``, ``n``, ...) and its ``pg.arrays()``.
+
+    Carries one partition across the two packages so that both traverse
+    identical state.  Weighted partitions are not part of the port yet.
+    """
+    if set(scalars) != set(SCALARS):
+        raise ValueError(f"scalars must have exactly the keys {SCALARS}, "
+                         f"got {sorted(scalars)}")
+    keys = {f.name for f in dataclasses.fields(PartitionedGraph)} - set(SCALARS)
+    if set(arrays) != keys:
+        raise ValueError(f"arrays must have exactly the keys {sorted(keys)}, "
+                         f"got {sorted(arrays)}")
+    return PartitionedGraph(
+        **{k: int(v) for k, v in scalars.items()},
+        **{k: np.array(v, dtype=np.int32) for k, v in arrays.items()},
+    )
+
+
+def _round32(x: int) -> int:
+    return (x + WORD_BITS - 1) // WORD_BITS * WORD_BITS
+
+
+def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGraph:
+    """Split vertices into ``p`` contiguous ranges with near-equal edges."""
+    if not g._validated:  # corrupt inputs fail here, not as wrong traversals
+        g.validate()
+    cum = g.row_offsets  # int64[n+1], cumulative out-degree
+    bounds: List[int] = [0]
+    for i in range(1, p):
+        target = g.n_edges * i // p
+        b = int(np.searchsorted(cum, target, side="left"))
+        b = min(max(_round32(b), bounds[-1]), g.n)
+        bounds.append(b)
+    bounds.append(g.n)
+    v_start = np.array(bounds[:-1], dtype=np.int32)
+    v_end = np.array(bounds[1:], dtype=np.int32)
+    v_count = v_end - v_start
+
+    # --- out-edges per rank (already sorted by (src, dst) globally)
+    e_lo = cum[v_start]
+    e_hi = cum[v_end]
+    edge_count = (e_hi - e_lo).astype(np.int32)
+
+    # --- in-edges per rank (CSC view, grouped by destination)
+    in_offsets, in_src_all, in_dst_all = csr.in_csr(g)
+    ie_lo = in_offsets[v_start]
+    ie_hi = in_offsets[v_end]
+    in_count = (ie_hi - ie_lo).astype(np.int32)
+
+    emax = int(max(1, max(edge_count.max(initial=0), in_count.max(initial=0))))
+    emax = (emax + lane_pad - 1) // lane_pad * lane_pad
+    vmax = int(max(WORD_BITS, v_count.max(initial=0)))
+    vmax = _round32(vmax)
+    wmax = vmax // WORD_BITS
+
+    edge_src = np.zeros((p, emax), dtype=np.int32)
+    edge_dst = np.zeros((p, emax), dtype=np.int32)
+    in_src = np.zeros((p, emax), dtype=np.int32)
+    in_dst = np.zeros((p, emax), dtype=np.int32)
+    deg_out = np.zeros((p, vmax), dtype=np.int32)
+    degrees = g.out_degree
+    for i in range(p):
+        s, e = int(e_lo[i]), int(e_hi[i])
+        edge_src[i, : e - s] = g.src[s:e]
+        edge_dst[i, : e - s] = g.dst[s:e]
+        s, e = int(ie_lo[i]), int(ie_hi[i])
+        in_src[i, : e - s] = in_src_all[s:e]
+        in_dst[i, : e - s] = in_dst_all[s:e]
+        deg_out[i, : v_count[i]] = degrees[v_start[i] : v_end[i]]
+
+    # Exchanged bitmap length: whole graph + one rank window of slack so
+    # every rank can slice its aligned [word_start, word_start+wmax)
+    # window without clamping; padded to the 128-word boundary.
+    n_words = g.n // WORD_BITS + wmax
+    n_words = (n_words + lane_pad - 1) // lane_pad * lane_pad
+
+    return PartitionedGraph(
+        p=p,
+        n=g.n,
+        n_words=n_words,
+        n_edges=g.n_edges,
+        vmax=vmax,
+        emax=emax,
+        v_start=v_start,
+        v_count=v_count,
+        word_start=(v_start // WORD_BITS).astype(np.int32),
+        wmax=wmax,
+        edge_src=edge_src,
+        edge_dst=edge_dst,
+        edge_count=edge_count,
+        in_src=in_src,
+        in_dst=in_dst,
+        in_count=in_count,
+        deg_out=deg_out,
+    )

@@ -1,0 +1,271 @@
+"""PyTorch port, kernels: on CPU tensors each wrapper takes its plain
+version, which equals the JAX package's Pallas kernel (interpret mode)
+over the shape sweeps of tests/test_kernels.py, rank by rank.  The CUDA
+kernels themselves are held against the plain versions on the card by
+chip_smoke.py."""
+
+import os
+import stat
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.graph import generators as ref_gen
+from repro.graph import partition as ref_part
+from repro.kernels import blocks as ref_blocks
+from repro.kernels import ops as ref_ops
+from repro_torch.core import frontier as fr
+from repro_torch.graph import partition
+from repro_torch.kernels import bitmap_merge, blocks, build, frontier_gather
+from repro_torch.kernels import frontier_scatter, ops
+
+P = 2  # ranks stacked per call
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _u32(t):
+    return t.view(torch.uint32).numpy() if t.dtype == torch.int32 else t.numpy()
+
+
+def _words(rng, *shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+
+# --- bitmap OR-reduce --------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("w", [128, 1024, 4096])
+def test_bitmap_or_reduce_matches_pallas(k, w):
+    rng = np.random.default_rng(k * w)
+    stack = _words(rng, P, k, w)
+    got = _u32(bitmap_merge.bitmap_or_reduce(_t(stack)))
+    for r in range(P):
+        want = ref_ops.bitmap_or_reduce(jnp.asarray(stack[r]))
+        np.testing.assert_array_equal(got[r], np.asarray(want), err_msg=f"rank {r}")
+
+
+# --- frontier gather ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("nb,eb,ww", [(4, 128, 8), (7, 256, 16), (2, 512, 64)])
+def test_frontier_gather_windowed_matches_pallas(nb, eb, ww):
+    rng = np.random.default_rng(nb)
+    w = ww * 8
+    words = _words(rng, P, w)
+    block_ws = rng.integers(0, w // ww, size=(P, nb)).astype(np.int32)
+    src_local = rng.integers(0, ww * 32, size=(P, nb, eb)).astype(np.int32)
+    got = frontier_gather.frontier_gather(_t(words), _t(block_ws), _t(src_local), ww=ww)
+    assert got.dtype == torch.bool
+    for r in range(P):
+        want = ref_ops.frontier_gather(jnp.asarray(words[r]), jnp.asarray(block_ws[r]),
+                                       jnp.asarray(src_local[r]), ww=ww)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nb,eb", [(3, 128), (6, 512)])
+def test_frontier_gather_full_matches_pallas(nb, eb):
+    rng = np.random.default_rng(nb)
+    w = 256
+    words = _words(rng, P, w)
+    src = rng.integers(0, w * 32, size=(P, nb, eb)).astype(np.int32)
+    got = frontier_gather.frontier_gather_full(_t(words), _t(src))
+    for r in range(P):
+        want = ref_ops.frontier_gather_full(jnp.asarray(words[r]), jnp.asarray(src[r]))
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
+
+
+# --- frontier scatter --------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_windows,ww,nb,eb", [(4, 8, 6, 128), (2, 64, 3, 512),
+                                                (6, 8, 3, 128)])
+def test_frontier_scatter_matches_pallas(n_windows, ww, nb, eb):
+    rng = np.random.default_rng(nb * ww)
+    bits = ww * 32
+    block_win = np.sort(rng.integers(0, n_windows, size=(P, nb)), axis=1).astype(np.int32)
+    block_first = np.zeros((P, nb), np.int32)
+    for r in range(P):
+        _, first = np.unique(block_win[r], return_index=True)
+        block_first[r, first] = 1
+    dst_local = rng.integers(0, bits + 1, size=(P, nb, eb)).astype(np.int32)
+    active = rng.integers(0, 2, size=(P, nb, eb)).astype(bool)
+    got = _u32(frontier_scatter.frontier_scatter(
+        _t(active), _t(block_win), _t(dst_local), n_windows=n_windows, ww=ww))
+    for r in range(P):
+        want = np.asarray(ref_ops.frontier_scatter(
+            jnp.asarray(active[r]), jnp.asarray(block_win[r]), jnp.asarray(block_first[r]),
+            jnp.asarray(dst_local[r]), n_windows=n_windows, ww=ww)).reshape(n_windows, ww)
+        g = got[r].reshape(n_windows, ww)
+        covered = np.zeros(n_windows, bool)
+        covered[block_win[r]] = True
+        # the Pallas kernel leaves uncovered windows undefined; the port zeroes them
+        np.testing.assert_array_equal(g[covered], want[covered])
+        assert not g[~covered].any()
+
+
+# --- BFS-facing expansion ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def kron9():
+    out = {}
+    for p in (1, 2):
+        rpg = ref_part.partition_1d(ref_gen.kronecker(9, 6, seed=5), p)
+        rlay = ref_blocks.build_bfs_layout(rpg)
+        tpg = partition.from_reference(
+            {k: getattr(rpg, k) for k in partition.SCALARS}, rpg.arrays())
+        tlay = blocks.build_bfs_layout(tpg)
+        out[p] = (rpg, rlay, tpg, tlay)
+    return out
+
+
+def _ref_arrays(rpg, rlay, r):
+    arrays = {k: jnp.asarray(v[r]) for k, v in rpg.arrays().items()}
+    arrays.update({k: jnp.asarray(v[r]) for k, v in rlay.arrays.items()})
+    return arrays
+
+
+def _port_arrays(tpg, tlay):
+    arrays = {k: torch.from_numpy(v) for k, v in tpg.arrays().items()}
+    arrays.update({k: torch.from_numpy(v) for k, v in tlay.arrays.items()})
+    for k in ("tds_perm", "pus_perm"):
+        arrays[k] = arrays[k].long()
+    return arrays
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("density", [0.05, 0.5])
+def test_expand_push_matches_pallas(kron9, p, density):
+    rpg, rlay, tpg, tlay = kron9[p]
+    rng = np.random.default_rng(p)
+    front = fr.pack(torch.from_numpy(rng.random((p, tpg.n_words * 32)) < density))
+    got = _u32(ops.expand_push(front, _port_arrays(tpg, tlay), tlay.meta, tpg.n_words))
+    for r in range(p):
+        want = ref_ops.expand_push_pallas(jnp.asarray(_u32(front)[r]),
+                                          _ref_arrays(rpg, rlay, r), rlay.meta, rpg.n_words)
+        np.testing.assert_array_equal(got[r], np.asarray(want), err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_expand_pull_matches_pallas(kron9, p):
+    rpg, rlay, tpg, tlay = kron9[p]
+    rng = np.random.default_rng(10 + p)
+    front = fr.pack(torch.from_numpy(rng.random((p, tpg.n_words * 32)) < 0.1))
+    visited = front | fr.pack(torch.from_numpy(rng.random((p, tpg.n_words * 32)) < 0.3))
+    got = _u32(ops.expand_pull(front, visited, _port_arrays(tpg, tlay), tlay.meta,
+                               tpg.n_words))
+    for r in range(p):
+        want = ref_ops.expand_pull_pallas(
+            jnp.asarray(_u32(front)[r]), jnp.asarray(_u32(visited)[r]),
+            _ref_arrays(rpg, rlay, r), rlay.meta, rpg.n_words)
+        np.testing.assert_array_equal(got[r], np.asarray(want), err_msg=f"rank {r}")
+
+
+# --- wrapper contracts -------------------------------------------------------
+
+
+def test_wrappers_check_dtype_shape_and_contiguity():
+    words = torch.zeros(2, 64, dtype=torch.int32)
+    src = torch.zeros(2, 3, 128, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        frontier_gather.frontier_gather_full(words.long(), src)
+    with pytest.raises(ValueError, match="contiguous"):
+        frontier_gather.frontier_gather_full(words[:, ::2], src)
+    with pytest.raises(ValueError, match="ranks"):
+        frontier_gather.frontier_gather_full(words, src[:1])
+    with pytest.raises(ValueError, match="multiple"):
+        frontier_gather.frontier_gather(words, torch.zeros(2, 3, dtype=torch.int32),
+                                        src, ww=48)
+    with pytest.raises(ValueError, match="disagree"):
+        frontier_scatter.frontier_scatter(torch.zeros(2, 3, 128, dtype=torch.bool),
+                                          torch.zeros(2, 4, dtype=torch.int32), src,
+                                          n_windows=2, ww=8)
+    with pytest.raises(ValueError, match="rank"):
+        bitmap_merge.bitmap_or_reduce(words)
+
+
+def test_wrappers_route_by_device_and_count_only_launches():
+    build.reset_launches()
+    out = bitmap_merge.bitmap_or_reduce(torch.ones(1, 2, 4, dtype=torch.int32))
+    assert out.tolist() == [[1, 1, 1, 1]]
+    assert build.LAUNCHES["bitmap_or_reduce"] == 0  # the plain path launched nothing
+    with pytest.raises(ValueError, match="no kernel"):
+        bitmap_merge.bitmap_or_reduce(torch.ones(1, 2, 4, dtype=torch.int32, device="meta"))
+
+
+# --- build -------------------------------------------------------------------
+
+_FAKE_NVCC = """\
+#!{python}
+import sys
+args = sys.argv[1:]
+if any(a.endswith("bad.cu") for a in args):
+    print("bad.cu(1): error: expected a declaration"); sys.exit(1)
+open(args[args.index("-o") + 1], "w").write("object")
+print("ptxas info    : Used 8 registers")
+"""
+
+
+@pytest.fixture()
+def fake_toolchain(tmp_path, monkeypatch):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(textwrap.dedent(_FAKE_NVCC.format(python=sys.executable)))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    return csrc
+
+
+def test_build_keys_library_on_source_hash(fake_toolchain):
+    lib = build.build()
+    assert lib.exists() and lib.parent.parent == build.BUILD_ROOT
+    assert "registers" in (lib.parent / "build.log").read_text()
+    assert build.build() == lib  # cached
+    (fake_toolchain / "a.cu").write_text("// a, edited\n")
+    assert build.build() != lib
+
+
+def test_failed_build_raises(fake_toolchain):
+    (fake_toolchain / "bad.cu").write_text("oops\n")
+    with pytest.raises(RuntimeError, match="bad.cu"):
+        build.build()
+    assert not list(build.BUILD_ROOT.rglob(build.LIB_NAME))
+
+
+def test_kernel_sources_carry_their_notes():
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        assert "Replaces the TPU kernel" in text, src.name
+        assert "What bounds it on the H100" in text, src.name
+        assert "What the design does about it" in text, src.name
+    entry_points = {n for src in build.CSRC.glob("*.cu")
+                    for n in build.SIGNATURES if f"repro_{n}(" in src.read_text()}
+    assert entry_points == set(build.SIGNATURES)
+
+
+def test_nvcc_missing_raises(monkeypatch):
+    monkeypatch.setenv("PATH", os.devnull)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
