@@ -11,18 +11,26 @@ account:
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
 3. ETL: Kronecker graph, 1D partition over P simulated ranks, kernel layout,
    placement on the card; the 1024x1024 torus the same way;
-4. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the shapes the layouts give it, exactly (integer kernels), with its
-   time (CUDA events), the plain version's time and the memory bound;
-5. Kronecker BFS, direction-optimizing, butterfly fanout 4, through the
+4. kernel checks at every call site of the main path: each kernel against
+   its plain PyTorch version on the card, at the shapes the layout gives
+   that site, exactly (integer kernels), with its time (CUDA events, L2
+   flushed before each launch), the plain version's time and the memory
+   bound; the scatter at 50 % and at 2 % random activity;
+5. edge cases: the scatter and the windowed gather held exactly against
+   their plain versions at the shapes and inputs a warp-per-block design
+   can get wrong (one block, ragged grids, eb not a multiple of 16,
+   misaligned views, the widest windows, hub blocks, bit 31, padding);
+6. Kronecker BFS, direction-optimizing, butterfly fanout 4, through the
    kernels: per-root time, trimmed GTEP/s, Graph500-style validation of
    every root, one root against the plain path bit for bit;
-6. torus BFS, top-down (the windowed-gather path), the same way;
-7. the launch count of every kernel over phases 5 and 6 (each must be > 0);
-8. one root of each graph under ``torch.profiler`` (device time by kernel,
-   the device's busy share), after every timed run; then the torus roots
-   timed again, to show what a profiler session costs the runs after it;
-9. ``{"ok": true, ...}`` as the last line.
+7. torus BFS, top-down (the windowed-gather path), the same way;
+8. the launch count of every kernel over phases 6 and 7 (each must be > 0),
+   and from the counts the launches per BFS of every call site;
+9. one root of each graph under ``torch.profiler`` (device time by kernel
+   and by call site, the device's busy share), after every timed run; then
+   the torus roots timed again, to show what a profiler session costs the
+   runs after it;
+10. the call-site table, the kernel line, and ``{"ok": true, ...}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as JSON.
@@ -31,6 +39,7 @@ before printing any result.  ``--out PATH`` also writes the results as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -42,6 +51,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+SECTOR_BYTES = 32  # the least the memory delivers
+L2_FLUSH_BYTES = 256 << 20  # over the 50 MB L2
 REPLACES = {
     "frontier_gather_full": "src/repro/kernels/frontier_gather.py:77",
     "frontier_gather": "src/repro/kernels/frontier_gather.py:33",
@@ -54,6 +65,25 @@ SOURCES = {
     "frontier_scatter": "src/repro_torch/kernels/csrc/frontier_scatter.cu",
     "bitmap_or_reduce": "src/repro_torch/kernels/csrc/bitmap_merge.cu",
 }
+# the module of the port that holds each kernel's wrapper
+WRAPPERS = {"frontier_gather_full": "frontier_gather", "frontier_gather": "frontier_gather",
+            "frontier_scatter": "frontier_scatter", "bitmap_or_reduce": "bitmap_merge"}
+# the gather a layout's ``*gather_full`` flag selects
+GATHER = {1: "frontier_gather_full", 0: "frontier_gather"}
+# the site of each kernel whose row stands for it in the kernel line
+MAIN_SITE = {
+    "frontier_gather_full": ("kronecker", "tdg_src", None),
+    "frontier_gather": ("torus", "tdg_src", None),
+    "frontier_scatter": ("kronecker", "tds", 0.5),
+    "bitmap_or_reduce": ("kronecker", "merge", None),
+}
+# what the profiler calls the device work of each wrapper
+DEVICE_NAMES = {"frontier_gather_full": ("::gather_full_kernel",),
+                "frontier_gather": ("::gather_window_kernel",),
+                "frontier_scatter": ("::scatter_kernel", "Memset"),
+                "bitmap_or_reduce": ("::or_reduce_kernel",)}
+# the layout plane each expansion-op call reads, by argument position
+SITE_ARG = {"frontier_gather_full": 1, "frontier_gather": 2, "frontier_scatter": 2}
 
 
 def log(msg: str) -> None:
@@ -61,34 +91,63 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
-    after a warm-up)."""
+    """Mean device time of one ``fn()`` over ``reps`` launches, each timed
+    alone by CUDA events after the L2 is flushed (a caller in the BFS finds
+    the layout planes cold), after a warm-up.  The flush reads a buffer
+    larger than the L2, so it leaves no dirty lines to write back, and
+    keeps the device busy while the host enqueues the launch, so host time
+    is not counted; what a pair of events costs around one launch is not
+    taken off (``event_floor_ms`` measures it)."""
     import torch
 
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    events = []
     for _ in range(reps):
+        flush.amax()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def event_floor_ms(reps: int = 50) -> float:
+    """What ``time_ms`` reads for a launch that does almost nothing (a
+    4-byte fill): the floor under every kernel time it gives."""
+    import torch
+
+    x = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return time_ms(x.zero_, reps)
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def random_words(shape, gen, dev):
-    """int32 words with uniformly random bits."""
+def random_words(shape, gen, dev, density=0.5):
+    """int32 words whose bits are set with probability ``density``."""
     import torch
 
-    raw = torch.randint(0, 256, (*shape, 4), dtype=torch.uint8, generator=gen,
-                        device=dev)
-    return raw.view(torch.int32).reshape(shape)
+    if density == 0.5:
+        raw = torch.randint(0, 256, (*shape, 4), dtype=torch.uint8, generator=gen,
+                            device=dev)
+        return raw.view(torch.int32).reshape(shape)
+    from repro_torch.core import frontier as fr
+
+    bits = torch.rand((*shape[:-1], shape[-1] * 32), generator=gen, device=dev) < density
+    return fr.pack(bits)
 
 
 def distinct_word_bytes(word_idx) -> int:
@@ -102,12 +161,120 @@ def distinct_word_bytes(word_idx) -> int:
     return 4 * torch.unique(keys).numel()
 
 
-def check_kernel(name, kernel, plain, inputs, moved, reps=20):
-    """Hold ``kernel()`` against ``plain()`` exactly and time both; ``moved``
-    is the least number of bytes the function must move, the bound's
-    numerator.  Returns the kernel's record for the JSON line."""
+def scatter_least_bytes(active, block_win, dst_local, out_words: int) -> int:
+    """What a scatter must move at the least: ``active``, ``block_win`` and
+    the ``out_words`` int32 output words whole, and of ``dst_local`` the
+    32-byte sectors that hold an active slot (an inactive slot's offset
+    need not be read; a sector is the least the memory delivers)."""
+    import torch.nn.functional as F
+
+    per = SECTOR_BYTES // dst_local.element_size()
+    flat = active.reshape(-1)
+    flat = F.pad(flat, (0, -flat.numel() % per))
+    sectors = int(flat.view(-1, per).any(dim=1).sum())
+    return nbytes(active, block_win) + 4 * out_words + SECTOR_BYTES * sectors
+
+
+def site_launches(counts, meta, n_runs):
+    """Launches per BFS of every call site of the expansion ops, from the
+    launch counts of ``n_runs`` BFS runs over one layout (``meta``).  A push
+    level launches one gather (of ``tdg_src``) and one scatter (``tds``); a
+    pull level two gathers (``in_src_blocks``, ``pug_dst``) and one scatter
+    (``pus``); so the pull levels are the gathers less the scatters."""
+    full, win = counts["frontier_gather_full"], counts["frontier_gather"]
+    pull = full + win - counts["frontier_scatter"]
+    push = counts["frontier_scatter"] - pull
+    sites = {
+        (GATHER[meta["gather_full"]], "tdg_src"): push,
+        ("frontier_gather_full", "in_src_blocks"): pull,
+        (GATHER[meta["pull_gather_full"]], "pug_dst"): pull,
+        ("frontier_scatter", "tds"): push,
+        ("frontier_scatter", "pus"): pull,
+        ("bitmap_or_reduce", "merge"): counts["bitmap_or_reduce"],
+    }
+    for name in GATHER.values():
+        if sum(n for (k, _), n in sites.items() if k == name) != counts[name]:
+            raise AssertionError(f"{name}: {counts} do not split into push "
+                                 f"and pull levels under {meta}")
+    if min(push, pull) < 0:
+        raise AssertionError(f"{counts} give {push} push and {pull} pull levels")
+    return {k: v / n_runs for k, v in sites.items()}
+
+
+def wrapper(name):
+    """The wrapper of kernel ``name`` in the ``repro_torch`` imported now."""
+    import importlib
+
+    return getattr(importlib.import_module(f"repro_torch.kernels.{WRAPPERS[name]}"), name)
+
+
+def site_cases(cell, parts, gen, dev, fanout, activities=(0.5, 0.02)):
+    """The input of every kernel at every site where one cell's main path
+    calls it, on random bitmaps and activity: ``name``, ``cell``, ``plane``,
+    ``activity`` (scatter), ``args`` and ``kwargs`` (the same for the
+    wrapper and its plain version) and ``bytes``, the least the function
+    must move: every input read once and the output written once, but a
+    gather reads only the distinct bitmap words its indices reach and the
+    scatter only the offset sectors that hold an active slot."""
     import torch
 
+    a, m, p = parts["arrays"], parts["layout"].meta, parts["pg"].p
+    cases = []
+
+    def gather(plane, full, ww, ws, words_pad):
+        words = random_words((p, m[words_pad]), gen, dev)
+        src = a[plane]
+        if full:
+            cases.append(dict(name="frontier_gather_full", cell=cell, plane=plane,
+                              args=(words, src), kwargs={},
+                              bytes=distinct_word_bytes(src >> 5) + nbytes(src)
+                              + src.numel()))
+            return
+        ws, ww = a[ws], m[ww]
+        window_words = (ws.long() * ww)[..., None] + torch.arange(ww, device=dev)
+        cases.append(dict(name="frontier_gather", cell=cell, plane=plane,
+                          args=(words, ws, src), kwargs=dict(ww=ww),
+                          bytes=distinct_word_bytes(window_words) + nbytes(ws, src)
+                          + src.numel()))
+
+    pulls = parts["mode"] != "top_down"
+    gather("tdg_src", m["gather_full"], "gather_ww", "tdg_ws", "gather_words_pad")
+    if pulls:
+        gather("in_src_blocks", True, None, None, "gather_words_pad")
+        gather("pug_dst", m["pull_gather_full"], "pull_gather_ww", "pug_ws",
+               "pull_gather_words_pad")
+    n_windows, ww = m["scatter_windows"], m["scatter_ww"]
+    for prefix in ("tds", "pus") if pulls else ("tds",):
+        win, dst = a[prefix + "_win"], a[prefix + "_dst"]
+        for act in activities:
+            active = torch.rand(dst.shape, generator=gen, device=dev) < act
+            cases.append(dict(name="frontier_scatter", cell=cell, plane=prefix,
+                              activity=act, args=(active, win, dst),
+                              kwargs=dict(n_windows=n_windows, ww=ww),
+                              bytes=scatter_least_bytes(active, win, dst,
+                                                        p * n_windows * ww)))
+    stack = random_words((p, fanout, parts["pg"].n_words), gen, dev)
+    cases.append(dict(name="bitmap_or_reduce", cell=cell, plane="merge",
+                      args=(stack,), kwargs={},
+                      bytes=nbytes(stack) // fanout * (fanout + 1)))
+    return cases
+
+
+def site_key(case):
+    return {k: case[k] for k in ("cell", "plane", "activity") if k in case}
+
+
+def check_kernel(case, reps=20):
+    """Hold the wrapper of ``case["name"]`` against its plain version
+    exactly on the case's inputs and time both.  Returns the record for the
+    kernel line, with the site's keys (cell, plane, activity) beside."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    name, args, kwargs = case["name"], case["args"], case["kwargs"]
+    fn, plain_fn = wrapper(name), getattr(ref, name)
+    kernel, plain = (lambda: fn(*args, **kwargs)), (lambda: plain_fn(*args, **kwargs))
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -115,18 +282,123 @@ def check_kernel(name, kernel, plain, inputs, moved, reps=20):
                              f"plain {want.dtype}{tuple(want.shape)}")
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
-        raise AssertionError(f"{name}: kernel differs from its plain version "
-                             f"(max abs err {err})")
+        raise AssertionError(f"{name} {site_key(case)}: kernel differs from its "
+                             f"plain version (max abs err {err})")
     ms = time_ms(kernel, reps)
     plain_ms = time_ms(plain, max(2, reps // 4))
+    moved = case["bytes"]
     rec = dict(name=name, route="cuda", source=SOURCES[name],
                replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                bound_by="bytes", library_ms=None,
-               shape=" ".join(f"{tuple(t.shape)}" for t in inputs))
-    log(f"  {name}: exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms for {moved / 1e6:.1f} MB) at {rec['shape']}")
+               shape=" ".join(f"{tuple(t.shape)}" for t in args),
+               bytes=moved, **site_key(case))
+    log(f"  {name} {site_key(case)}: exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB) at {rec['shape']}")
     return rec
+
+
+def _placed(t, misalign):
+    """``t``, or a contiguous copy whose first element is 1 element past a
+    16-byte boundary."""
+    import torch
+
+    if not misalign:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _sorted_offsets(p, nb, eb, bits, gen, dev, *, ordered=True):
+    """``dst_local``-like offsets: random in the window, sorted within each
+    block as the layout sorts them, with a random tail of padding slots
+    (offset ``bits``)."""
+    import torch
+
+    x = torch.randint(0, bits, (p, nb, eb), generator=gen, device=dev, dtype=torch.int32)
+    if ordered:
+        x = x.sort(dim=-1).values
+    pad = torch.randint(0, eb // 4 + 1, (p, nb, 1), generator=gen, device=dev)
+    x = torch.where(torch.arange(eb, device=dev) >= eb - pad, bits, x)
+    if not ordered:
+        x = x[..., torch.randperm(eb, generator=gen, device=dev)]
+    return x.to(torch.int32).contiguous()
+
+
+SCATTER_CASES = [
+    # P, NB, eb, ww, windows, activity, misaligned, hub, sorted
+    (1, 1, 512, 64, 4, 1.0, False, False, True),
+    (16, 37, 512, 64, 64, 0.5, False, True, True),
+    (16, 2053, 512, 64, 1500, 0.02, False, True, True),
+    (16, 211, 512, 64, 300, 0.0, False, False, True),
+    (4, 57, 128, 8, 40, 0.5, False, True, True),
+    (4, 33, 200, 8, 40, 0.5, False, True, True),
+    (4, 33, 512, 64, 40, 1.0, True, True, True),
+    (2, 9, 512, 12288, 3, 0.5, False, True, True),
+    (2, 9, 200, 12288, 3, 0.02, True, False, True),
+    (16, 301, 512, 64, 200, 0.5, False, False, False),
+    (1, 5, 512, 8, 2, 1.0, False, True, True),
+]
+GATHER_CASES = [
+    # P, NB, eb, ww, words, word density, misaligned, hub
+    (1, 1, 512, 8, 64, 0.5, False, False),
+    (16, 37, 512, 8, 1024, 0.02, False, True),
+    (16, 2053, 512, 32, 4096, 0.5, False, True),
+    (4, 57, 128, 64, 1024, 1.0, False, True),
+    (4, 33, 200, 8, 256, 0.5, False, True),
+    (4, 33, 200, 4096, 16384, 0.0, False, False),
+    (4, 33, 512, 8, 256, 0.5, True, True),
+    (2, 9, 512, 4096, 8192, 0.02, True, True),
+    (2, 5, 512, 12288, 24576, 0.5, False, True),
+]
+
+
+def edge_cases(gen, dev):
+    """Phase 5: the scatter and the windowed gather exactly against their
+    plain versions on the cases above.  A hub block sends all its slots to
+    bit 31 of its window's last word; windows no block covers stay zero."""
+    import torch
+
+    from repro_torch.kernels import frontier_gather, frontier_scatter, ref
+
+    for case in SCATTER_CASES:
+        p, nb, eb, ww, n_windows, act, misalign, hub, ordered = case
+        bits = ww * 32
+        win = torch.randint(0, n_windows, (p, nb), generator=gen, device=dev,
+                            dtype=torch.int32).sort(dim=1).values.contiguous()
+        dst = _sorted_offsets(p, nb, eb, bits, gen, dev, ordered=ordered)
+        active = torch.rand((p, nb, eb), generator=gen, device=dev) < act
+        if hub:
+            dst[:, 0] = bits - 1
+            active[:, 0] = True
+        active, dst = _placed(active, misalign), _placed(dst, misalign)
+        got = frontier_scatter.frontier_scatter(active, win, dst,
+                                                n_windows=n_windows, ww=ww)
+        want = ref.frontier_scatter(active, win, dst, n_windows, ww)
+        if not torch.equal(got, want):
+            raise AssertionError(f"frontier_scatter differs from its plain version "
+                                 f"on edge case {case}")
+    for case in GATHER_CASES:
+        p, nb, eb, ww, n_words, density, misalign, hub = case
+        bits = ww * 32
+        words = random_words((p, n_words), gen, dev, density)
+        ws = torch.randint(0, n_words // ww, (p, nb), generator=gen, device=dev,
+                           dtype=torch.int32)
+        src = torch.randint(0, bits, (p, nb, eb), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if hub:
+            src[:, 0] = bits - 1
+        src = _placed(src, misalign)
+        got = frontier_gather.frontier_gather(words, ws, src, ww=ww)
+        want = ref.frontier_gather(words, ws, src, ww)
+        if not torch.equal(got, want):
+            raise AssertionError(f"frontier_gather differs from its plain version "
+                                 f"on edge case {case}")
+    log(f"  {len(SCATTER_CASES)} scatter and {len(GATHER_CASES)} windowed-gather "
+        f"cases exact")
+    return len(SCATTER_CASES) + len(GATHER_CASES)
 
 
 def validate(g, labels, root, dist) -> None:
@@ -153,7 +425,7 @@ def validate(g, labels, root, dist) -> None:
                              f"have no neighbour one level up")
 
 
-def etl(label, make_graph, ranks, dev):
+def etl(label, make_graph, ranks, dev, mode):
     """Generate, partition, lay out and place one graph; returns its parts."""
     import torch
 
@@ -181,34 +453,114 @@ def etl(label, make_graph, ranks, dev):
         f"place {s[4]:.1f} s; {dev_bytes / 1e9:.2f} GB on the card; "
         f"meta {layout.meta}")
     return dict(g=g, pg=pg, layout=layout, labels=labels, arrays=arrays,
-                etl_s=s, device_bytes=dev_bytes)
+                etl_s=s, device_bytes=dev_bytes, mode=mode)
 
 
-def device_breakdown(label, run, wall_ms, top=8):
-    """Where one BFS's time goes: device time by kernel name from
-    ``torch.profiler`` over one run, and the device's busy share of
+@contextlib.contextmanager
+def site_ranges(sites):
+    """Inside the block, every kernel call of the expansion ops runs in a
+    profiler range named for its call site: ``sites`` maps the data pointer
+    of the layout plane a call reads to the range's name."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import ops
+
+    saved = {name: getattr(ops, name) for name in SITE_ARG}
+
+    def labelled(name, fn):
+        def call(*args, **kwargs):
+            with record_function(sites.get(args[SITE_ARG[name]].data_ptr(), name)):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, labelled(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def site_label(cell, name, plane):
+    return f"{cell}:{name}@{plane}"
+
+
+def call_sites(cell, meta, arrays):
+    """Profiler range name of every expansion-op call site of one cell, by
+    the data pointer of the layout plane the call reads."""
+    planes = [(GATHER[meta["gather_full"]], "tdg_src", "tdg_src"),
+              ("frontier_gather_full", "in_src_blocks", "in_src_blocks"),
+              (GATHER[meta["pull_gather_full"]], "pug_dst", "pug_dst"),
+              ("frontier_scatter", "tds_dst", "tds"),
+              ("frontier_scatter", "pus_dst", "pus")]
+    return {arrays[key].data_ptr(): site_label(cell, name, plane)
+            for name, key, plane in planes}
+
+
+def device_breakdown(label, run, wall_ms, sites, top=8):
+    """Where one BFS's time goes: device time by kernel name and by call
+    site (``sites``: plane pointer -> range name; the merge has one site)
+    from ``torch.profiler`` over one run, and the device's busy share of
     ``wall_ms``, the same run's time unprofiled (the profiler slows the
-    host, not the kernels)."""
+    host, not the kernels).  A site's time is the device span of its
+    profiler range (its first launch's start to its last launch's end),
+    capped by the device time of every launch of its kernel in the run
+    (the scatter's with every memset): where the host lags the device, the
+    span also counts the gap between the scatter's zero-fill and its
+    kernel, and the cap does not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with site_ranges(sites), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    names = set(sites.values())
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and not e.is_user_annotation and e.key not in names]
     kernels.sort(key=lambda e: -e.self_device_time_total)
+
+    def launched(name):
+        return [e for e in kernels if any(k in e.key for k in DEVICE_NAMES[name])]
+
+    calls = {e.key: e.count for e in events if e.key in names
+             and e.device_type.name == "CPU"}
+    per_site = {}
+    for e in events:
+        if e.key in calls and e.device_type.name == "CUDA":
+            span = e.self_device_time_total / 1e3
+            cap = sum(k.self_device_time_total for k in launched(
+                e.key.split(":")[1].split("@")[0])) / 1e3
+            per_site[e.key] = dict(ms=min(span, cap), span_ms=span, count=calls[e.key])
+    merge = launched("bitmap_or_reduce")
+    if merge:
+        per_site[site_label(label, "bitmap_or_reduce", "merge")] = dict(
+            ms=sum(e.self_device_time_total for e in merge) / 1e3,
+            count=sum(e.count for e in merge))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     rows = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
             for e in kernels[:top]]
     if not rows:
         log(f"  {label} profile: the profiler saw no device time (not measured)")
-        return dict(wall_ms=wall_ms, device_busy_ms=None, top=[])
+        return dict(wall_ms=wall_ms, device_busy_ms=None, top=[], sites={})
     log(f"  {label} profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall ({busy_ms / wall_ms:.1%}); device time by kernel:")
     for name, ms, n in rows:
         log(f"    {ms:9.3f} ms  {n:6d}x  {name}")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=rows)
+    port = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+            for name in DEVICE_NAMES for e in launched(name)]
+    log("  the port's kernels and memsets:")
+    for name, ms, n in port:
+        log(f"    {ms:9.3f} ms  {n:6d}x  {name}")
+    log("  device time by call site:")
+    for name, rec in sorted(per_site.items()):
+        span = "" if rec.get("span_ms") is None else f" (span {rec['span_ms']:.3f} ms)"
+        log(f"    {rec['ms']:9.3f} ms  {rec['count']:6d}x  {name}{span}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=rows, port=port,
+                sites=per_site)
 
 
 def run_bfs(label, parts, cfg, n_roots, seed, dev):
@@ -262,6 +614,9 @@ def run_bfs(label, parts, cfg, n_roots, seed, dev):
         trimmed_ms=trimmed_ms, trimmed_gteps=trimmed_gteps,
         merge_bytes_per_rank=int(comm.bytes_sent[0]),
         launches_per_bfs={k: v / n_runs for k, v in launches.items()},
+        site_launches_per_bfs={
+            site_label(label, *k): v
+            for k, v in site_launches(launches, layout.meta, n_runs).items() if v},
     )
     log(f"  {label}: {len(roots)} roots valid; trimmed mean "
         f"{summary['trimmed_ms']:.3f} ms, {summary['trimmed_gteps']:.4f} GTEP/s "
@@ -270,8 +625,34 @@ def run_bfs(label, parts, cfg, n_roots, seed, dev):
         f"{summary['merge_bytes_per_rank']:,} B per rank in that BFS")
     return (summary, launches,
             lambda: device_breakdown(label, lambda: fn(arrays, roots[0]),
-                                     runs[0][0] * 1e3),
+                                     runs[0][0] * 1e3,
+                                     call_sites(label, layout.meta, arrays)),
             lambda: bfs_run.time_roots(fn, arrays, roots, dev))
+
+
+def site_table(rows, cells):
+    """Fill each phase-4 row with its site's launches per BFS, its device
+    time per launch inside the profiled BFS, and (that time - bound) x
+    launches, the time the BFS loses to the kernel at that site; log the
+    table."""
+    log("  kernel@site (cell, activity): launches/BFS, ms per launch in the "
+        "BFS | isolated ms | bound ms (MB) | (BFS ms - bound) x launches")
+    for rec in rows:
+        summary = cells[rec["cell"]]
+        name = site_label(rec["cell"], rec["name"], rec["plane"])
+        rec["launches_per_bfs"] = summary["site_launches_per_bfs"].get(name, 0.0)
+        prof = summary.get("profile", {}).get("sites", {}).get(name, {})
+        rec["bfs_ms_per_launch"] = (prof["ms"] / prof["count"]
+                                    if prof.get("count") and prof.get("ms") else None)
+        rec["gap_ms"] = ((rec["bfs_ms_per_launch"] - rec["bound_ms"])
+                         * rec["launches_per_bfs"]
+                         if rec["bfs_ms_per_launch"] is not None else None)
+        per = ("not measured" if rec["bfs_ms_per_launch"] is None
+               else f"{rec['bfs_ms_per_launch']:.4f}")
+        gap = "not measured" if rec["gap_ms"] is None else f"{rec['gap_ms']:.3f}"
+        log(f"    {rec['name']}@{rec['plane']} ({rec['cell']}, "
+            f"{rec.get('activity', '-')}): {rec['launches_per_bfs']:.2f}, {per} | "
+            f"{rec['ms']:.4f} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | {gap}")
 
 
 def main(argv=None) -> int:
@@ -295,106 +676,83 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.core import bfs
     from repro_torch.graph import generators
-    from repro_torch.kernels import bitmap_merge, build, frontier_gather
-    from repro_torch.kernels import frontier_scatter, ref
+    from repro_torch.kernels import build
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    log("[1/9] card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    log("[1/10] card")
+    card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    log("[2/9] build")
+    log("[2/10] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
     build.library()
     log(f"  built {lib.relative_to(ROOT)} in {build_s:.1f} s")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "bytes stack frame" in line:
+        if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/9] ETL")
+    log("[3/10] ETL")
+    kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
+                         mode="direction_optimizing", use_kernels=True)
+    tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
+                         use_kernels=True)
     kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}",
                lambda: generators.kronecker(args.scale, args.edge_factor,
-                                            seed=args.seed), args.ranks, dev)
+                                            seed=args.seed), args.ranks, dev, kcfg.mode)
     torus = etl(f"torus {args.torus_side}x{args.torus_side}",
-                lambda: generators.torus_2d(args.torus_side), args.ranks, dev)
-
-    log("[4/9] kernel checks (exact, at main-path shapes)")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    ka, km = kron["arrays"], kron["layout"].meta
-    ta, tm = torus["arrays"], torus["layout"].meta
-    p = args.ranks
+                lambda: generators.torus_2d(args.torus_side), args.ranks, dev,
+                tcfg.mode)
+    km, tm = kron["layout"].meta, torus["layout"].meta
     if not km["gather_full"] or tm["gather_full"]:
         raise AssertionError(f"expected a full-gather Kronecker layout and a "
                              f"windowed torus layout, got {km} / {tm}")
-    words = random_words((p, km["gather_words_pad"]), gen, dev)
-    twords = random_words((p, tm["gather_words_pad"]), gen, dev)
-    active = torch.rand(ka["tds_dst"].shape, generator=gen, device=dev) < 0.5
-    stack = random_words((p, args.fanout, kron["pg"].n_words), gen, dev)
-    tww = tm["gather_ww"]
-    window_words = (ta["tdg_ws"].long() * tww)[..., None] + torch.arange(tww, device=dev)
-    n_scatter_out = p * km["scatter_windows"] * km["scatter_ww"] * 4
-    # the gathers read only the bitmap words their indices reach, every
-    # other input whole, and write one bool per slot
-    records = [
-        check_kernel("frontier_gather_full",
-                     lambda: frontier_gather.frontier_gather_full(words, ka["tdg_src"]),
-                     lambda: ref.frontier_gather_full(words, ka["tdg_src"]),
-                     (words, ka["tdg_src"]),
-                     distinct_word_bytes(ka["tdg_src"] >> 5)
-                     + nbytes(ka["tdg_src"]) + ka["tdg_src"].numel()),
-        check_kernel("frontier_gather",
-                     lambda: frontier_gather.frontier_gather(
-                         twords, ta["tdg_ws"], ta["tdg_src"], ww=tww),
-                     lambda: ref.frontier_gather(twords, ta["tdg_ws"], ta["tdg_src"], tww),
-                     (twords, ta["tdg_ws"], ta["tdg_src"]),
-                     distinct_word_bytes(window_words)
-                     + nbytes(ta["tdg_ws"], ta["tdg_src"]) + ta["tdg_src"].numel()),
-        check_kernel("frontier_scatter",
-                     lambda: frontier_scatter.frontier_scatter(
-                         active, ka["tds_win"], ka["tds_dst"],
-                         n_windows=km["scatter_windows"], ww=km["scatter_ww"]),
-                     lambda: ref.frontier_scatter(active, ka["tds_win"], ka["tds_dst"],
-                                                  km["scatter_windows"], km["scatter_ww"]),
-                     (active, ka["tds_win"], ka["tds_dst"]),
-                     nbytes(active, ka["tds_win"], ka["tds_dst"]) + n_scatter_out),
-        check_kernel("bitmap_or_reduce",
-                     lambda: bitmap_merge.bitmap_or_reduce(stack),
-                     lambda: ref.bitmap_or_reduce(stack), (stack,),
-                     nbytes(stack) // args.fanout * (args.fanout + 1)),
-    ]
-    del words, twords, active, stack, window_words
 
-    log(f"[5/9] Kronecker BFS: direction_optimizing, butterfly fanout "
+    log("[4/10] kernel checks at every call site (exact, at main-path shapes)")
+    floor_ms = event_floor_ms()
+    log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    rows = []
+    for cell, parts in (("kronecker", kron), ("torus", torus)):
+        for case in site_cases(cell, parts, gen, dev, args.fanout):
+            rows.append(check_kernel(case))
+
+    log("[5/10] edge cases of the scatter and the windowed gather (exact)")
+    n_edge = edge_cases(gen, dev)
+
+    log(f"[6/10] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
-    kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
-                         mode="direction_optimizing", use_kernels=True)
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    log(f"[6/9] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    log(f"[7/10] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
-    tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
-                         use_kernels=True)
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    log("[7/9] kernel launches on the main path (phases 5 and 6)")
-    for rec in records:
-        rec["launches"] = kron_launch[rec["name"]] + torus_launch[rec["name"]]
+    log("[8/10] kernel launches on the main path (phases 6 and 7)")
+    records = []
+    for name, (cell, plane, act) in MAIN_SITE.items():
+        rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
+                   and r["plane"] == plane and r.get("activity") == act)
+        for key in ("cell", "plane", "activity", "bytes"):
+            rec.pop(key, None)
+        rec["launches"] = kron_launch[name] + torus_launch[name]
+        records.append(rec)
     idle = [r["name"] for r in records if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     log("  " + ", ".join(f"{r['name']} {r['launches']}" for r in records))
+    for label, summary in (("kronecker", kron_sum), ("torus", torus_sum)):
+        log(f"  {label} launches per BFS by site: " + ", ".join(
+            f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    log("[8/9] profiles (one root each), then the torus roots timed again")
+    log("[9/10] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
     _, torus_sum["after_profiler_ms"], _ = torus_again()
@@ -403,19 +761,24 @@ def main(argv=None) -> int:
         f"{torus_sum['trimmed_ms']:.3f} ms)")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
+
+    log("[10/10] result")
+    site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
-                           kernels=records, kronecker=kron_sum, torus=torus_sum,
+                           kernels=records, sites=rows, edge_cases=n_edge,
+                           timing_floor_ms=floor_ms,
+                           kronecker=kron_sum, torus=torus_sum,
                            kronecker_launches=kron_launch,
                            torus_launches=torus_launch,
                            etl_s={"kronecker": kron["etl_s"], "torus": torus["etl_s"]},
                            device_bytes={"kronecker": kron["device_bytes"],
                                          "torus": torus["device_bytes"]},
                            args=vars(args)), f, indent=1)
-    log("[9/9] result")
+    print(json.dumps({"sites": rows}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

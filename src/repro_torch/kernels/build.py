@@ -34,8 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # C entry point -> argument types before the trailing stream pointer.
 SIGNATURES = {
     "frontier_gather_full": (_P, _P, _P, _I, _I, _I),
-    "frontier_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
-    "frontier_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I),
+    "frontier_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    "frontier_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
     "bitmap_or_reduce": (_P, _P, _I, _I, _I),
 }
 
@@ -146,6 +146,13 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected rank {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def vectorizable(eb: int, *tensors: torch.Tensor) -> bool:
+    """Whether a kernel that walks blocks of ``eb`` slots may move 16 bytes
+    at a time in ``tensors``: ``eb`` a multiple of 16 and every tensor's
+    first element 16-byte aligned (so is every block's, then)."""
+    return eb % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def route(t: torch.Tensor) -> str:

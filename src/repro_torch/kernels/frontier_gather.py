@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: Shared memory a block may take without opting in (the window is staged there).
+#: The widest window of the windowed gather (48 KB of words).
 MAX_WINDOW_WORDS = 48 * 1024 // 4
 
 
@@ -54,12 +54,12 @@ def frontier_gather(words: torch.Tensor, block_ws: torch.Tensor,
         raise ValueError(f"block_ws {tuple(block_ws.shape)} and src_local "
                          f"{tuple(src_local.shape)} disagree with P={p}")
     if not 0 < ww <= MAX_WINDOW_WORDS:
-        raise ValueError(f"window of {ww} words does not fit shared memory")
+        raise ValueError(f"window of {ww} words is over {MAX_WINDOW_WORDS}")
     if build.route(words) == "plain":
         return ref.frontier_gather(words, block_ws, src_local, ww)
     out = torch.empty(src_local.shape, dtype=torch.bool, device=dev)
     if out.numel():
         build.launch("frontier_gather", dev, words.data_ptr(),
                      block_ws.data_ptr(), src_local.data_ptr(), out.data_ptr(),
-                     p, w, nb, eb, ww)
+                     p, w, nb, eb, ww, build.vectorizable(eb, src_local, out))
     return out

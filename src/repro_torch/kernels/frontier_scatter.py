@@ -4,8 +4,8 @@
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA
 tensor goes to the kernel in ``csrc/frontier_scatter.cu``, which takes the
 whole ``[P, ...]`` rank stack in one launch.  The reference's
-``block_first`` flags are not an input: the output is zero-filled and
-every block ORs into it atomically.
+``block_first`` flags are not an input: the kernel zero-fills the output
+and every warp ORs its window tile into it atomically.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: Shared memory a block may take without opting in (the tile lives there).
+#: The widest window: a warp's tile of ``ww`` words lives in shared memory,
+#: and a CTA may take 48 KB of it without opting in.
 MAX_WINDOW_WORDS = 48 * 1024 // 4
 
 
@@ -40,9 +41,10 @@ def frontier_scatter(active: torch.Tensor, block_win: torch.Tensor,
     if build.route(active) == "plain":
         return ref.frontier_scatter(active, block_win, dst_local, n_windows, ww)
     n_out = n_windows * ww
-    out = torch.zeros((p, n_out), dtype=torch.int32, device=dev)
-    if active.numel() and n_out:
-        build.launch("frontier_scatter", dev, active.data_ptr(),
-                     block_win.data_ptr(), dst_local.data_ptr(), out.data_ptr(),
-                     p, nb, eb, n_out, ww)
+    if not (active.numel() and n_out):
+        return torch.zeros((p, n_out), dtype=torch.int32, device=dev)
+    out = torch.empty((p, n_out), dtype=torch.int32, device=dev)  # zero-filled by the kernel
+    build.launch("frontier_scatter", dev, active.data_ptr(), block_win.data_ptr(),
+                 dst_local.data_ptr(), out.data_ptr(), p, nb, eb, n_out, ww,
+                 build.vectorizable(eb, active, dst_local))
     return out

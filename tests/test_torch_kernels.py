@@ -4,7 +4,9 @@ over the shape sweeps of tests/test_kernels.py, rank by rank.  The CUDA
 kernels themselves are held against the plain versions on the card by
 chip_smoke.py."""
 
+import ctypes
 import os
+import re
 import stat
 import sys
 import textwrap
@@ -120,6 +122,62 @@ def test_frontier_scatter_matches_pallas(n_windows, ww, nb, eb):
         assert not g[~covered].any()
 
 
+# --- edge shapes of the warp-per-block kernels ------------------------------
+# eb not a multiple of 16 (the kernels' scalar path), one block, the widest
+# windows, hub blocks (every slot on bit 31 of the window's last word)
+
+
+def _hub_first_block(x, bits):
+    x[:, 0] = bits - 1
+    return x
+
+
+@pytest.mark.parametrize("nb,eb,ww", [(1, 200, 8), (3, 200, 64), (2, 512, 32),
+                                      (1, 128, 4096)])
+def test_frontier_gather_windowed_matches_pallas_at_edge_shapes(nb, eb, ww):
+    rng = np.random.default_rng(eb + ww)
+    w = ww * 2
+    words = _words(rng, P, w)
+    block_ws = rng.integers(0, w // ww, size=(P, nb)).astype(np.int32)
+    src_local = _hub_first_block(
+        rng.integers(0, ww * 32, size=(P, nb, eb)).astype(np.int32), ww * 32)
+    got = frontier_gather.frontier_gather(_t(words), _t(block_ws), _t(src_local), ww=ww)
+    for r in range(P):
+        want = ref_ops.frontier_gather(jnp.asarray(words[r]), jnp.asarray(block_ws[r]),
+                                       jnp.asarray(src_local[r]), ww=ww)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_windows,ww,nb,eb,density", [
+    (3, 8, 1, 200, 1.0), (5, 8, 4, 200, 0.02), (2, 64, 5, 512, 0.0),
+    (4, 8, 7, 128, 1.0)])
+def test_frontier_scatter_matches_pallas_at_edge_shapes(n_windows, ww, nb, eb, density):
+    rng = np.random.default_rng(nb * eb)
+    bits = ww * 32
+    block_win = np.sort(rng.integers(0, n_windows, size=(P, nb)), axis=1).astype(np.int32)
+    block_first = np.zeros((P, nb), np.int32)
+    for r in range(P):
+        _, first = np.unique(block_win[r], return_index=True)
+        block_first[r, first] = 1
+    # sorted by destination, padding (== bits) at each block's tail
+    dst_local = np.sort(rng.integers(0, bits + 1, size=(P, nb, eb)), axis=-1).astype(np.int32)
+    dst_local = _hub_first_block(dst_local, bits)
+    active = rng.random((P, nb, eb)) < density
+    active[:, 0] = True
+    got = _u32(frontier_scatter.frontier_scatter(
+        _t(active), _t(block_win), _t(dst_local), n_windows=n_windows, ww=ww))
+    for r in range(P):
+        want = np.asarray(ref_ops.frontier_scatter(
+            jnp.asarray(active[r]), jnp.asarray(block_win[r]), jnp.asarray(block_first[r]),
+            jnp.asarray(dst_local[r]), n_windows=n_windows, ww=ww)).reshape(n_windows, ww)
+        g = got[r].reshape(n_windows, ww)
+        covered = np.zeros(n_windows, bool)
+        covered[block_win[r]] = True
+        np.testing.assert_array_equal(g[covered], want[covered])
+        assert not g[~covered].any()
+        assert g[block_win[r, 0], ww - 1] >> 31 == 1  # the hub's bit
+
+
 # --- BFS-facing expansion ----------------------------------------------------
 
 
@@ -208,6 +266,41 @@ def test_wrappers_route_by_device_and_count_only_launches():
     assert build.LAUNCHES["bitmap_or_reduce"] == 0  # the plain path launched nothing
     with pytest.raises(ValueError, match="no kernel"):
         bitmap_merge.bitmap_or_reduce(torch.ones(1, 2, 4, dtype=torch.int32, device="meta"))
+
+
+def test_windowed_gather_rejects_a_window_over_the_widest():
+    ww = frontier_gather.MAX_WINDOW_WORDS * 2
+    words = torch.zeros(1, ww, dtype=torch.int32)
+    with pytest.raises(ValueError, match="over"):
+        frontier_gather.frontier_gather(words, torch.zeros(1, 1, dtype=torch.int32),
+                                        torch.zeros(1, 1, 16, dtype=torch.int32), ww=ww)
+
+
+@pytest.mark.parametrize("eb,offset,want", [
+    (512, 0, True), (128, 0, True), (200, 0, False), (8, 0, False),
+    (512, 1, False), (512, 4, False), (512, 16, True)])
+def test_vectorizable_needs_eb_in_sixteens_and_aligned_tensors(eb, offset, want):
+    aligned = torch.zeros(64, dtype=torch.int32)
+    buf = torch.zeros(4096, dtype=torch.uint8)
+    base = (-buf.data_ptr()) % 16  # first 16-byte boundary in buf
+    view = buf[base + offset:base + offset + 1024]
+    assert aligned.data_ptr() % 16 == 0
+    assert build.vectorizable(eb, aligned, view) is want
+    assert build.vectorizable(eb, aligned) is (eb % 16 == 0)
+
+
+def test_c_entry_points_take_the_bound_arguments():
+    """Each ``repro_<name>`` in csrc takes what ``build.SIGNATURES`` binds
+    (a pointer for ``c_void_p``, ``long long`` for ``c_longlong``), then the
+    stream: a mismatch would pass garbage through ctypes on the card."""
+    found = {}
+    for src in build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int repro_(\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = ["p" if "*" in a else "i" for a in params.split(",")]
+    for name, args in build.SIGNATURES.items():
+        want = ["p" if a is ctypes.c_void_p else "i" for a in args] + ["p"]
+        assert found[name] == want, name
 
 
 # --- build -------------------------------------------------------------------

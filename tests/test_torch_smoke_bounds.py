@@ -1,0 +1,195 @@
+"""chip_smoke.py's pure helpers on the CPU: the least-bytes models behind
+the kernels' bounds, the split of launch counts into call sites, and the
+edge-case inputs.  Tiny hand-made tensors; no card is touched."""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+
+
+# --- distinct_word_bytes -----------------------------------------------------
+
+
+def test_distinct_word_bytes_counts_each_rank_apart():
+    idx = torch.tensor([[[0, 0, 3], [3, 3, 3]], [[0, 1, 1], [2, 2, 2]]])
+    # rank 0 reads words {0, 3}, rank 1 words {0, 1, 2}
+    assert chip_smoke.distinct_word_bytes(idx) == 4 * 5
+
+
+def test_distinct_word_bytes_one_word_per_rank():
+    idx = torch.full((3, 4, 8), 7)
+    assert chip_smoke.distinct_word_bytes(idx) == 4 * 3
+
+
+# --- scatter_least_bytes -----------------------------------------------------
+
+
+def _scatter_inputs(active):
+    p, nb, eb = active.shape
+    return (active, torch.zeros((p, nb), dtype=torch.int32),
+            torch.zeros((p, nb, eb), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("hot,sectors", [
+    ([], 0),                 # nothing active: no offset is read
+    ([0], 1),                # one slot: its 32-byte sector
+    ([0, 7], 1),             # two slots of one sector
+    ([7, 8], 2),             # neighbours across a sector boundary
+    (list(range(32)), 4),    # all active: every sector
+])
+def test_scatter_least_bytes_counts_active_sectors(hot, sectors):
+    active = torch.zeros(1, 2, 16, dtype=torch.bool)
+    active.view(-1)[hot] = True
+    a, win, dst = _scatter_inputs(active)
+    out_words = 64
+    want = a.numel() + 4 * win.numel() + 4 * out_words + 32 * sectors
+    assert chip_smoke.scatter_least_bytes(a, win, dst, out_words) == want
+
+
+def test_scatter_least_bytes_pads_a_ragged_tail():
+    active = torch.zeros(1, 1, 12, dtype=torch.bool)  # 1.5 sectors of offsets
+    active[0, 0, 11] = True
+    a, win, dst = _scatter_inputs(active)
+    assert chip_smoke.scatter_least_bytes(a, win, dst, 0) == 12 + 4 + 32
+
+
+def test_scatter_least_bytes_full_activity_reads_every_offset():
+    active = torch.ones(2, 3, 64, dtype=torch.bool)
+    a, win, dst = _scatter_inputs(active)
+    assert chip_smoke.scatter_least_bytes(a, win, dst, 10) == (
+        chip_smoke.nbytes(a, win, dst) + 40)
+
+
+# --- site_launches -----------------------------------------------------------
+
+_FULL = dict(gather_full=1, pull_gather_full=1)
+_WINDOWED = dict(gather_full=0, pull_gather_full=0)
+
+
+def _counts(full, win, scatter, merge=0):
+    return dict(frontier_gather_full=full, frontier_gather=win,
+                frontier_scatter=scatter, bitmap_or_reduce=merge)
+
+
+@pytest.mark.parametrize("meta,counts,push,pull", [
+    (_FULL, _counts(9 + 2 * 4, 0, 13), 9, 4),     # direction-optimizing, full gathers
+    (_WINDOWED, _counts(4, 9 + 4, 13), 9, 4),     # windowed push and visited gathers
+    (dict(gather_full=0, pull_gather_full=1), _counts(2 * 4, 9, 13), 9, 4),
+    (_WINDOWED, _counts(0, 1025, 1025, 2050), 1025, 0),  # top-down torus
+])
+def test_site_launches_split_push_and_pull(meta, counts, push, pull):
+    got = chip_smoke.site_launches(counts, meta, n_runs=1)
+    gather = "frontier_gather_full" if meta["gather_full"] else "frontier_gather"
+    assert got[(gather, "tdg_src")] == push
+    assert got[("frontier_scatter", "tds")] == push
+    assert got[("frontier_scatter", "pus")] == pull
+    assert got[("frontier_gather_full", "in_src_blocks")] == pull
+    assert got[("bitmap_or_reduce", "merge")] == counts["bitmap_or_reduce"]
+
+
+def test_site_launches_per_bfs():
+    got = chip_smoke.site_launches(_counts(17, 0, 12, 24), _FULL, n_runs=2)
+    assert got[("frontier_scatter", "tds")] == 3.5
+    assert got[("frontier_scatter", "pus")] == 2.5
+    assert got[("bitmap_or_reduce", "merge")] == 12
+
+
+@pytest.mark.parametrize("counts", [_counts(5, 0, 13), _counts(9, 4, 9)])
+def test_site_launches_rejects_counts_that_do_not_split(counts):
+    with pytest.raises(AssertionError):
+        chip_smoke.site_launches(counts, _FULL, n_runs=1)
+
+
+# --- edge-case inputs --------------------------------------------------------
+
+
+def test_placed_view_is_misaligned_contiguous_and_equal():
+    for dtype in (torch.bool, torch.int32):
+        t = torch.arange(64).reshape(2, 32).to(dtype)
+        v = chip_smoke._placed(t, True)
+        assert v.is_contiguous() and torch.equal(v, t)
+        assert v.data_ptr() % 16 != 0
+        assert not build.vectorizable(16, v)
+        assert chip_smoke._placed(t, False) is t
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_sorted_offsets_stay_in_the_window_with_padding(ordered):
+    gen = torch.Generator().manual_seed(3)
+    bits = 64 * 32
+    x = chip_smoke._sorted_offsets(3, 5, 512, bits, gen, torch.device("cpu"),
+                                   ordered=ordered)
+    assert x.dtype == torch.int32 and x.shape == (3, 5, 512)
+    assert int(x.min()) >= 0 and int(x.max()) <= bits
+    if ordered:
+        assert torch.all(x[..., 1:] >= x[..., :-1])  # padding sorts to the tail
+
+
+def test_edge_cases_cover_the_warp_per_block_hazards():
+    scatter, gather = chip_smoke.SCATTER_CASES, chip_smoke.GATHER_CASES
+    assert {c[0] for c in scatter} >= {1, 16} and {c[0] for c in gather} >= {1, 16}
+    assert 1 in {c[1] for c in scatter} and 1 in {c[1] for c in gather}
+    assert {c[2] for c in scatter} >= {128, 512, 200}
+    assert {c[2] for c in gather} >= {128, 512, 200}
+    assert {c[3] for c in scatter} >= {8, 64, 12288}
+    assert {c[3] for c in gather} >= {8, 32, 64, 4096}
+    assert {c[5] for c in scatter} >= {0.0, 1.0, 0.02}
+    assert any(c[6] for c in scatter) and any(c[6] for c in gather)
+    assert any(c[7] for c in scatter) and any(c[7] for c in gather)
+
+
+def test_edge_cases_run_on_the_plain_path():
+    """On the CPU the wrappers take the plain versions, so this checks the
+    inputs the cases build are ones both accept (in the window, padding
+    only as ``ww * 32``) rather than the kernels."""
+    gen = torch.Generator().manual_seed(0)
+    assert chip_smoke.edge_cases(gen, torch.device("cpu")) == (
+        len(chip_smoke.SCATTER_CASES) + len(chip_smoke.GATHER_CASES))
+
+
+def test_hub_block_sets_only_bit_31_of_the_last_word():
+    ww, n_windows = 8, 3
+    dst = torch.full((1, 2, 512), ww * 32, dtype=torch.int32)
+    dst[0, 0] = ww * 32 - 1
+    active = torch.ones(1, 2, 512, dtype=torch.bool)
+    win = torch.tensor([[1, 1]], dtype=torch.int32)
+    out = ref.frontier_scatter(active, win, dst, n_windows, ww)
+    want = torch.zeros(1, n_windows * ww, dtype=torch.int32)
+    want[0, 2 * ww - 1] = -(1 << 31)
+    assert torch.equal(out, want)
+
+
+# --- chip_compare.load_tree --------------------------------------------------
+
+
+def test_load_tree_imports_the_named_tree(tmp_path):
+    """``load_tree`` swaps the imported ``repro_torch`` for another tree's
+    (here a copy of this one) and leaves that tree's ``src`` first on the
+    path; the test puts the modules and the path back."""
+    import shutil
+
+    import chip_compare
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(root, "src", "repro_torch"),
+                    tmp_path / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    saved = {k: v for k, v in sys.modules.items() if k.split(".")[0] == "repro_torch"}
+    try:
+        build_mod, bfs_mod, run_mod = chip_compare.load_tree(str(tmp_path))
+        for mod in (build_mod, bfs_mod, run_mod):
+            assert mod.__file__.startswith(str(tmp_path))
+        assert build_mod.BUILD_ROOT == tmp_path / "build" / "repro_torch_kernels"
+        assert sys.path[0] == str(tmp_path / "src")
+    finally:
+        sys.path.remove(str(tmp_path / "src"))
+        for k in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+            del sys.modules[k]
+        sys.modules.update(saved)
