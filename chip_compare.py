@@ -11,14 +11,16 @@ example an older commit unpacked with ``git archive`` into the ignored
 partitioned, laid out and placed once, by this tree's package, so every tree
 must share this tree's layout (``kernels/blocks.py``).  Then, for each tree
 in turn: its ``repro_torch`` is imported afresh and its kernels built into
-its own ``build/``; its scatter and windowed gather are held to the plain
+its own ``build/``; its scatter and both gathers are held to the plain
 versions on ``chip_smoke.edge_cases``; every kernel is timed at every call
 site of the main path on the inputs of ``chip_smoke.site_cases`` (CUDA
 events, L2 flushed, each output held exactly against this tree's plain
-version); and both cells' BFS are timed with the CLI's protocol, the first
-root validated (``chip_smoke.py`` validates every root).  After every
-tree's timed runs, each tree profiles one root of each cell (device time by
-call site inside the BFS), in the same order.
+version; the full gather on each route the tree's wrapper has); and both
+cells' BFS are timed with the CLI's protocol, the first root validated
+(``chip_smoke.py`` validates every root).  After every tree's timed runs,
+each tree profiles one root of each cell (device time by call site inside
+the BFS, per-level directions against an unprofiled run), in the same
+order.
 
 Prints the card, one JSON line per tree run, and a table of site times,
 in-BFS site times and trimmed BFS times by run.  Without a CUDA device it
@@ -90,12 +92,15 @@ def run_tree(root, cases, wants, cells, args, dev):
         out["edge_cases"] = cs.edge_cases(gen, dev)
         for case, want in zip(cases, wants):
             fn = cs.wrapper(case["name"])
-            call = (lambda: fn(*case["args"], **case["kwargs"]))
-            if not torch.equal(call(), want):
-                raise AssertionError(f"{root}: {case['name']} {cs.site_key(case)} "
-                                     f"differs from the plain version")
+            route_ms = {}
+            for label, extra in cs.case_routes(case, fn):
+                call = (lambda: fn(*case["args"], **case["kwargs"], **extra))
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"{root}: {case['name']} {cs.site_key(case)} "
+                                         f"{label} differs from the plain version")
+                route_ms[label] = cs.time_ms(call, args.reps)
             out["sites"].append(dict(name=case["name"], **cs.site_key(case),
-                                     ms=cs.time_ms(call, args.reps),
+                                     ms=next(iter(route_ms.values())), route_ms=route_ms,
                                      bound_ms=case["bytes"] / cs.HBM_BYTES_PER_S * 1e3))
         for label, (parts, roots) in cells.items():
             fn = bfs_fn(bfs, parts, args, dev)
@@ -182,7 +187,10 @@ def main(argv=None) -> int:
         site = results[0]["sites"][j]
         cs.log(f"  {case['name']}@{case['plane']} ({case['cell']}, "
                f"{case.get('activity', '-')}), bound {site['bound_ms']:.4f}: "
-               + " ".join(f"{r['sites'][j]['ms']:.4f}" for r in results))
+               + " ".join(f"{r['sites'][j]['ms']:.4f}" for r in results)
+               + "; by route: " + " | ".join(
+                   ", ".join(f"{k} {v:.4f}" for k, v in r["sites"][j]["route_ms"].items())
+                   for r in results))
     sites = sorted({k for r in results for c in r["profile"].values() for k in c["sites"]})
     for site in sites:
         per = [next((c["sites"][site] for c in r["profile"].values() if site in c["sites"]),

@@ -15,11 +15,14 @@ account:
    its plain PyTorch version on the card, at the shapes the layout gives
    that site, exactly (integer kernels), with its time (CUDA events, L2
    flushed before each launch), the plain version's time and the memory
-   bound; the scatter at 50 % and at 2 % random activity;
-5. edge cases: the scatter and the windowed gather held exactly against
-   their plain versions at the shapes and inputs a warp-per-block design
-   can get wrong (one block, ragged grids, eb not a multiple of 16,
-   misaligned views, the widest windows, hub blocks, bit 31, padding);
+   bound; the scatter at 50 % and at 2 % random activity; the full gather
+   on the route its planner picks and on the other;
+5. edge cases: the scatter and both gathers held exactly against their
+   plain versions at the shapes and inputs a warp-per-block design can get
+   wrong (one block, ragged grids, eb not a multiple of 16, misaligned
+   views, the widest windows, hub blocks, bit 31, padding), the full gather
+   at bitmaps of 64 to 600,000 words, in sorted and random order, on both
+   routes;
 6. Kronecker BFS, direction-optimizing, butterfly fanout 4, through the
    kernels: per-root time, trimmed GTEP/s, Graph500-style validation of
    every root, one root against the plain path bit for bit;
@@ -27,9 +30,10 @@ account:
 8. the launch count of every kernel over phases 6 and 7 (each must be > 0),
    and from the counts the launches per BFS of every call site;
 9. one root of each graph under ``torch.profiler`` (device time by kernel
-   and by call site, the device's busy share), after every timed run; then
-   the torus roots timed again, to show what a profiler session costs the
-   runs after it;
+   and by call site, the device's busy share), after every timed run, with
+   its per-level directions and launch counts against the same root run
+   unprofiled; then the torus roots timed again, to show what a profiler
+   session costs the runs after it;
 10. the call-site table, the kernel line, and ``{"ok": true, ...}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -78,7 +82,7 @@ MAIN_SITE = {
     "bitmap_or_reduce": ("kronecker", "merge", None),
 }
 # what the profiler calls the device work of each wrapper
-DEVICE_NAMES = {"frontier_gather_full": ("::gather_full_kernel",),
+DEVICE_NAMES = {"frontier_gather_full": ("::gather_full",),
                 "frontier_gather": ("::gather_window_kernel",),
                 "frontier_scatter": ("::scatter_kernel", "Memset"),
                 "bitmap_or_reduce": ("::or_reduce_kernel",)}
@@ -227,6 +231,7 @@ def site_cases(cell, parts, gen, dev, fanout, activities=(0.5, 0.02)):
         if full:
             cases.append(dict(name="frontier_gather_full", cell=cell, plane=plane,
                               args=(words, src), kwargs={},
+                              ids_sorted=plane in m["sorted_planes"],
                               bytes=distinct_word_bytes(src >> 5) + nbytes(src)
                               + src.numel()))
             return
@@ -264,37 +269,78 @@ def site_key(case):
     return {k: case[k] for k in ("cell", "plane", "activity") if k in case}
 
 
+def gather_full_routes(fn, ids_sorted):
+    """``(label, kwargs)`` of each route of ``fn``, a tree's
+    ``frontier_gather_full``, to hold and time on ids in sorted or random
+    order: the planner's first, then the other, each reached through the
+    wrapper's ``ids_sorted``.  A tree whose wrapper has one route has one,
+    "single"."""
+    import inspect
+
+    if "ids_sorted" not in inspect.signature(fn).parameters:
+        return [("single", {})]
+    plan = sys.modules[fn.__module__].plan_gather_full
+    return [(plan(s), dict(ids_sorted=s)) for s in (ids_sorted, not ids_sorted)]
+
+
+def case_routes(case, fn):
+    """The routes of one site case: the full gather's where the wrapper has
+    several, else the one call."""
+    if case["name"] == "frontier_gather_full":
+        return gather_full_routes(fn, case["ids_sorted"])
+    return [("single", {})]
+
+
+def check_exact(name, got, want, what):
+    """Raise unless ``got`` equals ``want`` in shape, type and value;
+    return the largest absolute difference."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: kernel gives {got.dtype}{tuple(got.shape)}, "
+                             f"plain {want.dtype}{tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {what}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    return err
+
+
 def check_kernel(case, reps=20):
     """Hold the wrapper of ``case["name"]`` against its plain version
-    exactly on the case's inputs and time both.  Returns the record for the
-    kernel line, with the site's keys (cell, plane, activity) beside."""
+    exactly on the case's inputs and time both, on each of the wrapper's
+    routes (``route_ms``; ``ms`` is the planner's, the main path's).
+    Returns the record for the kernel line, with the site's keys (cell,
+    plane, activity) beside."""
     import torch
 
     from repro_torch.kernels import ref
 
     name, args, kwargs = case["name"], case["args"], case["kwargs"]
     fn, plain_fn = wrapper(name), getattr(ref, name)
-    kernel, plain = (lambda: fn(*args, **kwargs)), (lambda: plain_fn(*args, **kwargs))
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{name}: kernel gives {got.dtype}{tuple(got.shape)}, "
-                             f"plain {want.dtype}{tuple(want.shape)}")
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name} {site_key(case)}: kernel differs from its "
-                             f"plain version (max abs err {err})")
-    ms = time_ms(kernel, reps)
+    plain = lambda: plain_fn(*args, **kwargs)  # noqa: E731
+    want = plain()
+    route_ms, err = {}, 0
+    for label, extra in case_routes(case, fn):
+        kernel = lambda: fn(*args, **kwargs, **extra)  # noqa: E731
+        got = kernel()
+        torch.cuda.synchronize()
+        err = max(err, check_exact(name, got, want, f"{site_key(case)} {label}"))
+        route_ms[label] = time_ms(kernel, reps)
+    plan = next(iter(route_ms))
+    ms = route_ms[plan]
     plain_ms = time_ms(plain, max(2, reps // 4))
     moved = case["bytes"]
     rec = dict(name=name, route="cuda", source=SOURCES[name],
                replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-               bound_by="bytes", library_ms=None,
+               bound_by="bytes", library_ms=None, plan=plan, route_ms=route_ms,
                shape=" ".join(f"{tuple(t.shape)}" for t in args),
                bytes=moved, **site_key(case))
-    log(f"  {name} {site_key(case)}: exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB) at {rec['shape']}")
+    others = "".join(f", {k} {v:.4f} ms" for k, v in route_ms.items() if k != plan)
+    log(f"  {name} {site_key(case)}: exact; {ms:.4f} ms on {plan}{others} (plain "
+        f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB) "
+        f"at {rec['shape']}")
     return rec
 
 
@@ -353,12 +399,50 @@ GATHER_CASES = [
     (2, 9, 512, 4096, 8192, 0.02, True, True),
     (2, 5, 512, 12288, 24576, 0.5, False, True),
 ]
+GATHER_FULL_CASES = [
+    # P, NB, eb, words, word density, misaligned, hub, sorted ids; bitmaps
+    # from 256 B to 2.4 MB (a rank's at Kronecker scale 23 is 1.1 MB), each
+    # run on both routes
+    (1, 1, 512, 64, 0.5, False, False, False),
+    (16, 37, 512, 8192, 0.02, False, True, True),
+    (4, 33, 200, 1001, 1.0, True, True, False),
+    (2, 45, 512, 40000, 0.5, True, True, False),
+    (4, 100, 128, 131072, 0.5, False, True, True),
+    (16, 64, 512, 262144, 0.5, False, True, True),
+    (3, 50, 200, 200000, 0.5, False, True, False),
+    (2, 64, 512, 300000, 0.5, False, True, False),
+    (16, 9, 512, 524288, 0.5, True, True, False),
+    (2, 64, 512, 524289, 0.5, False, True, True),
+    (4, 21, 200, 600000, 0.5, True, True, False),
+    (4, 21, 200, 300000, 0.5, True, True, True),
+]
+
+
+def full_gather_inputs(case, gen, dev):
+    """``words`` and ``src`` of one ``GATHER_FULL_CASES`` case.  Bit 31 of
+    the last word is set in every other rank and the last slot of every
+    rank reads it; a hub block reads nothing else."""
+    import torch
+
+    p, nb, eb, n_words, density, misalign, hub, ordered = case
+    bits = n_words * 32
+    words = random_words((p, n_words), gen, dev, density)
+    words[::2, -1] |= -(1 << 31)
+    src = torch.randint(0, bits, (p, nb, eb), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if ordered:
+        src = src.sort(dim=-1).values
+    src[:, -1, -1] = bits - 1
+    if hub:
+        src[:, 0] = bits - 1
+    return _placed(words, misalign), _placed(src.contiguous(), misalign)
 
 
 def edge_cases(gen, dev):
-    """Phase 5: the scatter and the windowed gather exactly against their
-    plain versions on the cases above.  A hub block sends all its slots to
-    bit 31 of its window's last word; windows no block covers stay zero."""
+    """Phase 5: the scatter and both gathers exactly against their plain
+    versions on the cases above, the full gather on each of its routes.  A
+    hub block sends all its slots to bit 31 of its window's (or bitmap's)
+    last word; windows no block covers stay zero."""
     import torch
 
     from repro_torch.kernels import frontier_gather, frontier_scatter, ref
@@ -396,9 +480,20 @@ def edge_cases(gen, dev):
         if not torch.equal(got, want):
             raise AssertionError(f"frontier_gather differs from its plain version "
                                  f"on edge case {case}")
-    log(f"  {len(SCATTER_CASES)} scatter and {len(GATHER_CASES)} windowed-gather "
-        f"cases exact")
-    return len(SCATTER_CASES) + len(GATHER_CASES)
+    routes = {}
+    for case in GATHER_FULL_CASES:
+        words, src = full_gather_inputs(case, gen, dev)
+        want = ref.frontier_gather_full(words, src)
+        fn = frontier_gather.frontier_gather_full
+        for label, kwargs in gather_full_routes(fn, case[7]):
+            if not torch.equal(fn(words, src, **kwargs), want):
+                raise AssertionError(f"frontier_gather_full ({label}) differs from "
+                                     f"its plain version on edge case {case}")
+            routes[label] = routes.get(label, 0) + 1
+    log(f"  {len(SCATTER_CASES)} scatter, {len(GATHER_CASES)} windowed-gather and "
+        f"{len(GATHER_FULL_CASES)} full-gather cases exact (full gather by route: "
+        f"{routes})")
+    return len(SCATTER_CASES) + len(GATHER_CASES) + len(GATHER_FULL_CASES)
 
 
 def validate(g, labels, root, dist) -> None:
@@ -482,6 +577,41 @@ def site_ranges(sites):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def direction_log():
+    """Inside the block, the direction of each BFS level that runs through
+    the kernels ("push" or "pull") is appended to the list yielded."""
+    from repro_torch.kernels import ops
+
+    seq = []
+    saved = {name: getattr(ops, name) for name in ("expand_push", "expand_pull")}
+
+    def logged(name, fn):
+        def call(*args, **kwargs):
+            seq.append(name.split("_")[1])
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, logged(name, fn))
+    try:
+        yield seq
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def run_lengths(seq):
+    """``["push", "push", "pull"]`` -> ``"push x2, pull x1"``."""
+    out = []
+    for d in seq:
+        if out and out[-1][0] == d:
+            out[-1][1] += 1
+        else:
+            out.append([d, 1])
+    return ", ".join(f"{d} x{n}" for d, n in out)
+
+
 def site_label(cell, name, plane):
     return f"{cell}:{name}@{plane}"
 
@@ -508,15 +638,31 @@ def device_breakdown(label, run, wall_ms, sites, top=8):
     capped by the device time of every launch of its kernel in the run
     (the scatter's with every memset): where the host lags the device, the
     span also counts the gap between the scatter's zero-fill and its
-    kernel, and the cap does not."""
+    kernel, and the cap does not.  The run is made once unprofiled first;
+    ``levels`` holds both runs' per-level directions and launch counts and
+    the launches the profiler saw of each kernel.  Where it saw fewer
+    launches of a kernel than the wrapper counted (it can drop a record), a
+    site of that kernel has no time (``ms`` None): its count of ranges
+    would divide the device time of fewer launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import build
+
+    # the same run unprofiled first: its levels' directions and launches
+    # against the profiled run's, and the profiler's count of each kernel
     torch.cuda.synchronize()
-    with site_ranges(sites), profile(
+    build.reset_launches()
+    with direction_log() as plain_dirs:
+        run()
+    torch.cuda.synchronize()
+    plain_launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    with site_ranges(sites), direction_log() as dirs, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
     names = set(sites.values())
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"
@@ -528,13 +674,24 @@ def device_breakdown(label, run, wall_ms, sites, top=8):
 
     calls = {e.key: e.count for e in events if e.key in names
              and e.device_type.name == "CPU"}
+    seen = {name: sum(e.count for e in launched(name)
+                      if not any(k in e.key for k in ("Memset", "memset")))
+            for name in DEVICE_NAMES}
     per_site = {}
     for e in events:
         if e.key in calls and e.device_type.name == "CUDA":
+            name = e.key.split(":")[1].split("@")[0]
             span = e.self_device_time_total / 1e3
-            cap = sum(k.self_device_time_total for k in launched(
-                e.key.split(":")[1].split("@")[0])) / 1e3
-            per_site[e.key] = dict(ms=min(span, cap), span_ms=span, count=calls[e.key])
+            cap = sum(k.self_device_time_total for k in launched(name)) / 1e3
+            per_site[e.key] = dict(ms=min(span, cap) if seen[name] == launches[name]
+                                   else None, span_ms=span, count=calls[e.key])
+    levels = dict(profiled=dirs, unprofiled=plain_dirs, same=dirs == plain_dirs,
+                  launches=launches, unprofiled_launches=plain_launches,
+                  profiler_saw=seen)
+    log(f"  {label} levels: profiled {run_lengths(dirs)}; unprofiled "
+        f"{'the same' if dirs == plain_dirs else run_lengths(plain_dirs)}; "
+        f"launches counted profiled {launches}, unprofiled {plain_launches}; "
+        f"kernels the profiler saw {seen}")
     merge = launched("bitmap_or_reduce")
     if merge:
         per_site[site_label(label, "bitmap_or_reduce", "merge")] = dict(
@@ -545,7 +702,8 @@ def device_breakdown(label, run, wall_ms, sites, top=8):
             for e in kernels[:top]]
     if not rows:
         log(f"  {label} profile: the profiler saw no device time (not measured)")
-        return dict(wall_ms=wall_ms, device_busy_ms=None, top=[], sites={})
+        return dict(wall_ms=wall_ms, device_busy_ms=None, top=[], sites={},
+                    levels=levels)
     log(f"  {label} profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall ({busy_ms / wall_ms:.1%}); device time by kernel:")
     for name, ms, n in rows:
@@ -558,9 +716,10 @@ def device_breakdown(label, run, wall_ms, sites, top=8):
     log("  device time by call site:")
     for name, rec in sorted(per_site.items()):
         span = "" if rec.get("span_ms") is None else f" (span {rec['span_ms']:.3f} ms)"
-        log(f"    {rec['ms']:9.3f} ms  {rec['count']:6d}x  {name}{span}")
+        ms = "not measured" if rec["ms"] is None else f"{rec['ms']:9.3f} ms"
+        log(f"    {ms}  {rec['count']:6d}x  {name}{span}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=rows, port=port,
-                sites=per_site)
+                sites=per_site, levels=levels)
 
 
 def run_bfs(label, parts, cfg, n_roots, seed, dev):
@@ -722,7 +881,7 @@ def main(argv=None) -> int:
         for case in site_cases(cell, parts, gen, dev, args.fanout):
             rows.append(check_kernel(case))
 
-    log("[5/10] edge cases of the scatter and the windowed gather (exact)")
+    log("[5/10] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
     log(f"[6/10] Kronecker BFS: direction_optimizing, butterfly fanout "

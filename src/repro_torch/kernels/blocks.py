@@ -13,7 +13,7 @@ that the layout stays identical to the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -175,7 +175,9 @@ def _pad_blocks(arrs: List[np.ndarray], nb: int, pad_row) -> np.ndarray:
 class BFSKernelLayout:
     """Device-stacked layouts for the whole BFS (top-down + bottom-up)."""
 
-    meta: Dict[str, int]  # static: eb, gather ww/full, scatter ww, words_pad...
+    # static: eb, gather ww/full, scatter ww, words_pad..., and the planes
+    # whose ids are sorted (``sorted_planes``)
+    meta: Dict[str, Any]
     arrays: Dict[str, np.ndarray]  # [P, ...] stacked, shard over device axis
 
 
@@ -286,6 +288,10 @@ def build_bfs_layout(pg, *, eb: int = 512, scatter_ww: int = 64) -> BFSKernelLay
         scatter_words_pad=s_layouts[0].words_pad,
         scatter_windows=s_layouts[0].n_windows,
         nb_in=nb_in,
+        # full-gather planes whose ids ascend within each rank: out-edge
+        # sources (edge_src is sorted) and in-edge destinations; in_src_blocks
+        # follows in_dst's order, so its sources are not sorted
+        sorted_planes=("tdg_src", "pug_dst"),
     )
     arrays = dict(
         tdg_ws=tg_ws,

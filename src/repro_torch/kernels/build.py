@@ -33,7 +33,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # C entry point -> argument types before the trailing stream pointer.
 SIGNATURES = {
-    "frontier_gather_full": (_P, _P, _P, _I, _I, _I),
+    "frontier_gather_full": (_P, _P, _P, _I, _I, _I, _I, _I),
     "frontier_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
     "frontier_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
     "bitmap_or_reduce": (_P, _P, _I, _I, _I),

@@ -4,7 +4,8 @@ windowed ``frontier_gather``).
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA
 tensor goes to the kernel in ``csrc/frontier_gather.cu``, which takes the
-whole ``[P, ...]`` rank stack in one launch.
+whole ``[P, ...]`` rank stack in one launch.  The full gather has two
+routes; :func:`plan_gather_full` picks one from the ids' order.
 """
 
 from __future__ import annotations
@@ -17,9 +18,23 @@ from repro_torch.kernels import build, ref
 MAX_WINDOW_WORDS = 48 * 1024 // 4
 
 
-def frontier_gather_full(words: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+def plan_gather_full(ids_sorted: bool) -> str:
+    """The route of :func:`frontier_gather_full` for ids in sorted (or
+    random) order.  Both read the words through L1 and L2.  Sorted ids,
+    whose neighbours share words, take ``"walk"``: 4 slots a lane, a
+    persistent grid.  Random ids take ``"probe"``: one slot a lane, a warp
+    for every 32 slots, which measured faster on them (PERF.md)."""
+    return "walk" if ids_sorted else "probe"
+
+
+def frontier_gather_full(words: torch.Tensor, src: torch.Tensor, *,
+                         ids_sorted: bool = False) -> torch.Tensor:
     """Bits of ``words`` int32[P, W] at vertex ids ``src`` int32[P, NB, EB]
-    -> bool[P, NB, EB].  Ids outside the bitmap read as 0 on the card."""
+    -> bool[P, NB, EB].  Ids outside the bitmap read as 0 on the card.
+
+    ``ids_sorted`` says whether each rank's ids are in ascending order; it
+    picks the kernel's route (:func:`plan_gather_full`), and only the speed
+    depends on it."""
     dev = words.device
     build.check(words, "words", torch.int32, 2, dev)
     build.check(src, "src", torch.int32, 3, dev)
@@ -29,10 +44,11 @@ def frontier_gather_full(words: torch.Tensor, src: torch.Tensor) -> torch.Tensor
     if build.route(words) == "plain":
         return ref.frontier_gather_full(words, src)
     out = torch.empty(src.shape, dtype=torch.bool, device=dev)
-    slots = src[0].numel()
     if out.numel():
         build.launch("frontier_gather_full", dev, words.data_ptr(),
-                     src.data_ptr(), out.data_ptr(), p, w, slots)
+                     src.data_ptr(), out.data_ptr(), p, w, src[0].numel(),
+                     int(plan_gather_full(ids_sorted) == "walk"),
+                     build.vectorizable(src.shape[2], src, out))
     return out
 
 

@@ -45,7 +45,8 @@ def expand_push(frontier: torch.Tensor, arrays: Dict, meta: Dict,
     """Top-down: gather (full or windowed) -> permute -> scatter."""
     words = _pad_words(frontier, meta["gather_words_pad"])
     if meta["gather_full"]:
-        active = frontier_gather_full(words, arrays["tdg_src"])
+        active = frontier_gather_full(words, arrays["tdg_src"],
+                                      ids_sorted="tdg_src" in meta["sorted_planes"])
     else:
         active = frontier_gather(words, arrays["tdg_ws"], arrays["tdg_src"],
                                  ww=meta["gather_ww"])
@@ -60,11 +61,13 @@ def expand_pull(frontier: torch.Tensor, visited: torch.Tensor, arrays: Dict,
     NOT the visited mask (gather over sorted ``in_dst``) -> permute ->
     scatter."""
     parent = frontier_gather_full(
-        _pad_words(frontier, meta["gather_words_pad"]), arrays["in_src_blocks"]
+        _pad_words(frontier, meta["gather_words_pad"]), arrays["in_src_blocks"],
+        ids_sorted="in_src_blocks" in meta["sorted_planes"],
     )
     vwords = _pad_words(visited, meta["pull_gather_words_pad"])
     if meta["pull_gather_full"]:
-        vis = frontier_gather_full(vwords, arrays["pug_dst"])
+        vis = frontier_gather_full(vwords, arrays["pug_dst"],
+                                   ids_sorted="pug_dst" in meta["sorted_planes"])
     else:
         vis = frontier_gather(vwords, arrays["pug_ws"], arrays["pug_dst"],
                               ww=meta["pull_gather_ww"])

@@ -87,7 +87,10 @@ def test_layout_matches_reference(partitions, name, p):
     rpg, tpg = partitions[name, p]
     want = ref_blocks.build_bfs_layout(rpg)
     got = blocks.build_bfs_layout(tpg)
-    assert got.meta == want.meta
+    # the port's meta adds which planes hold sorted ids (its full gather's
+    # route follows them)
+    assert {k: v for k, v in got.meta.items() if k != "sorted_planes"} == want.meta
+    assert got.meta["sorted_planes"] == ("tdg_src", "pug_dst")
     assert set(got.arrays) == set(want.arrays)
     for k, v in got.arrays.items():
         assert v.dtype == want.arrays[k].dtype, k

@@ -93,6 +93,97 @@ def test_frontier_gather_full_matches_pallas(nb, eb):
         np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
 
 
+# --- full gather: the planner, and parity at the kernels' edge inputs ---------
+
+
+@pytest.mark.parametrize("ids_sorted,route", [(True, "walk"), (False, "probe")])
+def test_plan_gather_full_follows_the_ids_order(ids_sorted, route):
+    """Sorted ids take the walk (4 slots a lane), random ids the probe (one
+    slot a lane): the planner takes the order, not the shape, since the
+    three Kronecker sites have one shape."""
+    assert frontier_gather.plan_gather_full(ids_sorted) == route
+
+
+@pytest.fixture(scope="module")
+def sparse_full():
+    """A graph so sparse that 512 sorted ids span more than the widest
+    window, so both gathers of its layout are full, as at Kronecker scale
+    18 and over."""
+    from repro_torch.graph import generators
+
+    pg = partition.partition_1d(generators.uniform_random(1 << 18, 3000, seed=1), 2)
+    lay = blocks.build_bfs_layout(pg)
+    assert lay.meta["gather_full"] and lay.meta["pull_gather_full"]
+    return pg, lay
+
+
+@pytest.mark.parametrize("plane,ordered", [("tdg_src", True), ("pug_dst", True),
+                                           ("in_src_blocks", False)])
+def test_layout_records_which_planes_hold_sorted_ids(sparse_full, plane, ordered):
+    """The layout builder says which full-gather planes hold each rank's
+    ids in ascending order, and they do; in-edge sources are not sorted."""
+    pg, lay = sparse_full
+    assert (plane in lay.meta["sorted_planes"]) is ordered
+    count = pg.edge_count if plane == "tdg_src" else pg.in_count
+    for r in range(pg.p):
+        ids = lay.arrays[plane][r].reshape(-1)[: int(count[r])]
+        assert bool(np.all(np.diff(ids) >= 0)) is ordered, r
+
+
+@pytest.mark.parametrize("direction", ["push", "pull"])
+def test_expansion_ops_give_the_full_gather_each_planes_order(sparse_full, monkeypatch,
+                                                              direction):
+    """``expand_push`` and ``expand_pull`` pass the layout's order of the
+    plane they gather over, so each site takes the route for its ids."""
+    pg, lay = sparse_full
+    arrays = {k: torch.from_numpy(v) for k, v in pg.arrays().items()}
+    arrays.update({k: torch.from_numpy(v) for k, v in lay.arrays.items()})
+    for k in ("tds_perm", "pus_perm"):
+        arrays[k] = arrays[k].long()
+    seen = {}
+    real = ops.frontier_gather_full
+
+    def spy(words, src, *, ids_sorted):
+        seen[next(k for k, v in arrays.items() if v is src)] = ids_sorted
+        return real(words, src, ids_sorted=ids_sorted)
+
+    monkeypatch.setattr(ops, "frontier_gather_full", spy)
+    front = fr.pack(torch.zeros(pg.p, pg.n_words * 32, dtype=torch.bool))
+    if direction == "push":
+        ops.expand_push(front, arrays, lay.meta, pg.n_words)
+        assert seen == {"tdg_src": True}
+    else:
+        ops.expand_pull(front, front, arrays, lay.meta, pg.n_words)
+        assert seen == {"in_src_blocks": False, "pug_dst": True}
+
+
+@pytest.mark.parametrize("ids_sorted", [False, True])
+@pytest.mark.parametrize("nb,eb,w", [(3, 200, 256), (1, 200, 1001), (2, 512, 64),
+                                     (4, 128, 1024)])
+def test_frontier_gather_full_matches_pallas_at_edge_inputs(nb, eb, w, ids_sorted):
+    """eb not a multiple of 16 (the kernels' narrow path), a bitmap not a
+    multiple of 4 words, a hub block on bit 31 of the last word (the first
+    block for random ids, the last for sorted ids, which keeps them
+    sorted), and the last slot of every rank on it."""
+    rng = np.random.default_rng(eb + w)
+    words = _words(rng, P, w)
+    words[0, -1] |= np.uint32(1 << 31)
+    words[1, -1] &= np.uint32(0x7FFFFFFF)
+    src = rng.integers(0, w * 32, size=(P, nb, eb)).astype(np.int32)
+    hub = -1 if ids_sorted else 0
+    if ids_sorted:
+        src = np.sort(src.reshape(P, -1), axis=1).reshape(P, nb, eb)
+    src[:, hub] = w * 32 - 1
+    src[:, -1, -1] = w * 32 - 1
+    if ids_sorted:
+        assert np.all(np.diff(src.reshape(P, -1), axis=1) >= 0)
+    got = frontier_gather.frontier_gather_full(_t(words), _t(src), ids_sorted=ids_sorted)
+    assert got[0, hub].all() and not got[1, hub].any()
+    for r in range(P):
+        want = ref_ops.frontier_gather_full(jnp.asarray(words[r]), jnp.asarray(src[r]))
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want), err_msg=f"rank {r}")
+
+
 # --- frontier scatter --------------------------------------------------------
 
 
@@ -301,6 +392,18 @@ def test_c_entry_points_take_the_bound_arguments():
     for name, args in build.SIGNATURES.items():
         want = ["p" if a is ctypes.c_void_p else "i" for a in args] + ["p"]
         assert found[name] == want, name
+
+
+def test_gather_full_entry_point_takes_the_walk_and_vec_flags():
+    """The full gather's C entry point takes a rank's slot count, whether
+    to walk (sorted ids) or probe, and the 16-byte flag the wrapper
+    passes."""
+    src = (build.CSRC / "frontier_gather.cu").read_text()
+    params = re.search(r'extern "C" int repro_frontier_gather_full\(([^)]*)\)', src)
+    names = [a.split()[-1].lstrip("*") for a in params.group(1).split(",")]
+    assert names == ["words", "src", "out", "p", "n_words", "slots", "walk", "vec",
+                     "stream"]
+    assert "walk == 0: the probe (random ids), else the walk (sorted ids)" in src
 
 
 # --- build -------------------------------------------------------------------

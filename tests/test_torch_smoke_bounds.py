@@ -145,13 +145,84 @@ def test_edge_cases_cover_the_warp_per_block_hazards():
     assert any(c[7] for c in scatter) and any(c[7] for c in gather)
 
 
+def test_full_gather_cases_span_every_route_of_the_planner():
+    """Both orders of ids (the walk's and the probe's), each with narrow
+    and misaligned cases, at bitmaps from one that L1 holds to one over a
+    Kronecker scale-23 rank's 279,296 words."""
+    cases = chip_smoke.GATHER_FULL_CASES
+    for ordered in (True, False):  # both plans of the planner
+        on = [c for c in cases if c[7] == ordered]
+        assert any(c[2] % 16 for c in on) or any(c[5] for c in on), ordered
+        assert min(c[3] for c in on) <= 8192 and max(c[3] for c in on) > 279296
+    assert any(c[2] % 16 for c in cases) and any(c[5] for c in cases)
+    assert {c[0] for c in cases} >= {1, 16}
+    assert 200 in {c[2] for c in cases} and 1 in {c[1] for c in cases}
+    assert any(c[6] for c in cases) and any(c[7] for c in cases)
+
+
+def test_full_gather_inputs_reach_bit_31_of_the_last_word():
+    gen = torch.Generator().manual_seed(1)
+    case = (4, 3, 200, 40, 0.5, True, True, True)
+    words, src = chip_smoke.full_gather_inputs(case, gen, torch.device("cpu"))
+    bits = 40 * 32
+    assert words.shape == (4, 40) and src.shape == (4, 3, 200)
+    assert not build.vectorizable(200, src) and words.data_ptr() % 16
+    assert torch.all(src[:, 0] == bits - 1) and torch.all(src[:, -1, -1] == bits - 1)
+    assert torch.all(src[:, 1:, :-1] < bits) and torch.all(src[:, 1] >= 0)
+    assert torch.all(src[:, 1, 1:] >= src[:, 1, :-1])  # sorted within a block
+    got = ref.frontier_gather_full(words, src)
+    assert got[::2, 0].all() and got[::2, -1, -1].all()
+
+
+def test_gather_full_routes_of_a_tree_without_routes():
+    """A tree whose wrapper takes no ``ids_sorted`` (an older commit under
+    ``chip_compare.py``) is held and timed on its one kernel."""
+    def frontier_gather_full(words, src):
+        return None
+
+    assert chip_smoke.gather_full_routes(frontier_gather_full, False) == [
+        ("single", {})]
+
+
+@pytest.mark.parametrize("ordered,first,second", [(False, "probe", "walk"),
+                                                  (True, "walk", "probe")])
+def test_gather_full_routes_follow_the_planner(ordered, first, second):
+    """The planner's route first (the main path's), then the other, each
+    reached through ``ids_sorted``."""
+    from repro_torch.kernels.frontier_gather import frontier_gather_full
+
+    assert chip_smoke.gather_full_routes(frontier_gather_full, ordered) == [
+        (first, {"ids_sorted": ordered}), (second, {"ids_sorted": not ordered})]
+
+
+def test_direction_log_records_each_level_and_restores_the_ops():
+    from repro_torch.kernels import ops
+
+    push, pull = ops.expand_push, ops.expand_pull
+    try:
+        ops.expand_push = lambda *a: "push-result"
+        ops.expand_pull = lambda *a: "pull-result"
+        stub_push, stub_pull = ops.expand_push, ops.expand_pull
+        with chip_smoke.direction_log() as seq:
+            assert ops.expand_push(1) == "push-result"
+            ops.expand_push(1)
+            assert ops.expand_pull(1, 2) == "pull-result"
+        assert seq == ["push", "push", "pull"]
+        assert ops.expand_push is stub_push and ops.expand_pull is stub_pull
+    finally:
+        ops.expand_push, ops.expand_pull = push, pull
+    assert chip_smoke.run_lengths(seq) == "push x2, pull x1"
+    assert chip_smoke.run_lengths([]) == ""
+
+
 def test_edge_cases_run_on_the_plain_path():
     """On the CPU the wrappers take the plain versions, so this checks the
     inputs the cases build are ones both accept (in the window, padding
-    only as ``ww * 32``) rather than the kernels."""
+    only as ``ww * 32``, ids inside the bitmap) rather than the kernels."""
     gen = torch.Generator().manual_seed(0)
     assert chip_smoke.edge_cases(gen, torch.device("cpu")) == (
-        len(chip_smoke.SCATTER_CASES) + len(chip_smoke.GATHER_CASES))
+        len(chip_smoke.SCATTER_CASES) + len(chip_smoke.GATHER_CASES)
+        + len(chip_smoke.GATHER_FULL_CASES))
 
 
 def test_hub_block_sets_only_bit_31_of_the_last_word():
