@@ -105,8 +105,7 @@ def run_tree(root, cases, wants, cells, args, dev):
         for label, (parts, roots) in cells.items():
             fn = bfs_fn(bfs, parts, args, dev)
             runs, trimmed_ms, gteps = bfs_run.time_roots(fn, parts["arrays"], roots, dev)
-            cs.validate(parts["g"], parts["labels"], roots[0],
-                        bfs.assemble_distances(parts["pg"], runs[0][3]))
+            cs.validate(parts, roots[0], runs[0][3])
             out[label] = dict(trimmed_ms=trimmed_ms, trimmed_gteps=gteps,
                               ms=[x[0] * 1e3 for x in runs])
         return out

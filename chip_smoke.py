@@ -4,19 +4,23 @@
     python3 chip_smoke.py            # Kronecker scale 23, EF 8, P=16; torus 1024^2
 
 Drives the port's main path, single-source ButterFly BFS, through the entry
-points a user calls (``build_bfs_fn`` on ``place_arrays``), and holds it to
-account:
+points a user calls (``build_bfs_fn`` on ``place_arrays``), then each
+further path of the port (the sparse, adaptive, Rabenseifner and xla
+frontier syncs, the flight recorder, the multi-source BFS wave), and holds
+them to account:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and numpy versions;
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
 3. ETL: Kronecker graph, 1D partition over P simulated ranks, kernel layout,
    placement on the card; the 1024x1024 torus the same way;
-4. kernel checks at every call site of the main path: each kernel against
-   its plain PyTorch version on the card, at the shapes the layout gives
-   that site, exactly (integer kernels), with its time (CUDA events, L2
-   flushed before each launch), the plain version's time and the memory
-   bound; the scatter at 50 % and at 2 % random activity; the full gather
-   on the route its planner picks and on the other;
+4. kernel checks at every call site: each kernel against its plain PyTorch
+   version on the card, at the shapes the layout gives that site, exactly
+   (integer kernels), with its time (CUDA events, L2 flushed before each
+   launch), the plain version's time and the memory bound; the scatter at
+   50 % and at 2 % random activity; the full gather on the route its
+   planner picks and on the other; ``bitmap_or_reduce`` also at the shapes
+   of the Rabenseifner reduce-scatter rounds, the xla all-gather reduce
+   (K = P) and the multi-source wave's buffer;
 5. edge cases: the scatter and both gathers held exactly against their
    plain versions at the shapes and inputs a warp-per-block design can get
    wrong (one block, ragged grids, eb not a multiple of 16, misaligned
@@ -29,15 +33,29 @@ account:
 7. torus BFS, top-down (the windowed-gather path), the same way;
 8. the launch count of every kernel over phases 6 and 7 (each must be > 0),
    and from the counts the launches per BFS of every call site;
-9. one root of each graph under ``torch.profiler`` (device time by kernel
-   and by call site, the device's busy share), after every timed run, with
-   its per-level directions and launch counts against the same root run
-   unprofiled; then the torus roots timed again, to show what a profiler
-   session costs the runs after it;
-10. the call-site table, the kernel line, and ``{"ok": true, ...}`` last.
+9. the other syncs: Kronecker under ``adaptive``, ``sparse``,
+   ``rabenseifner`` and ``xla``, torus under ``adaptive``; every root
+   validated, one root against the dense butterfly bit for bit, that root
+   traced (the same distances and kernel launches as untraced, the bytes
+   each rank sent equal to the byte model level by level, the merge
+   launches equal to what the trace's branches call for), the trace's
+   cost in wall time, the level table, and the adaptive decision's cost;
+10. multi-source BFS: one 32-lane Kronecker wave, direction-optimizing,
+    under ``butterfly`` and ``adaptive``, every lane against the
+    single-source port's distances for its root; time, GTEP/s, memory;
+11. one root of each cell of phases 6-7 under ``torch.profiler`` (device
+    time by kernel and by call site, the device's busy share), after every
+    timed run, with its per-level directions and launch counts against the
+    same root run unprofiled; the Kronecker paths of phase 9 (and the
+    butterfly at the adaptive one's root) and the waves in the same way;
+    then the torus roots timed again, to show what a profiler session
+    costs the runs after it;
+12. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
 
-Any failure raises and exits non-zero; without a CUDA device it exits 1
-before printing any result.  ``--out PATH`` also writes the results as JSON.
+Every path is driven with the launch counts set to 0 just before it and
+read just after.  Any failure raises and exits non-zero; without a CUDA
+device it exits 1 before printing any result.  ``--out PATH`` also writes
+the results as JSON.
 """
 
 from __future__ import annotations
@@ -81,6 +99,9 @@ MAIN_SITE = {
     "frontier_scatter": ("kronecker", "tds", 0.5),
     "bitmap_or_reduce": ("kronecker", "merge", None),
 }
+# roots of each other sync's cell (adaptive Kronecker: 4x), lanes of the wave
+SYNC_ROOTS = 2
+LANES = 32
 # what the profiler calls the device work of each wrapper
 DEVICE_NAMES = {"frontier_gather_full": ("::gather_full",),
                 "frontier_gather": ("::gather_window_kernel",),
@@ -266,7 +287,7 @@ def site_cases(cell, parts, gen, dev, fanout, activities=(0.5, 0.02)):
 
 
 def site_key(case):
-    return {k: case[k] for k in ("cell", "plane", "activity") if k in case}
+    return {k: case[k] for k in ("cell", "plane", "activity", "path") if k in case}
 
 
 def gather_full_routes(fn, ids_sorted):
@@ -496,32 +517,39 @@ def edge_cases(gen, dev):
     return len(SCATTER_CASES) + len(GATHER_CASES) + len(GATHER_FULL_CASES)
 
 
-def validate(g, labels, root, dist) -> None:
-    """Graph500-style checks of one BFS tree, vectorised over the CSR."""
-    import numpy as np
+def validate(parts, root, d_owned) -> None:
+    """Graph500-style checks of one BFS tree (per-rank distances
+    ``d_owned``) against the graph of ``parts`` (from :func:`etl`), on the
+    device that holds them: the root at 0, the reached set equal to the
+    root's component, no edge spanning more than one level, and every
+    reached vertex but the root with a neighbour one level up."""
+    import torch
 
     from repro_torch.core.bfs import INF
 
+    src, dst, labels, slot = parts["check"]
+    dist = d_owned.reshape(-1)[slot].long()
     reached = dist < INF
-    if dist[root] != 0:
-        raise AssertionError(f"root {root}: d[root] = {dist[root]}")
-    if not np.array_equal(reached, labels == labels[root]):
+    if int(dist[root]) != 0:
+        raise AssertionError(f"root {root}: d[root] = {int(dist[root])}")
+    if not torch.equal(reached, labels == labels[root]):
         raise AssertionError(f"root {root}: reached set != its component")
-    du, dv = dist[g.src], dist[g.dst]
-    both = reached[g.src] & reached[g.dst]
-    if np.any(np.abs(du[both] - dv[both]) > 1):
+    du, dv = dist[src], dist[dst]
+    both = reached[src] & reached[dst]
+    if bool((both & ((du - dv).abs() > 1)).any()):
         raise AssertionError(f"root {root}: an edge spans more than one level")
-    has_parent = np.zeros(g.n, dtype=bool)
-    has_parent[g.dst[both & (du == dv - 1)]] = True
-    orphan = reached & ~has_parent
+    has_parent = torch.zeros(dist.numel(), dtype=torch.uint8, device=dist.device)
+    has_parent.scatter_reduce_(0, dst, (both & (du == dv - 1)).to(torch.uint8), "amax")
+    orphan = reached & (has_parent == 0)
     orphan[root] = False
-    if orphan.any():
+    if bool(orphan.any()):
         raise AssertionError(f"root {root}: {int(orphan.sum())} reached vertices "
                              f"have no neighbour one level up")
 
 
 def etl(label, make_graph, ranks, dev, mode):
     """Generate, partition, lay out and place one graph; returns its parts."""
+    import numpy as np
     import torch
 
     from repro_torch.core import bfs
@@ -542,12 +570,18 @@ def etl(label, make_graph, ranks, dev, mode):
     t.append(time.perf_counter())
     s = [b - a for a, b in zip(t, t[1:])]
     dev_bytes = nbytes(*arrays.values())
+    # what validate() reads: the edges, the components, and the slot of each
+    # vertex in the flat [P, vmax] distances
+    owner = np.searchsorted(pg.v_start, np.arange(g.n), side="right") - 1
+    slot = owner * pg.vmax + np.arange(g.n) - pg.v_start[owner]
+    check = tuple(torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+                  for a in (g.src, g.dst, labels, slot))
     log(f"  {label}: n={g.n:,} m={g.n_edges:,} directed, P={ranks}, "
         f"emax={pg.emax:,}, n_words={pg.n_words:,}; generate {s[0]:.1f} s, "
         f"partition {s[1]:.1f} s, layout {s[2]:.1f} s, components {s[3]:.1f} s, "
         f"place {s[4]:.1f} s; {dev_bytes / 1e9:.2f} GB on the card; "
         f"meta {layout.meta}")
-    return dict(g=g, pg=pg, layout=layout, labels=labels, arrays=arrays,
+    return dict(g=g, pg=pg, layout=layout, labels=labels, arrays=arrays, check=check,
                 etl_s=s, device_bytes=dev_bytes, mode=mode)
 
 
@@ -746,7 +780,7 @@ def run_bfs(label, parts, cfg, n_roots, seed, dev):
     n_runs = len(roots) + 1
 
     for r, (dt, levels, scanned, d_owned) in zip(roots, runs):
-        validate(g, parts["labels"], r, bfs.assemble_distances(pg, d_owned))
+        validate(parts, r, d_owned)
         log(f"  root {r}: {dt * 1e3:.3f} ms, {levels} levels, {scanned:.0f} "
             f"edges examined, {scanned / dt / 1e9:.4f} GTEP/s; valid")
 
@@ -814,6 +848,326 @@ def site_table(rows, cells):
             f"{rec['ms']:.4f} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | {gap}")
 
 
+def merge_launches(sync, branches, depth) -> int:
+    """The ``bitmap_or_reduce`` launches one BFS must make under ``sync``,
+    given each level's BRANCH from its trace and the butterfly's depth
+    (rounds): a dense butterfly level merges once a round, as does every
+    Rabenseifner reduce-scatter round; an xla level once (K = P); a sparse
+    level never; all-to-all merges with ``|``."""
+    import numpy as np
+
+    from repro_torch.core import flightrec
+
+    levels = len(branches)
+    if sync in ("butterfly", "rabenseifner"):
+        return levels * depth
+    if sync == "xla":
+        return levels
+    if sync in ("sparse", "adaptive"):
+        return int(np.sum(np.asarray(branches) != flightrec.BRANCH_SPARSE)) * depth
+    return 0
+
+
+def merge_cases(cell, parts, gen, dev, fanout, wave_words=None):
+    """``bitmap_or_reduce`` at the shapes the other syncs give it: each
+    Rabenseifner reduce-scatter round (most-significant digit first, on
+    chunks of ``W/P * size`` words), the xla all-gather's P-way reduce
+    (``K = P``) and, with ``wave_words``, a butterfly round of the
+    multi-source wave's flat buffer.  The sparse sync's dense fallback and
+    the adaptive sync's dense branch run the phase-4 ``merge`` shape."""
+    from repro_torch.core import butterfly
+
+    p, w = parts["pg"].p, parts["pg"].n_words
+    cases = []
+
+    def case(plane, path, k, width):
+        stack = random_words((p, k, width), gen, dev)
+        cases.append(dict(name="bitmap_or_reduce", cell=cell, plane=plane, path=path,
+                          args=(stack,), kwargs={},
+                          bytes=nbytes(stack) // k * (k + 1)))
+
+    chunk, size = -(-w // p), p
+    for i, rnd in enumerate(butterfly.build_schedule(p, fanout).rounds[::-1]):
+        size //= rnd.digit
+        case(f"rabenseifner_rs{i}", f"{cell} rabenseifner", rnd.digit, size * chunk)
+    case("xla", f"{cell} xla", p, w)
+    if wave_words:
+        case("wave_merge", "wave butterfly", max(2, fanout), wave_words)
+    return cases
+
+
+class LevelBytes(list):
+    """A ``level_ms`` list for ``build_bfs_fn``'s run that also keeps the
+    bytes every rank has sent by the end of each level (``comm``'s count)."""
+
+    def __init__(self, comm):
+        super().__init__()
+        self.comm = comm
+        self.bytes = []
+
+    def append(self, ms):
+        super().append(ms)
+        self.bytes.append(self.comm.bytes_sent.copy())
+
+    def per_level(self):
+        """int64[levels, P]: the bytes each rank sent in each level."""
+        import numpy as np
+
+        b = np.array(self.bytes, dtype=np.int64).reshape(len(self.bytes), -1)
+        return np.diff(np.vstack([np.zeros((1, b.shape[1]), np.int64), b]), axis=0)
+
+
+def decision_ms(buf, reps=200) -> float:
+    """Host ms of one adaptive decision on ``buf[P, W]``: the two counts on
+    the device and their read, as ``butterfly_or_adaptive`` makes it."""
+    import torch
+
+    from repro_torch.core import collectives
+
+    def once():
+        pops, nz = collectives.adaptive_counts(buf)
+        torch.stack([pops, nz.to(pops.dtype)]).tolist()
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def level_table_lines(trace, head=8, tail=3):
+    """The flight log, one line per level (the first ``head`` and last
+    ``tail`` of a long one)."""
+    names = {0: "dense", 1: "sparse", 2: "fallback"}
+    rows = trace.level_table()
+    keep = rows if len(rows) <= head + tail else rows[:head] + [None] + rows[-tail:]
+    return ["    ..." if r is None else
+            f"    L{r['level']:<5d} {names[r['branch']]:8s} {'pull' if r['dir'] else 'push'} "
+            f"words {r['words']:>8d}  pop {r['pop']:>8d}  shipped {r['shipped']:>7d}  "
+            f"{r['bytes_per_node']:>12,.0f} B/rank" + (f"  {r['wall_ms']:.3f} ms"
+                                                    if "wall_ms" in r else "")
+            for r in keep]
+
+
+def run_sync_cell(label, parts, cfg, base_cfg, n_roots, seed, dev, trace_reps=2):
+    """One cell under a sync other than the main path's: time ``n_roots``
+    roots with the CLI's protocol and validate each; hold the first
+    against the dense butterfly (``base_cfg``) bit for bit; trace it and
+    hold the traced run to the untraced one (distances, levels, scanned and
+    every kernel's launches), the bytes each rank sent in each level to the
+    trace's byte model, and the merge launches to what the trace's
+    branches call for; time it ``trace_reps`` times with the trace off and
+    on, in turns.  Returns the summary and a function that runs the first
+    root once (for the profiles)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bfs, collectives, flightrec
+    from repro_torch.graph import csr
+    from repro_torch.kernels import build
+    from repro_torch.launch import bfs_run
+
+    g, pg, layout, arrays = parts["g"], parts["pg"], parts["layout"], parts["arrays"]
+    roots = csr.largest_component_roots(
+        g, n_roots, np.random.default_rng(seed), labels=parts["labels"]).tolist()
+    fn = bfs.build_bfs_fn(pg, cfg, layout, device=dev)
+    build.reset_launches()
+    runs, trimmed_ms, trimmed_gteps = bfs_run.time_roots(fn, arrays, roots, dev)
+    launches = dict(build.LAUNCHES)
+    for r, (dt, levels, scanned, d_owned) in zip(roots, runs):
+        validate(parts, r, d_owned)
+    d0, lv0, sc0 = runs[0][3], runs[0][1], runs[0][2]
+    base = bfs.build_bfs_fn(pg, base_cfg, layout, device=dev)
+    d_b, lv_b, sc_b = base(arrays, roots[0])
+    if not (torch.equal(d0, d_b) and lv0 == lv_b and sc0 == sc_b):
+        raise AssertionError(f"{label}: root {roots[0]} differs from the dense "
+                             f"butterfly: levels {lv0}/{lv_b}, scanned {sc0}/{sc_b}")
+
+    traced = bfs.build_bfs_fn(pg, cfg, layout, device=dev, trace=True, trace_levels=lv0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    fn(arrays, roots[0])
+    torch.cuda.synchronize()
+    plain_launches = dict(build.LAUNCHES)
+    comm = collectives.Communicator(pg.p, dev)
+    per_level = LevelBytes(comm)
+    build.reset_launches()
+    d_t, lv_t, sc_t, tbuf = traced(arrays, roots[0], comm, level_ms=per_level)
+    traced_launches = dict(build.LAUNCHES)
+    if not (torch.equal(d_t, d0) and (lv_t, sc_t) == (lv0, sc0)):
+        raise AssertionError(f"{label}: the traced run differs from the untraced one")
+    if traced_launches != plain_launches:
+        raise AssertionError(f"{label}: traced launches {traced_launches} != "
+                             f"untraced {plain_launches}")
+    trace = flightrec.TraversalTrace.from_buffer(
+        tbuf, algo="bfs", sync=cfg.sync, p=pg.p, fanout=cfg.fanout, n_words=pg.n_words,
+        capacity=cfg.resolved_capacity(pg.n_words), density_threshold=cfg.density_threshold,
+        wall_ms=list(per_level))
+    if trace.levels != lv0:
+        raise AssertionError(f"{label}: {trace.levels} trace rows for {lv0} levels")
+    sent = per_level.per_level()
+    model = trace.level_bytes_per_node()
+    if not np.array_equal(sent, np.repeat(model.astype(np.int64)[:, None], pg.p, 1)):
+        bad = int(np.argmax(np.any(sent != model[:, None], axis=1)))
+        raise AssertionError(f"{label}: level {bad + 1} sent {sent[bad]} B per rank, "
+                             f"the byte model {model[bad]}")
+    rec = flightrec.reconcile_bytes(trace, comm.bytes_sent)
+    if not rec["matches"]:
+        raise AssertionError(f"{label}: bytes do not reconcile: {rec}")
+    depth = len(comm.schedule(cfg.fanout).rounds)
+    want_merges = merge_launches(cfg.sync, trace.data[:, flightrec.COL_BRANCH], depth)
+    if traced_launches.get("bitmap_or_reduce", 0) != want_merges:
+        raise AssertionError(f"{label}: {traced_launches.get('bitmap_or_reduce', 0)} "
+                             f"merge launches, the trace calls for {want_merges}")
+
+    off_ms, on_ms, base_ms = [], [], []
+    for _ in range(trace_reps):
+        for run, out in ((lambda: fn(arrays, roots[0]), off_ms),
+                         (lambda: traced(arrays, roots[0]), on_ms),
+                         (lambda: base(arrays, roots[0]), base_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    summ = trace.summary()
+    n_runs = len(roots) + 1
+    summary = dict(
+        sync=cfg.sync, mode=cfg.mode, roots=len(roots), ms=[x[0] * 1e3 for x in runs],
+        levels=[x[1] for x in runs], scanned=[x[2] for x in runs],
+        trimmed_ms=trimmed_ms, trimmed_gteps=trimmed_gteps,
+        launches_per_bfs={k: v / n_runs for k, v in launches.items()},
+        traced_launches=traced_launches, bytes_per_rank=int(comm.bytes_sent[0]),
+        dense_bytes_per_level=rec["model"]["dense"],
+        sparse_bytes_per_level=rec["model"]["sparse"],
+        trace=summ, trace_off_ms=off_ms, trace_on_ms=on_ms, base_ms=base_ms,
+        level_table=trace.level_table() if trace.levels <= 64 else None)
+    log(f"  {label}: {len(roots)} roots valid; trimmed mean {trimmed_ms:.3f} ms, "
+        f"{trimmed_gteps:.4f} GTEP/s; root {roots[0]} == dense butterfly ({lv0} levels, "
+        f"{sc0:.0f} edges); traced == untraced (launches {traced_launches}); bytes == "
+        f"model at every level ({summary['bytes_per_rank']:,} B per rank; dense "
+        f"{rec['model']['dense']:,.0f}, sparse {rec['model']['sparse']:,.0f} per level); "
+        f"merges {want_merges} as the trace calls for")
+    log(f"  {label} trace: {summ['dense_levels']} dense / {summ['sparse_levels']} sparse "
+        f"/ {summ['fallback_levels']} fallback levels; root {roots[0]} in turns, wall ms: "
+        f"trace off {', '.join(f'{x:.3f}' for x in off_ms)}, on "
+        f"{', '.join(f'{x:.3f}' for x in on_ms)}, the dense butterfly "
+        f"{', '.join(f'{x:.3f}' for x in base_ms)}")
+    for line in level_table_lines(trace):
+        log(line)
+    return summary, lambda: fn(arrays, roots[0]), lambda: base(arrays, roots[0])
+
+
+def run_wave(label, parts, cfg, n_lanes, seed, dev, single):
+    """One multi-source BFS wave of ``n_lanes`` largest-component roots
+    (after a warm-up wave), every lane held against ``single``, the
+    single-source port, at its root: lane 0 as assembled global distances,
+    the others as per-rank distances on the card.  Returns the summary and a function
+    that runs the wave once (for the profiles)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analytics import msbfs
+    from repro_torch.core import bfs
+    from repro_torch.graph import csr
+    from repro_torch.kernels import build
+
+    g, pg, arrays = parts["g"], parts["pg"], parts["arrays"]
+    roots = csr.largest_component_roots(
+        g, n_lanes, np.random.default_rng(seed + 1), labels=parts["labels"])
+    fn = msbfs.build_msbfs_fn(pg, cfg, n_lanes, device=dev)
+    fn(arrays, roots)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    d_owned, levels, scanned = fn(arrays, roots)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if cfg.sync == "butterfly" and launches.get("bitmap_or_reduce", 0) == 0:
+        raise AssertionError(f"{label}: the wave never launched bitmap_or_reduce")
+    for b, r in enumerate(roots):
+        want = single(arrays, int(r))[0]
+        same = (np.array_equal(msbfs.assemble_distances(pg, d_owned, n_lanes)[b],
+                               bfs.assemble_distances(pg, want)) if b == 0
+                else torch.equal(d_owned[..., b], want))
+        if not same:
+            raise AssertionError(f"{label}: lane {b} (root {r}) differs from the "
+                                 f"single-source BFS")
+    summary = dict(sync=cfg.sync, mode=cfg.mode, lanes=n_lanes, ms=dt * 1e3,
+                   levels=levels, scanned=scanned, gteps=scanned / dt / 1e9,
+                   launches=launches, peak_bytes=peak, resident_bytes=before)
+    log(f"  {label}: {n_lanes} lanes == single-source at their roots; {levels} levels, "
+        f"{dt * 1e3:.3f} ms, {scanned:.0f} edges examined, {summary['gteps']:.4f} "
+        f"GTEP/s aggregate; launches {launches}; peak device memory "
+        f"{peak / 1e9:.2f} GB ({before / 1e9:.2f} GB resident before the wave)")
+    return summary, lambda: fn(arrays, roots)
+
+
+def merge_profile(label, run, top_n=5):
+    """Device time of ``bitmap_or_reduce`` inside one ``run()`` (profiler),
+    beside the wrapper's launch count; the device's busy time and its
+    ``top_n`` kernels.  Where the
+    profiler saw fewer launches than the wrapper counted (it can drop a
+    record) the in-run time is None ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = build.LAUNCHES.get("bitmap_or_reduce", 0)
+    cuda = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and not e.is_user_annotation]
+    merge = [e for e in cuda if any(k in e.key for k in DEVICE_NAMES["bitmap_or_reduce"])]
+    seen = sum(e.count for e in merge)
+    ms = sum(e.self_device_time_total for e in merge) / 1e3
+    busy = sum(e.self_device_time_total for e in cuda) / 1e3
+    per = ms / seen if seen and seen == launches else None
+    kernels = sum(e.count for e in cuda)
+    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in
+           sorted(cuda, key=lambda e: -e.self_device_time_total)[:top_n]]
+    log(f"  {label}: bitmap_or_reduce {launches} launches, profiler saw {seen}, "
+        f"{ms:.3f} ms ({'not measured' if per is None else f'{per:.4f} ms a launch'}); "
+        f"device busy {busy:.3f} ms of {wall:.3f} ms profiled wall in {kernels} device "
+        f"operations; by kernel:")
+    for name, t, n in top:
+        log(f"    {t:9.3f} ms  {n:6d}x  {name}")
+    return dict(launches=launches, seen=seen, ms=ms, ms_per_launch=per, busy_ms=busy,
+                profiled_wall_ms=wall, device_ops=kernels, top=top)
+
+
+def merge_site_table(rows, paths):
+    """Fill each ``merge_cases`` row with its launches per BFS (or wave) on
+    its path, the in-path ms per launch (the path's profile; both
+    Rabenseifner rounds share one mean) and (that - bound) x launches; log."""
+    log("  bitmap_or_reduce@site (path): launches per run, ms per launch in the run | "
+        "isolated ms | bound ms (MB) | gap ms per run")
+    for rec in rows:
+        path = paths[rec["path"]]
+        prof = path.get("profile") or {}
+        rec["launches_per_bfs"] = path["merge_launches_per_run"] / path.get(
+            "sites_sharing", 1)
+        rec["bfs_ms_per_launch"] = prof.get("ms_per_launch")
+        rec["gap_ms"] = (None if rec["bfs_ms_per_launch"] is None else
+                         (rec["bfs_ms_per_launch"] - rec["bound_ms"]) * rec["launches_per_bfs"])
+        per = ("not measured" if rec["bfs_ms_per_launch"] is None
+               else f"{rec['bfs_ms_per_launch']:.4f}")
+        gap = "not measured" if rec["gap_ms"] is None else f"{rec['gap_ms']:.3f}"
+        log(f"    @{rec['plane']} ({rec['path']}): {rec['launches_per_bfs']:.2f}, {per} | "
+            f"{rec['ms']:.4f} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | {gap}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=23)
@@ -833,19 +1187,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from repro_torch.analytics import msbfs
     from repro_torch.core import bfs
     from repro_torch.graph import generators
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    log("[1/10] card")
+
+    def phase(msg):
+        log(f"{msg} (at {time.perf_counter() - t_start:.0f} s)")
+
+    phase("[1/12] card")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    log("[2/10] build")
+    phase("[2/12] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
@@ -855,7 +1214,7 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/10] ETL")
+    phase("[3/12] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
@@ -870,8 +1229,9 @@ def main(argv=None) -> int:
     if not km["gather_full"] or tm["gather_full"]:
         raise AssertionError(f"expected a full-gather Kronecker layout and a "
                              f"windowed torus layout, got {km} / {tm}")
+    wave_words = msbfs.wave_rows(kron["pg"]) * msbfs.lane_words(LANES)
 
-    log("[4/10] kernel checks at every call site (exact, at main-path shapes)")
+    phase("[4/12] kernel checks at every call site (exact, at the paths' shapes)")
     floor_ms = event_floor_ms()
     log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
     gen = torch.Generator(device=dev)
@@ -880,21 +1240,26 @@ def main(argv=None) -> int:
     for cell, parts in (("kronecker", kron), ("torus", torus)):
         for case in site_cases(cell, parts, gen, dev, args.fanout):
             rows.append(check_kernel(case))
+    merge_rows = []
+    for case in merge_cases("kronecker", kron, gen, dev, args.fanout, wave_words):
+        merge_rows.append(check_kernel(case))
+        del case["args"]
+    torch.cuda.empty_cache()
 
-    log("[5/10] edge cases of the scatter and both gathers (exact, every route)")
+    phase("[5/12] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
-    log(f"[6/10] Kronecker BFS: direction_optimizing, butterfly fanout "
+    phase(f"[6/12] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    log(f"[7/10] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    phase(f"[7/12] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    log("[8/10] kernel launches on the main path (phases 6 and 7)")
+    phase("[8/12] kernel launches on the main path (phases 6 and 7)")
     records = []
     for name, (cell, plane, act) in MAIN_SITE.items():
         rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
@@ -911,9 +1276,49 @@ def main(argv=None) -> int:
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    log("[9/10] profiles (one root each), then the torus roots timed again")
+    phase(f"[9/12] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
+        f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
+    paths, profiles = {}, {}
+    cells = [("kronecker", kron, kcfg, "adaptive", 4 * SYNC_ROOTS)]
+    cells += [("kronecker", kron, kcfg, s, SYNC_ROOTS)
+              for s in ("sparse", "rabenseifner", "xla")]
+    cells += [("torus", torus, tcfg, "adaptive", SYNC_ROOTS)]
+    for cell, parts, base, sync, n in cells:
+        label = f"{cell} {sync}"
+        paths[label], profiles[label], base_run = run_sync_cell(
+            label, parts, dataclasses.replace(base, sync=sync), base, n, args.seed, dev)
+        if cell == "torus":  # 1025 levels: a profile would cost minutes
+            del profiles[label]
+        elif sync == "adaptive":
+            profiles[f"{cell} butterfly, the same root"] = base_run
+    buf = random_words((args.ranks, torus["pg"].n_words), gen, dev, density=0.001)
+    paths["torus adaptive"]["decision_ms"] = decision_ms(buf)
+    buf = random_words((args.ranks, kron["pg"].n_words), gen, dev, density=0.001)
+    paths["kronecker adaptive"]["decision_ms"] = decision_ms(buf)
+    del buf
+    for label in ("kronecker adaptive", "torus adaptive"):
+        per_level = paths[label]["trimmed_ms"] / np.mean(paths[label]["levels"])
+        log(f"  {label}: one adaptive decision (two counts on the device and their "
+            f"read) {paths[label]['decision_ms']:.4f} ms host, against "
+            f"{per_level:.4f} ms a level of the trimmed BFS")
+
+    phase(f"[10/12] multi-source BFS: one {LANES}-lane Kronecker wave, "
+          f"direction_optimizing")
+    single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
+    for sync in ("butterfly", "adaptive"):
+        label = f"wave {sync}"
+        wcfg = bfs.BFSConfig(fanout=args.fanout, sync=sync, mode="direction_optimizing")
+        paths[label], profiles[label] = run_wave(label, kron, wcfg, LANES, args.seed,
+                                                 dev, single)
+        torch.cuda.empty_cache()
+
+    phase("[11/12] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
+    same_root = {}
+    for label, run in profiles.items():
+        prof = merge_profile(label, run)
+        (paths[label] if label in paths else same_root.setdefault(label, {}))["profile"] = prof
     _, torus_sum["after_profiler_ms"], _ = torus_again()
     log(f"  torus trimmed mean after the profiler: "
         f"{torus_sum['after_profiler_ms']:.3f} ms (before it: "
@@ -921,23 +1326,38 @@ def main(argv=None) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
 
-    log("[10/10] result")
+    phase("[12/12] result")
     site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
+    for label, path in paths.items():
+        launches = path["traced_launches"] if "traced_launches" in path else path["launches"]
+        path["merge_launches_per_run"] = launches.get("bitmap_or_reduce", 0)
+    paths["kronecker rabenseifner"]["sites_sharing"] = sum(
+        r["path"] == "kronecker rabenseifner" for r in merge_rows)
+    # the dense levels of the sparse syncs merge at the butterfly's shapes
+    for path, cell, plane in (("kronecker adaptive", "kronecker", "merge"),
+                              ("kronecker sparse", "kronecker", "merge"),
+                              ("torus adaptive", "torus", "merge"),
+                              ("wave adaptive", "kronecker", "wave_merge")):
+        src = next(r for r in rows + merge_rows if r["cell"] == cell and r["plane"] == plane)
+        merge_rows.append(dict(src, path=path, plane=f"{plane} (dense levels)"))
+    merge_site_table(merge_rows, paths)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
-                           kernels=records, sites=rows, edge_cases=n_edge,
-                           timing_floor_ms=floor_ms,
-                           kronecker=kron_sum, torus=torus_sum,
+                           kernels=records, sites=rows, merge_sites=merge_rows,
+                           edge_cases=n_edge, timing_floor_ms=floor_ms,
+                           kronecker=kron_sum, torus=torus_sum, paths=paths,
+                           same_root=same_root,
                            kronecker_launches=kron_launch,
                            torus_launches=torus_launch,
                            etl_s={"kronecker": kron["etl_s"], "torus": torus["etl_s"]},
                            device_bytes={"kronecker": kron["device_bytes"],
                                          "torus": torus["device_bytes"]},
-                           args=vars(args)), f, indent=1)
-    print(json.dumps({"sites": rows}), flush=True)
+                           total_s=time.perf_counter() - t_start,
+                           args=vars(args)), f, indent=1, default=float)
+    print(json.dumps({"sites": rows + merge_rows}, default=float), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,19 @@ The port of ``repro.core.bfs``.  Per level:
   edges, top-down (push), bottom-up (pull) or with Beamer's
   direction-optimizing switch, into its "global queue" bitmap.
 * **Phase 2 — frontier synchronization**: the per-rank bitmaps are
-  OR-merged across ranks with the butterfly (configurable fanout) or the
-  all-to-all baseline of :mod:`repro_torch.core.collectives`.
+  OR-merged across ranks by one of six syncs of
+  :mod:`repro_torch.core.collectives`: the butterfly (configurable
+  fanout), its sparse and density-adaptive variants, Rabenseifner's
+  reduce-scatter + all-gather, the all-to-all baseline, or the all-gather
+  that stands for the JAX package's compiler-scheduled collective.
 
 The level loop runs on the host and reads one small tensor per level (the
-new frontier's size and the two edge counts Beamer's switch needs).
-``use_kernels=True`` runs phase 1 and the butterfly merge through the
-CUDA kernels of :mod:`repro_torch.kernels`; on CPU tensors the same calls
-take the kernels' plain versions.
+new frontier's size and the two edge counts Beamer's switch needs); the
+sparse and adaptive syncs read one more, the counts their branch depends
+on.  ``use_kernels=True`` runs phase 1 and every OR merge of a dense round
+through the CUDA kernels of :mod:`repro_torch.kernels`; on CPU tensors the
+same calls take the kernels' plain versions.  ``trace=True`` records one
+flight-recorder row per level (:mod:`repro_torch.core.flightrec`).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, flightrec
 from repro_torch.core import frontier as fr
 from repro_torch.core import loop
 from repro_torch.graph.csr import Graph
@@ -37,12 +42,6 @@ INF = int(np.iinfo(np.int32).max)
 
 MODES = ("top_down", "bottom_up", "direction_optimizing")
 SYNCS = ("butterfly", "sparse", "adaptive", "rabenseifner", "all_to_all", "xla")
-_NOT_PORTED = {
-    "sparse": "ROADMAP.md Queue 1, sparse and adaptive frontier sync",
-    "adaptive": "ROADMAP.md Queue 1, sparse and adaptive frontier sync",
-    "rabenseifner": "ROADMAP.md Queue 1, Rabenseifner and xla syncs",
-    "xla": "ROADMAP.md Queue 1, Rabenseifner and xla syncs",
-}
 # Layout planes indexed by torch.gather, which wants int64 indices.
 _INDEX_KEYS = ("tds_perm", "pus_perm")
 
@@ -90,42 +89,104 @@ class BFSConfig:
     """Algorithm knobs (paper Sec. 3/4)."""
 
     fanout: int = 2  # paper fanout: 1 -> pairwise, 4 -> radix-4 rounds
-    sync: str = "butterfly"  # butterfly | all_to_all
+    # butterfly | sparse | adaptive | rabenseifner | all_to_all | xla
+    sync: str = "butterfly"
     mode: str = "top_down"  # top_down | bottom_up | direction_optimizing
     alpha: float = 15.0  # Beamer push->pull threshold
     beta: float = 18.0  # Beamer pull->push threshold
     max_levels: Optional[int] = None
     use_kernels: bool = False  # phase 1 + merge via the CUDA kernels
+    # --- sparse/adaptive sync knobs (DESIGN.md §12) -----------------------
+    # max (word_index, word) pairs shipped in the first sparse round;
+    # 0 -> auto-size to n_words // 64 (>= 64) at build time.
+    sparse_capacity: int = 0
+    # adaptive dispatch: go sparse while the densest rank's popcount stays
+    # under this fraction of the bitmap bits (and its word count fits the
+    # capacity).
+    density_threshold: float = 0.02
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"unknown BFS mode {self.mode!r}; expected one of {MODES}")
         if self.sync not in SYNCS:
             raise ValueError(f"unknown frontier sync {self.sync!r}; expected one of {SYNCS}")
-        if self.sync in _NOT_PORTED:
-            raise NotImplementedError(
-                f"sync {self.sync!r} is not ported yet ({_NOT_PORTED[self.sync]})"
-            )
+
+    def resolved_capacity(self, n_words: int) -> int:
+        cap = self.sparse_capacity or max(64, n_words // 64)
+        return min(cap, n_words)
 
 
-def _expand_push(arrays, frontier, n_words, use_kernels, meta):
+def _sync_frontier(words: torch.Tensor, cfg: BFSConfig, comm: collectives.Communicator,
+                   use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """OR-merge the per-rank buffers ``words[P, W]`` with ``cfg.sync``; the
+    dense rounds' merges go through ``bitmap_or_reduce`` when
+    ``use_kernels`` (by default ``cfg.use_kernels``)."""
+    if use_kernels is None:
+        use_kernels = cfg.use_kernels
+    kw = dict(fanout=cfg.fanout, use_kernels=use_kernels)
+    if cfg.sync == "butterfly":
+        return collectives.butterfly_or(words, comm, **kw)
+    if cfg.sync == "sparse":
+        # always-sparse wire format, dense fallback only on overflow
+        return collectives.butterfly_or_sparse(
+            words, comm, capacity=cfg.resolved_capacity(words.shape[-1]), **kw)
+    if cfg.sync == "adaptive":
+        # per-level dense/sparse dispatch keyed on frontier density
+        return collectives.butterfly_or_adaptive(
+            words, comm, capacity=cfg.resolved_capacity(words.shape[-1]),
+            density_threshold=cfg.density_threshold, **kw)
+    if cfg.sync == "rabenseifner":
+        return collectives.butterfly_allreduce_rabenseifner(words, comm, op="or", **kw)
+    if cfg.sync == "all_to_all":
+        return collectives.all_to_all_merge(words, comm)
+    return collectives.xla_allreduce(words, comm, op="or", use_kernels=use_kernels)
+
+
+def _lane_rows(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx[P, E]`` of a lane-packed ``buf[P, n_rows, k]`` ->
+    ``[P, E, k]``."""
+    idx = idx.long()
+    return torch.gather(buf, 1, idx[..., None].expand(*idx.shape, buf.shape[-1]))
+
+
+def _expand_push(arrays, frontier, n_words, use_kernels, meta=None, *, lanes=False):
     """Top-down: scatter frontier bits along owned out-edges (paper Alg. 2
-    phase 1).  Returns every rank's 'global queue' bitmap ``[P, n_words]``."""
+    phase 1).  Returns every rank's 'global queue' bitmap ``[P, n_words]``.
+
+    ``lanes=True``: lane-packed ``int32[P, n_words, B/32]`` rows, the same
+    traversal bit-parallel over B concurrent searches
+    (:mod:`repro_torch.analytics.msbfs`), where ``n_words`` counts vertex
+    ROWS and the merge is a per-row lane-mask OR (plain PyTorch only)."""
     if use_kernels:
+        if lanes:
+            raise NotImplementedError("the frontier kernels are single-source "
+                                      "(vertex-packed) only")
         return kops.expand_push(frontier, arrays, meta, n_words)
     src, dst = arrays["edge_src"], arrays["edge_dst"]
     mask = torch.arange(src.shape[1], device=src.device) < arrays["edge_count"][:, None]
+    if lanes:
+        active = torch.where(mask[..., None], _lane_rows(frontier, src), 0)
+        return fr.scatter_or_lanes(n_words, dst, active)
     active = fr.get_bits(frontier, src) & mask
     return fr.scatter_or(n_words, dst, active)
 
 
-def _expand_pull(arrays, frontier, visited, n_words, use_kernels, meta):
+def _expand_pull(arrays, frontier, visited, n_words, use_kernels, meta=None, *,
+                 lanes=False):
     """Bottom-up: every unvisited owned vertex probes its in-edges for a
-    parent in the frontier (Beamer; paper Sec. 3)."""
+    parent in the frontier (Beamer; paper Sec. 3).  ``lanes=True`` runs
+    the probe per search lane: a vertex can be settled in one search and
+    still pulling in another, all in one bitwise op."""
     if use_kernels:
+        if lanes:
+            raise NotImplementedError("the frontier kernels are single-source "
+                                      "(vertex-packed) only")
         return kops.expand_pull(frontier, visited, arrays, meta, n_words)
     src, dst = arrays["in_src"], arrays["in_dst"]
     mask = torch.arange(src.shape[1], device=src.device) < arrays["in_count"][:, None]
+    if lanes:
+        parent = torch.where(mask[..., None], _lane_rows(frontier, src), 0)
+        return fr.scatter_or_lanes(n_words, dst, parent & ~_lane_rows(visited, dst))
     found = fr.get_bits(frontier, src) & mask & ~fr.get_bits(visited, dst)
     return fr.scatter_or(n_words, dst, found)
 
@@ -154,16 +215,33 @@ class _State(NamedTuple):
     n_front: int  # popcount of the frontier
 
 
+def device_sync(dev: torch.device):
+    """A function that waits for ``dev`` to finish its work (a no-op on the
+    CPU): what stops a wall clock after device work."""
+    if dev.type == "cuda":
+        return lambda: torch.cuda.synchronize(dev)
+    return lambda: None
+
+
 def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
-                 layout: Optional[blocks.BFSKernelLayout] = None, *, device="cuda"):
+                 layout: Optional[blocks.BFSKernelLayout] = None, *, device="cuda",
+                 trace: bool = False, trace_levels: Optional[int] = None):
     """Distributed BFS over ``pg``'s P simulated ranks.
 
-    Returns ``run(arrays, root, comm=None)`` with ``arrays`` from
-    :func:`place_arrays` on the same device.  Output: per-rank owned
-    distances ``int32[P, vmax]`` (``INF`` for unreached), levels executed,
-    and edges examined (float32, as the reference counts them, for honest
-    TEPS).  ``comm`` (a :class:`~repro_torch.core.collectives.Communicator`)
-    collects the merge's bytes per rank."""
+    Returns ``run(arrays, root, comm=None, *, level_ms=None)`` with
+    ``arrays`` from :func:`place_arrays` on the same device.  Output:
+    per-rank owned distances ``int32[P, vmax]`` (``INF`` for unreached),
+    levels executed, and edges examined (float32, as the reference counts
+    them, for honest TEPS).  ``comm`` (a
+    :class:`~repro_torch.core.collectives.Communicator`) collects the
+    merge's bytes per rank; a list ``level_ms`` takes each level's wall
+    time in ms, the clock stopping after the device has finished the level.
+
+    ``trace=True`` appends the flight-recorder buffer
+    ``int32[trace_levels, TRACE_COLS]`` (:mod:`.flightrec`) to the output:
+    one row per level, from statistics computed on the device and read
+    once, with the buffer, after the run.  ``trace=False`` computes no sync
+    statistics and launches exactly the uninstrumented work."""
     dev = resolve_device(device)
     if cfg.use_kernels and layout is None:
         raise ValueError("use_kernels=True requires a BFSKernelLayout")
@@ -176,12 +254,15 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
              < torch.as_tensor(pg.v_count, device=dev)[:, None])
     alpha = np.float32(cfg.alpha)
     push_below = np.float32(pg.n / cfg.beta)
+    if trace:
+        t_levels = flightrec.resolve_trace_levels(trace_levels, max_levels)
 
     def own(words):
         """bool[P, vmax]: each rank's bits of its owned vertex range."""
         return fr.unpack(torch.gather(words, 1, word_cols))[:, :vmax]
 
-    def run(arrays, root: int, comm: Optional[collectives.Communicator] = None):
+    def run(arrays, root: int, comm: Optional[collectives.Communicator] = None, *,
+            level_ms: Optional[list] = None):
         root = int(root)
         if not 0 <= root < pg.n:
             raise ValueError(f"root {root} outside [0, {pg.n})")
@@ -193,16 +274,10 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
         owner = pg.owner_of(root)
         d_owned[owner, root - int(pg.v_start[owner])] = 0
 
-        def sync(gq):
-            if cfg.sync == "butterfly":
-                return collectives.butterfly_or(gq, comm, fanout=cfg.fanout,
-                                                use_kernels=cfg.use_kernels)
-            return collectives.all_to_all_merge(gq, comm)
-
         def cond(s: _State) -> bool:
             return s.n_front > 0 and s.level < max_levels
 
-        def step(s: _State) -> _State:
+        def step(s: _State):
             # -- Phase 1: traversal
             if s.pull:
                 gq = _expand_pull(arrays, s.frontier, s.visited, n_words,
@@ -213,7 +288,9 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
             m_f = (deg_out * (own(s.frontier) & owned)).sum(1)
             m_u = (deg_out * (~own(s.visited) & owned)).sum(1)
             # -- Phase 2: frontier synchronization
-            new = sync(gq) & ~s.visited
+            if trace:
+                stats = flightrec.or_sync_stats(gq, cfg)
+            new = _sync_frontier(gq, cfg, comm) & ~s.visited
             visited = s.visited | new
             d_owned = s.d_owned.masked_fill_(own(new) & owned, s.level + 1)
             scanned = s.scanned + (m_u if s.pull else m_f).to(torch.float32)
@@ -227,13 +304,21 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
                     pull = not np.float32(n_new) < push_below
                 else:
                     pull = bool(np.float32(g_mf) > np.float32(g_mu) / alpha)
-            return _State(new, visited, d_owned, s.level + 1, scanned, pull, n_new)
+            out = _State(new, visited, d_owned, s.level + 1, scanned, pull, n_new)
+            if not trace:
+                return out, None
+            row = flightrec.trace_row(s.level, stats[0], n_new, int(s.pull),
+                                      stats[1], stats[2], fr.count_nonzero(new[0]))
+            return out, (s.level, row)
 
         init = _State(visited, visited, d_owned, 0,
                       torch.zeros(p, dtype=torch.float32, device=dev),
                       cfg.mode == "bottom_up", 1)
-        s = loop.host_while(cond, step, init)
-        return s.d_owned, s.level, float(s.scanned.sum())
+        tbuf = flightrec.zeros(t_levels, dev) if trace else None
+        s = loop.host_while(cond, step, init, trace_buffer=tbuf, level_ms=level_ms,
+                            sync=device_sync(dev))
+        out = (s.d_owned, s.level, float(s.scanned.sum()))
+        return out + (tbuf,) if trace else out
 
     return run
 

@@ -1,34 +1,62 @@
 """Frontier merges over simulated ranks (BFS phase 2).
 
-The port of the dense OR merges of ``repro.core.collectives``.  The P
-ranks are the leading axis of a ``[P, W]`` tensor on one device, and a
-:class:`Communicator` plays the network: :meth:`Communicator.ppermute`
-is an explicit copy of every rank's buffer to its partner, and it counts
-the bytes each rank sends.
+The port of ``repro.core.collectives``.  The P ranks are the leading axis
+of a ``[P, W]`` tensor on one device, and a :class:`Communicator` plays
+the network: :meth:`Communicator.ppermute` is an explicit copy of every
+rank's buffer to its partner, and it counts the bytes each rank sends.
 
-* :func:`butterfly_or` — the paper's butterfly (Alg. 2 phase 2): every
-  round ships the full accumulator to ``digit - 1`` partners and merges
-  the ``digit`` buffers with one ``bitmap_or_reduce`` launch.
+* :func:`butterfly_merge` / :func:`butterfly_reduce` / :func:`butterfly_or`
+  / :func:`butterfly_allreduce` — the paper's butterfly (Alg. 2 phase 2):
+  every round ships the full accumulator to ``digit - 1`` partners and
+  merges the ``digit`` buffers; an OR merge is one ``bitmap_or_reduce``
+  launch per round.
+* :func:`butterfly_reduce_sparse` / :func:`butterfly_reduce_adaptive` /
+  :func:`butterfly_or_sparse` / :func:`butterfly_or_adaptive` — the
+  density-adaptive sparse exchange (DESIGN.md §12): fixed-capacity
+  ``(word_index, word)`` pairs on the same wiring.
+* :func:`butterfly_allreduce_rabenseifner` — reduce-scatter plus
+  all-gather on the butterfly wiring: ``2 (P-1)/P`` of the buffer per rank.
 * :func:`all_to_all_merge` — the baseline the paper replaces: ``P - 1``
   ring shifts, each merged with ``|``.
+* :func:`xla_allreduce` — the compiler-scheduled reference point of the JAX
+  package; on simulated ranks an all-gather (``P - 1`` shifts) and a
+  ``P``-way reduce.
+
+Where the reference picks a branch on the device (``lax.cond``), the port
+reads the deciding counts on the host: one read per call of the sparse
+(overflow guard) and adaptive syncs, none for the dense ones.  The ranks
+form one axis; the reference's hierarchical multi-axis wiring is not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import butterfly
-from repro_torch.kernels import bitmap_merge, ref
+from repro_torch.core import frontier as fr
+from repro_torch.core import monoid as mono
+from repro_torch.core.monoid import Monoid
+from repro_torch.kernels import bitmap_merge, ref as kref
+
+_MERGE_OPS = {
+    "add": torch.add,
+    "or": torch.bitwise_or,
+    "and": torch.bitwise_and,
+    "max": torch.maximum,
+    "min": torch.minimum,
+}
+Op = Union[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
 
 
 class Communicator:
     """P simulated ranks on one device, with a per-rank send counter.
 
-    ``bytes_sent[r]`` counts the bytes rank ``r`` has put on the wire; the
-    butterfly's count must equal ``butterfly.bytes_per_node_allreduce``."""
+    ``bytes_sent[r]`` counts the bytes rank ``r`` has put on the wire; each
+    sync's count must equal its byte model in :mod:`.butterfly`."""
 
     def __init__(self, p: int, device):
         self.p = int(p)
@@ -65,22 +93,275 @@ class Communicator:
         return recv
 
 
-def butterfly_or(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
-                 use_kernels: bool = True) -> torch.Tensor:
-    """OR-merge ``x[P, W]`` across all ranks with the butterfly schedule.
+def _merge_stack(stack: torch.Tensor, op: Op, use_kernels: bool) -> torch.Tensor:
+    """Merge ``stack[P, K, ...]`` along K.  OR is one ``bitmap_or_reduce``
+    (the CUDA kernel; its plain version when ``use_kernels`` is False) over
+    the contiguous ``[P, K, W]`` stack; any other op folds the K buffers in
+    order, as the reference merges what it receives."""
+    if op == "or" or op is torch.bitwise_or:
+        merge = bitmap_merge.bitmap_or_reduce if use_kernels else kref.bitmap_or_reduce
+        p, k = stack.shape[:2]
+        return merge(stack.reshape(p, k, -1)).reshape((p,) + stack.shape[2:])
+    fn = _MERGE_OPS[op] if isinstance(op, str) else op
+    out = stack[:, 0]
+    for k in range(1, stack.shape[1]):
+        out = fn(out, stack[:, k])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful full-buffer butterfly (Alg. 2, phase 2)
+# ---------------------------------------------------------------------------
+
+
+def butterfly_merge(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                    op: Op = "add", use_kernels: bool = True) -> torch.Tensor:
+    """Merge ``x[P, ...]`` across all ranks with the butterfly schedule.
 
     Round by round (``butterfly.build_schedule(P, fanout).rounds``), each
     rank's accumulator and the ``digit - 1`` buffers it receives are
-    stacked into ``[P, digit, W]`` and merged in one ``bitmap_or_reduce``
-    (the CUDA kernel; its plain version when ``use_kernels`` is False)."""
-    merge = bitmap_merge.bitmap_or_reduce if use_kernels else ref.bitmap_or_reduce
+    stacked into ``[P, digit, ...]`` and merged (``op`` associative and
+    commutative)."""
     for rnd in comm.schedule(fanout).rounds:
         stack = x.new_empty((x.shape[0], rnd.digit) + tuple(x.shape[1:]))
         stack[:, 0] = x
         for j, perm in enumerate(rnd.perms, start=1):
             comm.ppermute(x, perm, out=stack[:, j])
-        x = merge(stack)
+        x = _merge_stack(stack, op, use_kernels)
     return x
+
+
+def butterfly_reduce(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
+                     fanout: int = 2, use_kernels: bool = True) -> torch.Tensor:
+    """All-reduce ``x`` over a :class:`~repro_torch.core.monoid.Monoid` with
+    the full-buffer butterfly (DESIGN.md §14)."""
+    return butterfly_merge(x, comm, fanout=fanout, op=monoid.combine,
+                           use_kernels=use_kernels)
+
+
+def butterfly_or(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """Bitmap frontier synchronization (BFS phase 2): the OR monoid's
+    butterfly, one ``bitmap_or_reduce`` launch per round."""
+    return butterfly_reduce(x, comm, mono.OR_U32, fanout=fanout,
+                            use_kernels=use_kernels)
+
+
+def butterfly_allreduce(x: torch.Tensor, comm: Communicator, *,
+                        fanout: int = 2) -> torch.Tensor:
+    """Sum all-reduce with the paper-faithful full-buffer butterfly."""
+    return butterfly_merge(x, comm, fanout=fanout, op="add")
+
+
+# ---------------------------------------------------------------------------
+# Density-adaptive sparse frontier exchange (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+
+def bits_limit(n_words: int, density_threshold: float) -> int:
+    """The adaptive OR sync's popcount limit, computed as the reference
+    computes it (a Python float product cast to an integer)."""
+    return int(density_threshold * n_words * fr.WORD_BITS)
+
+
+def _sparse_rounds(words, comm, monoid, fanout, capacity, ref):
+    """The sparse butterfly: per round every rank compacts the words of its
+    pre-round accumulator that differ from ``ref`` to the round capacity
+    and ships the pairs (``8 * cap_r`` bytes a message) to each partner,
+    which combines them; the capacity grows by the round's digit."""
+    n_words = words.shape[-1]
+    cap = capacity
+    for rnd in comm.schedule(fanout).rounds:
+        idx, vals, _, _ = fr.compact_changed(words, ref, min(cap, n_words), monoid)
+        for perm in rnd.perms:
+            ridx = comm.ppermute(idx, perm)
+            rvals = comm.ppermute(vals, perm)
+            words = fr.scatter_combine(words, ridx, rvals, monoid)
+        cap *= rnd.digit
+    return words
+
+
+def butterfly_reduce_sparse(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
+                            fanout: int = 2, capacity: int = 256,
+                            ref: Optional[torch.Tensor] = None, fallback: bool = True,
+                            use_kernels: bool = True) -> torch.Tensor:
+    """Monoid all-reduce of ``x[P, W]`` shipping COMPACT ``(word_index,
+    word)`` pairs of the words changed since ``ref`` (a ``[W]`` buffer the
+    ranks share; the identity by default, which for OR makes "changed" ==
+    "nonzero"), padded with ``(0, identity)``.
+
+    The idempotence/delta dichotomy of the reference holds: an idempotent
+    monoid may take any replicated-consistent ``ref`` whose changes are
+    combine-improvements; a non-idempotent one only ``ref=None``
+    (:class:`~repro_torch.core.monoid.MonoidContractError` otherwise).
+
+    ``fallback=True`` guards the only overflow condition, the INITIAL
+    changed count of the busiest rank against ``capacity``: the count is
+    read on the host and an overflow runs the dense :func:`butterfly_reduce`
+    instead (its merges through ``bitmap_or_reduce`` for OR), so truncation
+    never corrupts the result.  ``fallback=False`` skips the guard and the
+    read (callers that pre-checked the count)."""
+    monoid.check_sparse_ref(ref)
+    n_words = x.shape[-1]
+    ref_arr = monoid.identity_like(x) if ref is None else ref
+    if fallback:
+        count = int(fr.changed_count(x, ref_arr).max())
+        if count > min(capacity, n_words):
+            return butterfly_reduce(x, comm, monoid, fanout=fanout,
+                                    use_kernels=use_kernels)
+    return _sparse_rounds(x, comm, monoid, fanout, capacity, ref_arr)
+
+
+def butterfly_reduce_adaptive(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
+                              fanout: int = 2, capacity: int = 256,
+                              density_threshold: float = 0.02,
+                              ref: Optional[torch.Tensor] = None,
+                              use_kernels: bool = True) -> torch.Tensor:
+    """Per-call dense/sparse dispatch keyed on the CHANGED-word density:
+    sparse when the busiest rank's changed-since-``ref`` word count stays
+    under ``density_threshold`` of ``W`` and fits ``capacity``, dense
+    otherwise; the count is read on the host."""
+    monoid.check_sparse_ref(ref)
+    n_words = x.shape[-1]
+    cap = min(capacity, n_words)
+    ref_arr = monoid.identity_like(x) if ref is None else ref
+    changed = int(fr.changed_count(x, ref_arr).max())
+    if changed <= int(density_threshold * n_words) and changed <= cap:
+        return butterfly_reduce_sparse(x, comm, monoid, fanout=fanout, capacity=cap,
+                                       ref=ref, fallback=False)
+    return butterfly_reduce(x, comm, monoid, fanout=fanout, use_kernels=use_kernels)
+
+
+def butterfly_or_sparse(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                        capacity: int = 256, fallback: bool = True,
+                        use_kernels: bool = True) -> torch.Tensor:
+    """Bitmap OR-merge shipping compact pairs: the OR-monoid instance of
+    :func:`butterfly_reduce_sparse`."""
+    return butterfly_reduce_sparse(x, comm, mono.OR_U32, fanout=fanout,
+                                   capacity=capacity, fallback=fallback,
+                                   use_kernels=use_kernels)
+
+
+def adaptive_counts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The adaptive OR sync's two statistics of ``x[P, W]`` on the device:
+    the busiest rank's popcount and its nonzero-word count."""
+    return fr.popcount(x, dim=-1).max(), fr.count_nonzero(x).max()
+
+
+def butterfly_or_adaptive(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                          capacity: int = 256, density_threshold: float = 0.02,
+                          use_kernels: bool = True) -> torch.Tensor:
+    """Per-call dense/sparse dispatch keyed on the frontier's density.
+
+    In the BFS level loop this decides EVERY level: sparse when the
+    densest rank's popcount stays under ``density_threshold`` of the bitmap
+    bits AND its nonzero-word count fits ``capacity`` (the sparse path's
+    no-overflow precondition, so it runs without the guard), dense
+    otherwise.  The two counts are read on the host in one transfer."""
+    n_words = x.shape[-1]
+    cap = min(capacity, n_words)
+    pops, nz = adaptive_counts(x)
+    pops, nz = torch.stack([pops, nz.to(pops.dtype)]).tolist()
+    if pops <= bits_limit(n_words, density_threshold) and nz <= cap:
+        return butterfly_or_sparse(x, comm, fanout=fanout, capacity=cap,
+                                   fallback=False)
+    return butterfly_or(x, comm, fanout=fanout, use_kernels=use_kernels)
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: Rabenseifner on the butterfly wiring
+# ---------------------------------------------------------------------------
+
+
+def _global_stages(comm: Communicator, fanout: int):
+    """The schedule's rounds most-significant digit first."""
+    return comm.schedule(fanout).rounds[::-1]
+
+
+def _ranges(lo: np.ndarray, chunks: int, chunk_elems: int, device) -> torch.Tensor:
+    """int64[P, chunks * chunk_elems]: the element indices of each rank's
+    range of ``chunks`` chunks starting at chunk ``lo[r]``."""
+    start = torch.as_tensor(lo * chunk_elems, dtype=torch.int64, device=device)
+    return start[:, None] + torch.arange(chunks * chunk_elems, device=device)
+
+
+def butterfly_reduce_scatter(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                             op: Op = "add", use_kernels: bool = True):
+    """Recursive-halving reduce-scatter over the butterfly wiring.
+
+    Each rank's ``x[r]`` is flattened and zero-padded to a multiple of
+    ``P`` (the pad is the identity of add, or and unsigned max).  Returns
+    ``(chunk [P, n/P], lo int64[P])``: each rank's ``1/P`` slice of the
+    reduced buffer and its position in chunks.  The chunk offsets differ
+    by rank, so every slice is a gather (and every write-back a scatter)
+    along the rank axis; a round's merge runs on the contiguous
+    ``[P, digit, chunk]`` stack."""
+    p, dev = comm.p, x.device
+    flat = x.reshape(p, -1)
+    pad = (-flat.shape[1]) % p
+    flat = torch.cat([flat, flat.new_zeros((p, pad))], 1)
+    ce = flat.shape[1] // p
+    ranks = np.arange(p, dtype=np.int64)
+    lo = np.zeros(p, dtype=np.int64)
+    size = p
+    for rnd in _global_stages(comm, fanout):
+        d, stride = rnd.digit, rnd.stride
+        newsize = size // d
+        dig = (ranks // stride) % d
+        mylo = lo + dig * newsize
+        mine = _ranges(mylo, newsize, ce, dev)
+        stack = flat.new_empty((p, d, newsize * ce))
+        stack[:, 0] = flat.gather(1, mine)
+        for j, perm in enumerate(rnd.perms, start=1):
+            send = _ranges(lo + ((dig + j) % d) * newsize, newsize, ce, dev)
+            comm.ppermute(flat.gather(1, send), perm, out=stack[:, j])
+        flat.scatter_(1, mine, _merge_stack(stack, op, use_kernels))
+        lo, size = mylo, newsize
+    return flat.gather(1, _ranges(lo, 1, ce, dev)), lo
+
+
+def butterfly_allgather_chunks(chunk: torch.Tensor, lo: np.ndarray, total_elems: int,
+                               comm: Communicator, *, fanout: int = 2) -> torch.Tensor:
+    """Recursive-doubling all-gather: inverse of the reduce-scatter above.
+    ``chunk[P, c]`` sits at chunk ``lo[r]`` of rank ``r``'s buffer; returns
+    ``[P, total_elems]``."""
+    p, dev = comm.p, chunk.device
+    ce = chunk.shape[1]
+    flat = chunk.new_zeros((p, p * ce))
+    lo = np.asarray(lo, dtype=np.int64)
+    flat.scatter_(1, _ranges(lo, 1, ce, dev), chunk)
+    ranks = np.arange(p, dtype=np.int64)
+    size = 1
+    for rnd in comm.schedule(fanout).rounds:  # least-significant digit first
+        d, stride = rnd.digit, rnd.stride
+        dig = (ranks // stride) % d
+        base = lo - dig * size
+        mine = flat.gather(1, _ranges(lo, size, ce, dev))
+        for j, perm in enumerate(rnd.perms, start=1):
+            recv = comm.ppermute(mine, perm)
+            flat.scatter_(1, _ranges(base + ((dig - j) % d) * size, size, ce, dev), recv)
+        lo, size = base, size * d
+    return flat[:, :total_elems]
+
+
+def butterfly_allreduce_rabenseifner(x: torch.Tensor, comm: Communicator, *,
+                                     fanout: int = 2, op: Op = "add",
+                                     use_kernels: bool = True) -> torch.Tensor:
+    """All-reduce = reduce-scatter + all-gather (bandwidth-optimal):
+    ``2 (P-1)/P`` of the padded buffer per rank, equal to
+    ``butterfly.bytes_per_node_rabenseifner``.  ``op='or'`` gives the BFS
+    bitmap merge, its rounds merged by ``bitmap_or_reduce``."""
+    n = x[0].numel()
+    chunk, lo = butterfly_reduce_scatter(x, comm, fanout=fanout, op=op,
+                                         use_kernels=use_kernels)
+    padded = n + (-n) % comm.p
+    flat = butterfly_allgather_chunks(chunk, lo, padded, comm, fanout=fanout)
+    return flat[:, :n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Naive baseline the paper replaces, and the compiler's collective
+# ---------------------------------------------------------------------------
 
 
 def all_to_all_merge(x: torch.Tensor, comm: Communicator) -> torch.Tensor:
@@ -92,3 +373,25 @@ def all_to_all_merge(x: torch.Tensor, comm: Communicator) -> torch.Tensor:
         shifted = comm.ppermute(shifted, ring)
         x = x | shifted
     return x
+
+
+def xla_allreduce(x: torch.Tensor, comm: Communicator, *, op: str = "add",
+                  use_kernels: bool = True) -> torch.Tensor:
+    """The JAX package's compiler-scheduled all-reduce, on simulated ranks:
+    an all-gather (each rank ships its buffer to the ``P - 1`` others, one
+    shift each: ``(P - 1) * 4 W`` bytes per rank for int32 words) into a
+    ``[P, P, W]`` stack, then a ``P``-way reduce over the gathered axis.
+    ``op`` is ``add``, ``max`` (as the tensor's type orders its values) or
+    ``or`` (``bitmap_or_reduce`` with ``K = P``)."""
+    if op not in ("add", "max", "or"):
+        raise ValueError(op)
+    p = comm.p
+    stack = x.new_empty((p, p) + tuple(x.shape[1:]))
+    stack[:, 0] = x
+    for s in range(1, p):
+        comm.ppermute(x, [(i + s) % p for i in range(p)], out=stack[:, s])
+    if op == "or":
+        return _merge_stack(stack, "or", use_kernels)
+    if op == "add":
+        return stack.sum(1, dtype=x.dtype)
+    return stack.amax(1)

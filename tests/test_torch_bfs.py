@@ -1,6 +1,7 @@
 """PyTorch port, distributed BFS on the CPU: distances, levels and edges
 examined equal the JAX package's distributed_bfs (plain and Pallas) on
-every tests/test_bfs.py graph, sync, fanout and traversal mode."""
+every tests/test_bfs.py graph, each of the six syncs, fanout and traversal
+mode."""
 
 import os
 import shutil
@@ -69,8 +70,8 @@ def reference(partitions, mesh8):
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
-@pytest.mark.parametrize("sync,fanout", [("butterfly", 1), ("butterfly", 4),
-                                         ("all_to_all", 1), ("all_to_all", 4)])
+@pytest.mark.parametrize("fanout", [1, 4])
+@pytest.mark.parametrize("sync", bfs.SYNCS)
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_bfs_matches_reference(partitions, reference, name, mode, sync, fanout,
@@ -135,13 +136,21 @@ def test_direction_optimizing_scans_fewer_edges():
 
 
 def test_config_rejects_unknown_and_unported():
+    """Unknown modes and syncs raise; every sync of the reference is
+    ported (its parity is test_bfs_matches_reference), and the monoids
+    still to come name their ROADMAP item."""
     with pytest.raises(ValueError, match="mode"):
         bfs.BFSConfig(mode="sideways")
     with pytest.raises(ValueError, match="sync"):
         bfs.BFSConfig(sync="carrier_pigeon")
-    for sync in ("sparse", "adaptive", "rabenseifner", "xla"):
+    assert bfs.SYNCS == ref_bfs.SYNCS
+    for sync in bfs.SYNCS:
+        assert bfs.BFSConfig(sync=sync).sync == sync
+    from repro_torch.core import monoid
+
+    for name in ("min", "max", "add"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bfs.BFSConfig(sync=sync)
+            monoid.by_name(name)
 
 
 def test_kernel_path_needs_layout_and_valid_root(partitions):

@@ -264,3 +264,89 @@ def test_load_tree_imports_the_named_tree(tmp_path):
         for k in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
             del sys.modules[k]
         sys.modules.update(saved)
+
+
+# --- the other syncs' checks -------------------------------------------------
+
+
+@pytest.mark.parametrize("sync,branches,depth,want", [
+    ("butterfly", [0, 0, 0], 2, 6),
+    ("rabenseifner", [0, 0], 2, 4),     # one merge per reduce-scatter round
+    ("xla", [0, 0, 0, 0], 2, 4),        # one P-way merge per level
+    ("sparse", [1, 2, 2, 1], 2, 4),     # only the overflow-fallback levels
+    ("adaptive", [1, 0, 0, 1, 1], 3, 6),
+    ("all_to_all", [0, 0], 2, 0),
+])
+def test_merge_launches_follow_the_branches(sync, branches, depth, want):
+    assert chip_smoke.merge_launches(sync, branches, depth) == want
+
+
+def test_merge_cases_take_the_shapes_of_each_sync():
+    from types import SimpleNamespace
+
+    parts = {"pg": SimpleNamespace(p=4, n_words=10)}  # pads to 12 words: chunks of 3
+    gen = torch.Generator().manual_seed(0)
+    cases = chip_smoke.merge_cases("kron", parts, gen, torch.device("cpu"), 2,
+                                   wave_words=20)
+    shapes = {c["plane"]: tuple(c["args"][0].shape) for c in cases}
+    assert shapes == {"rabenseifner_rs0": (4, 2, 6), "rabenseifner_rs1": (4, 2, 3),
+                      "xla": (4, 4, 10), "wave_merge": (4, 2, 20)}
+    for c in cases:
+        k = c["args"][0].shape[1]
+        assert c["bytes"] == chip_smoke.nbytes(c["args"][0]) // k * (k + 1)
+
+
+def test_level_bytes_splits_the_count_by_level():
+    import numpy as np
+
+    from repro_torch.core import collectives
+
+    comm = collectives.Communicator(2, "cpu")
+    per_level = chip_smoke.LevelBytes(comm)
+    x = torch.zeros((2, 3), dtype=torch.int32)
+    for shifts in (1, 0, 2):
+        for _ in range(shifts):
+            comm.ppermute(x, [1, 0])
+        per_level.append(0.5)
+    assert list(per_level) == [0.5, 0.5, 0.5]
+    np.testing.assert_array_equal(per_level.per_level(), [[12, 12], [0, 0], [24, 24]])
+
+
+@pytest.fixture(scope="module")
+def torus_parts():
+    from repro_torch.graph import generators
+
+    sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a, **k: None  # etl waits for the card
+    try:
+        return chip_smoke.etl("torus", lambda: generators.torus_2d(16), 4,
+                              torch.device("cpu"), "top_down")
+    finally:
+        torch.cuda.synchronize = sync
+
+
+@pytest.mark.parametrize("fault,message", [
+    (None, None),
+    ("root", "d\\[root\\]"),
+    ("unreached", "component"),
+    ("far", "spans"),
+])
+def test_validate_holds_a_bfs_tree_to_graph500_rules(torus_parts, fault, message):
+    from repro_torch.core import bfs
+
+    pg = torus_parts["pg"]
+    d_owned = bfs.build_bfs_fn(pg, bfs.BFSConfig(), device="cpu")(
+        torus_parts["arrays"], 5)[0].clone()
+    flat = d_owned.view(-1)
+    slot = torus_parts["check"][3]
+    if fault == "root":
+        flat[slot[5]] = 1
+    elif fault == "unreached":
+        flat[slot[200]] = bfs.INF
+    elif fault == "far":
+        flat[slot[200]] += 3
+    if fault is None:
+        chip_smoke.validate(torus_parts, 5, d_owned)
+    else:
+        with pytest.raises(AssertionError, match=message):
+            chip_smoke.validate(torus_parts, 5, d_owned)
