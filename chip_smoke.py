@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py            # Kronecker scale 23, EF 8, P=16; torus 1024^2
+    python3 chip_smoke.py    # weighted Kronecker scale 23, EF 8, P=16; torus 1024^2
 
 Drives the port's main path, single-source ButterFly BFS, through the entry
 points a user calls (``build_bfs_fn`` on ``place_arrays``), then each
 further path of the port (the sparse, adaptive, Rabenseifner and xla
-frontier syncs, the flight recorder, the multi-source BFS wave), and holds
-them to account:
+frontier syncs, the flight recorder, the multi-source BFS wave, SSSP,
+Brandes betweenness and the vertex programs PageRank, connected
+components, k-core and triangle counting), and holds them to account:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and numpy versions;
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
-3. ETL: Kronecker graph, 1D partition over P simulated ranks, kernel layout,
-   placement on the card; the 1024x1024 torus the same way;
+3. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
+   the unweighted graph's, so the BFS phases run on it), 1D partition over
+   P simulated ranks, kernel layout, placement on the card; the 1024x1024
+   torus the same way; small Kronecker graphs for the host oracles (scale
+   12 for Brandes, 14 for k-core peeling) and for the triangle count
+   (scale 15, the largest the reference's int32 bit index allows);
 4. kernel checks at every call site: each kernel against its plain PyTorch
    version on the card, at the shapes the layout gives that site, exactly
    (integer kernels), with its time (CUDA events, L2 flushed before each
@@ -20,7 +25,8 @@ them to account:
    50 % and at 2 % random activity; the full gather on the route its
    planner picks and on the other; ``bitmap_or_reduce`` also at the shapes
    of the Rabenseifner reduce-scatter rounds, the xla all-gather reduce
-   (K = P) and the multi-source wave's buffer;
+   (K = P), the multi-source wave's buffer, the BC wave's buffer, the
+   k-core peel bitmap and the triangle adjacency;
 5. edge cases: the scatter and both gathers held exactly against their
    plain versions at the shapes and inputs a warp-per-block design can get
    wrong (one block, ragged grids, eb not a multiple of 16, misaligned
@@ -43,19 +49,39 @@ them to account:
 10. multi-source BFS: one 32-lane Kronecker wave, direction-optimizing,
     under ``butterfly`` and ``adaptive``, every lane against the
     single-source port's distances for its root; time, GTEP/s, memory;
-11. one root of each cell of phases 6-7 under ``torch.profiler`` (device
+11. SSSP under ``butterfly`` (4 roots), ``adaptive`` and ``sparse`` (2
+    each) and the butterfly with delta-32 buckets (1): every root passes
+    the Graph500 SSSP certificate on the card, the first root equals the
+    butterfly's distances bit for bit under every sync, and, traced, each
+    rank's bytes equal the byte model at every iteration;
+12. BC: one 4-lane Kronecker wave, top-down, butterfly: each lane's levels
+    equal the single-source BFS, each lane satisfies Brandes' identity
+    (sum of dependencies = sum of (d - 1)); scale 12, 8 sources, against
+    host Brandes within 1e-4;
+13. PageRank under ``butterfly`` and ``sparse`` (delta mode), with
+    PyTorch's deterministic algorithms on: the L1 residual of one more
+    power step within ``2 tol d / (1 - d)``, sparse equal to dense bit for
+    bit;
+14. connected components under ``butterfly`` and ``adaptive``: labels
+    equal the host's components;
+15. k-core: the h-index fixed point at every vertex, on the card; scale
+    14 against host peeling;
+16. triangle counts at scale 15 against the host oracle;
+17. one root of each cell of phases 6-7 under ``torch.profiler`` (device
     time by kernel and by call site, the device's busy share), after every
     timed run, with its per-level directions and launch counts against the
     same root run unprofiled; the Kronecker paths of phase 9 (and the
-    butterfly at the adaptive one's root) and the waves in the same way;
-    then the torus roots timed again, to show what a profiler session
-    costs the runs after it;
-12. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
+    butterfly at the adaptive one's root), the waves, BC, k-core and the
+    triangle count in the same way; then the torus roots timed again, to
+    show what a profiler session costs the runs after it;
+18. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
 
-Every path is driven with the launch counts set to 0 just before it and
-read just after.  Any failure raises and exits non-zero; without a CUDA
-device it exits 1 before printing any result.  ``--out PATH`` also writes
-the results as JSON.
+Each path of phases 11-16 records its time, iterations, edges relaxed or
+examined and their rate, bytes a rank and peak memory.  Every path is
+driven with the launch counts set to 0 just before it and read just after;
+BC, k-core and the triangle count must launch ``bitmap_or_reduce``.  Any
+failure raises and exits non-zero; without a CUDA device it exits 1 before
+printing any result.  ``--out PATH`` also writes the results as JSON.
 """
 
 from __future__ import annotations
@@ -102,6 +128,13 @@ MAIN_SITE = {
 # roots of each other sync's cell (adaptive Kronecker: 4x), lanes of the wave
 SYNC_ROOTS = 2
 LANES = 32
+# the weighted paths: the Kronecker graph's largest weight (the CLI's SSSP
+# default), SSSP roots per sync and the bucket width of the delta run, and
+# the lanes of the Brandes wave (each lane takes about 8 GB at scale 23)
+WEIGHT = 64
+SSSP_ROOTS = {"butterfly": 4, "adaptive": 2, "sparse": 2}
+SSSP_DELTA = 32
+BC_LANES = 4
 # what the profiler calls the device work of each wrapper
 DEVICE_NAMES = {"frontier_gather_full": ("::gather_full",),
                 "frontier_gather": ("::gather_window_kernel",),
@@ -576,13 +609,17 @@ def etl(label, make_graph, ranks, dev, mode):
     slot = owner * pg.vmax + np.arange(g.n) - pg.v_start[owner]
     check = tuple(torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
                   for a in (g.src, g.dst, labels, slot))
-    log(f"  {label}: n={g.n:,} m={g.n_edges:,} directed, P={ranks}, "
+    # what the SSSP certificate reads besides: each edge's weight
+    weights = (torch.as_tensor(g.weights.astype(np.int64), device=dev)
+               if g.weighted else None)
+    log(f"  {label}: n={g.n:,} m={g.n_edges:,} directed"
+        f"{', weighted' if g.weighted else ''}, P={ranks}, "
         f"emax={pg.emax:,}, n_words={pg.n_words:,}; generate {s[0]:.1f} s, "
         f"partition {s[1]:.1f} s, layout {s[2]:.1f} s, components {s[3]:.1f} s, "
         f"place {s[4]:.1f} s; {dev_bytes / 1e9:.2f} GB on the card; "
         f"meta {layout.meta}")
     return dict(g=g, pg=pg, layout=layout, labels=labels, arrays=arrays, check=check,
-                etl_s=s, device_bytes=dev_bytes, mode=mode)
+                weights=weights, etl_s=s, device_bytes=dev_bytes, mode=mode)
 
 
 @contextlib.contextmanager
@@ -1168,6 +1205,383 @@ def merge_site_table(rows, paths):
             f"{rec['ms']:.4f} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | {gap}")
 
 
+# ---------------------------------------------------------------------------
+# The weighted traversals and the vertex programs (phases 11-16)
+# ---------------------------------------------------------------------------
+
+
+def sssp_dist(d_owned, slot):
+    """Per-rank owned distances ``int32[P, vmax]`` (uint32 patterns) ->
+    int64[n] by vertex, ``UNREACHED`` (0xFFFFFFFF) for unreached."""
+    return d_owned.reshape(-1)[slot].long() & 0xFFFFFFFF
+
+
+def sssp_certificate(src, dst, w, dist, root) -> None:
+    """Graph500's SSSP checks of ``dist`` (int64[n], UNREACHED unreached)
+    over the edges ``(src, dst, w)`` of a symmetric graph, on the device
+    that holds them: ``d[root] = 0``; ``d[v] <= d[u] + w`` on every edge
+    from a reached ``u``; every reached ``v != root`` has an in-edge with
+    ``d[v] = d[u] + w``; no reached vertex neighbours an unreached one."""
+    import torch
+
+    unreached = 0xFFFFFFFF
+    if int(dist[root]) != 0:
+        raise AssertionError(f"root {root}: d[root] = {int(dist[root])}")
+    reached = dist != unreached
+    from_reached = reached[src]
+    if bool((from_reached & ~reached[dst]).any()):
+        raise AssertionError(f"root {root}: a reached vertex neighbours an unreached one")
+    du, dv = dist[src], dist[dst]
+    if bool((from_reached & (dv > du + w)).any()):
+        raise AssertionError(f"root {root}: an edge relaxes a distance further")
+    tight = torch.zeros(dist.numel(), dtype=torch.uint8, device=dist.device)
+    tight.scatter_reduce_(0, dst, (from_reached & (dv == du + w)).to(torch.uint8), "amax")
+    orphan = reached & (tight == 0)
+    orphan[root] = False
+    if bool(orphan.any()):
+        raise AssertionError(f"root {root}: {int(orphan.sum())} reached vertices have "
+                             f"no in-edge on a shortest path")
+
+
+def brandes_identity(delta, levels, rtol=1e-4):
+    """One lane's ``sum_v delta_s(v)`` against ``sum_{t reached, t != s}
+    (d(s, t) - 1)``: every shortest s-t path has d - 1 interior vertices,
+    and each counts its share of the s-t paths once.  ``delta`` and
+    ``levels`` are the lane's owned rows (0 and INF where unreached or not
+    owned).  Returns both sums; raises where they differ by more than
+    ``rtol``."""
+    from repro_torch.core.bfs import INF
+
+    lv = levels.long()
+    want = float((lv[(lv < INF) & (lv > 0)] - 1).sum())
+    got = float(delta.double().sum())
+    if abs(got - want) > rtol * max(want, 1.0):
+        raise AssertionError(f"Brandes' identity: sum of dependencies {got} != "
+                             f"sum of (d - 1) {want}")
+    return got, want
+
+
+def hindex_violations(src, dst, core) -> int:
+    """Vertices whose core number is not the h-index of their neighbours'
+    core numbers (the fixed point of k-core decomposition): ``core(v) = c``
+    is that h-index iff at least ``c`` neighbours have core ``>= c`` and at
+    most ``c`` have core ``>= c + 1``."""
+    import torch
+
+    c, cu = core[src], core[dst]
+    at_least = torch.zeros_like(core).scatter_add_(0, src, (cu >= c).to(core.dtype))
+    above = torch.zeros_like(core).scatter_add_(0, src, (cu >= c + 1).to(core.dtype))
+    return int(((at_least < core) | (above > core)).sum())
+
+
+def pagerank_residual(src, dst, n: int, rank, damping: float) -> float:
+    """L1 distance, in float64, between ``rank[n]`` and one more power step
+    of the reference's iteration (per-edge ``rank[u] / deg_out[u]`` pushes,
+    dangling mass spread uniformly)."""
+    import torch
+
+    rank = rank.double()
+    deg = torch.bincount(src, minlength=n).double()
+    contrib = torch.zeros(n, dtype=torch.float64, device=rank.device)
+    contrib.index_add_(0, dst, rank[src] / deg[src])
+    dangle = rank[deg == 0].sum()
+    new = (1.0 - damping) / n + damping * (contrib + dangle / n)
+    return float((new - rank).abs().sum())
+
+
+def min_id_labels(labels):
+    """``csr.connected_components`` labels -> each vertex's component
+    minimum vertex id (the fixed point of min-label propagation)."""
+    import numpy as np
+
+    return np.unique(labels, return_index=True)[1][labels]
+
+
+def slice_merge_cases(gen, dev, p, fanout, words_by_plane):
+    """``bitmap_or_reduce`` at the butterfly shapes ``[P, digit, W]`` of
+    this slice's OR merges, ``W`` per plane: the BC wave buffer, the
+    k-core peel bitmap and the triangle adjacency."""
+    from repro_torch.core import butterfly
+
+    k = butterfly.build_schedule(p, fanout).rounds[0].digit
+    cases = []
+    for plane, (path, words) in words_by_plane.items():
+        stack = random_words((p, k, words), gen, dev)
+        cases.append(dict(name="bitmap_or_reduce", cell=path, plane=plane, path=path,
+                          args=(stack,), kwargs={}, bytes=nbytes(stack) // k * (k + 1)))
+    return cases
+
+
+def timed_run(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` once with the launch counts set to 0 just
+    before and the peak memory reset: ``(out, ms, launches, peak bytes)``,
+    the clock stopping after the device synchronises."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def run_sssp(parts, fanout, seed, dev, syncs, delta):
+    """Phase 11: SSSP on the weighted Kronecker graph under each sync of
+    ``syncs`` (sync -> roots) and the butterfly with ``delta`` buckets at
+    the first root; every root passes the certificate on the card, the
+    first root equals the butterfly's distances bit for bit under every
+    sync, and, traced, sends at every iteration the bytes the trace's model
+    gives each rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives, flightrec
+    from repro_torch.graph import csr
+    from repro_torch.launch import bfs_run
+    from repro_torch.traversal import sssp
+
+    g, pg, arrays = parts["g"], parts["pg"], parts["arrays"]
+    src, dst, _, slot = parts["check"]
+    w = parts["weights"]
+    roots = csr.largest_component_roots(g, max(syncs.values()), np.random.default_rng(
+        seed + 2), labels=parts["labels"]).tolist()
+    n_rows = sssp.dist_rows(pg)
+    out, base = {}, None
+    cells = [(s, 0, n) for s, n in syncs.items()] + [("butterfly", delta, 1)]
+    for sync, dlt, n in cells:
+        label = f"sssp {sync}" + (f" delta {dlt}" if dlt else "")
+        cfg = sssp.SSSPConfig(fanout=fanout, sync=sync, delta=dlt)
+        fn = sssp.build_sssp_fn(pg, cfg, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        runs, trimmed_ms, _ = bfs_run.time_roots(fn, arrays, roots[:n], dev)
+        peak = torch.cuda.max_memory_allocated()
+        for r, (_, iters, relaxed, d_owned) in zip(roots, runs):
+            sssp_certificate(src, dst, w, sssp_dist(d_owned, slot), r)
+        if base is None:
+            base = runs[0][3]
+        elif not torch.equal(runs[0][3], base):
+            raise AssertionError(f"{label}: root {roots[0]} differs from the butterfly")
+        # the first root traced: the bytes of every iteration against the model
+        comm = collectives.Communicator(pg.p, dev)
+        per_level = LevelBytes(comm)
+        traced = sssp.build_sssp_fn(pg, cfg, device=dev, trace=True,
+                                    trace_levels=runs[0][1])
+        d_t, it_t, _, tbuf = traced(arrays, roots[0], comm, level_ms=per_level)
+        if not torch.equal(d_t, runs[0][3]) or it_t != runs[0][1]:
+            raise AssertionError(f"{label}: the traced run differs from the untraced one")
+        trace = flightrec.TraversalTrace.from_buffer(
+            tbuf, algo="sssp", sync=sync, p=pg.p, fanout=fanout, n_words=n_rows,
+            capacity=cfg.resolved_capacity(n_rows), density_threshold=cfg.density_threshold)
+        model = trace.level_bytes_per_node().astype(np.int64)
+        if trace.levels != it_t or not np.array_equal(
+                per_level.per_level(), np.repeat(model[:, None], pg.p, 1)):
+            raise AssertionError(f"{label}: bytes per iteration differ from the byte model")
+        ms = [x[0] * 1e3 for x in runs]
+        relaxed = [x[2] for x in runs]
+        summ = trace.summary()
+        out[label] = dict(
+            sync=sync, delta=dlt, roots=len(runs), ms=ms, trimmed_ms=trimmed_ms,
+            iters=[x[1] for x in runs], relaxed=relaxed,
+            grelax_per_s=[r / t / 1e6 for r, t in zip(relaxed, ms)],
+            bytes_per_rank=int(comm.bytes_sent[0]), peak_bytes=peak,
+            levels_dense_sparse_fallback=(summ["dense_levels"], summ["sparse_levels"],
+                                          summ["fallback_levels"]))
+        log(f"  {label}: {len(runs)} roots pass the certificate"
+            f"{'' if label == 'sssp butterfly' else ', root ' + str(roots[0]) + ' == butterfly'}"
+            f"; trimmed mean {trimmed_ms:.3f} ms, iterations {out[label]['iters']}, "
+            f"{np.mean(out[label]['grelax_per_s']):.4f} G relaxations/s; traced root "
+            f"{summ['dense_levels']} dense / {summ['sparse_levels']} sparse / "
+            f"{summ['fallback_levels']} fallback, {out[label]['bytes_per_rank']:,} B per "
+            f"rank == model at every iteration; peak {peak / 1e9:.2f} GB")
+    return out
+
+
+def run_bc(parts, fanout, seed, dev, single, n_lanes, small):
+    """Phase 12: one ``n_lanes``-lane Brandes wave, top-down, butterfly, on
+    the Kronecker graph: each lane's levels equal the single-source port's
+    BFS at its root, each lane's dependencies satisfy Brandes' identity;
+    then ``small`` (a small graph's parts) against host Brandes over 8
+    sources.  Returns the summary and a function that runs the wave."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bfs, collectives
+    from repro_torch.graph import csr
+    from repro_torch.traversal import bc
+
+    g, pg, arrays = parts["g"], parts["pg"], parts["arrays"]
+    cfg = bfs.BFSConfig(fanout=fanout, sync="butterfly", mode="top_down")
+    roots = csr.largest_component_roots(g, n_lanes, np.random.default_rng(seed + 3),
+                                        labels=parts["labels"]).tolist()
+    fn = bc.build_bc_fn(pg, cfg, n_lanes, device=dev)
+    fn(arrays, roots)
+    comm = collectives.Communicator(pg.p, dev)
+    lanes = {}
+    (bc_owned, depth, scanned), ms, launches, peak = timed_run(fn, arrays, roots, comm,
+                                                               lanes=lanes)
+    if launches.get("bitmap_or_reduce", 0) == 0:
+        raise AssertionError("bc: the wave never launched bitmap_or_reduce")
+    sums = []
+    for b, r in enumerate(roots):
+        if not torch.equal(lanes["levels"][..., b], single(arrays, r)[0]):
+            raise AssertionError(f"bc: lane {b} (root {r}) levels differ from the BFS")
+        sums.append(brandes_identity(lanes["delta"][..., b], lanes["levels"][..., b]))
+    del lanes
+    # a small graph against host Brandes
+    sources = csr.largest_component_roots(small["g"], 8, np.random.default_rng(seed),
+                                          labels=small["labels"])
+    got, _, _ = bc.betweenness_centrality(small["pg"], sources, cfg, device=dev)
+    want = bc.bc_reference(small["g"], sources)
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"bc: scale-{small['scale']} scores differ from host Brandes "
+                             f"(max abs err {np.abs(got - want).max()})")
+    summary = dict(lanes=n_lanes, roots=roots, ms=ms, depth=depth, scanned=scanned,
+                   gteps=scanned / ms / 1e6, bytes_per_rank=int(comm.bytes_sent[0]),
+                   launches=launches, peak_bytes=peak, identity=sums,
+                   small_max_abs_err=float(np.abs(got - want).max()))
+    log(f"  bc: {n_lanes} lanes' levels == the BFS at their roots, Brandes' identity "
+        f"holds per lane ({', '.join(f'{a:.6g}/{b:.6g}' for a, b in sums)}); {depth} levels, "
+        f"{ms:.3f} ms, {scanned:.0f} edges examined, {summary['gteps']:.4f} GTEP/s; "
+        f"{summary['bytes_per_rank']:,} B per rank; launches {launches}; peak "
+        f"{peak / 1e9:.2f} GB; scale {small['scale']}, 8 sources == host Brandes (max abs "
+        f"err {summary['small_max_abs_err']:.3g})")
+    return summary, lambda: fn(arrays, roots)
+
+
+def run_program_path(label, parts, prog, cfg, dev, warmup=True):
+    """One vertex program on ``parts``, after a warm-up run where
+    ``warmup``: ``(summary, result, output)``; the summary has the time,
+    rounds, edges examined and their rate, bytes a rank, launches and peak
+    memory."""
+    from repro_torch import programs
+    from repro_torch.core import collectives
+
+    fn = programs.build_program_fn(parts["pg"], prog, cfg, device=dev)
+    arg = prog.default_arg(parts["pg"], dev)
+    if warmup:
+        fn(parts["arrays"], arg)
+    comm = collectives.Communicator(parts["pg"].p, dev)
+    out, ms, launches, peak = timed_run(fn, parts["arrays"], arg, comm)
+    iters, work = out[-2], out[-1]
+    summary = dict(sync=cfg.sync, ms=ms, iters=iters, work=work,
+                   gedges_per_s=work / ms / 1e6, bytes_per_rank=int(comm.bytes_sent[0]),
+                   launches=launches, peak_bytes=peak)
+    log(f"  {label}: {iters} rounds, {ms:.3f} ms, {work:.0f} edges examined, "
+        f"{summary['gedges_per_s']:.4f} G edges/s; {summary['bytes_per_rank']:,} B per "
+        f"rank; launches {launches}; peak {peak / 1e9:.2f} GB")
+    return summary, prog.assemble(parts["pg"], out[0]), out
+
+
+def run_pagerank(parts, fanout, dev, tol=1e-5):
+    """Phase 13: PageRank under the butterfly and the sparse (delta) sync,
+    both with PyTorch's deterministic algorithms on (the per-rank
+    contribution sum is a ``scatter_add_``, whose CUDA atomics add in an
+    order that changes from run to run): the L1 residual of one more power
+    step within the reference's ``2 tol d / (1 - d)``, and the sparse
+    wire's ranks equal to the dense ones bit for bit."""
+    import torch
+
+    from repro_torch import programs
+
+    prog = programs.by_name("pagerank")
+    src, dst = parts["check"][:2]
+    bound = 2 * tol * 0.85 / 0.15
+    out, ranks = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for sync in ("butterfly", "sparse"):
+            cfg = programs.ProgramConfig(fanout=fanout, sync=sync, tol=tol)
+            label = f"pagerank {sync}"
+            out[label], res, raw = run_program_path(label, parts, prog, cfg, dev)
+            ranks[sync] = raw[0]
+            resid = pagerank_residual(src, dst, parts["pg"].n,
+                                      torch.as_tensor(res, device=dev), cfg.damping)
+            if not resid <= bound:
+                raise AssertionError(f"{label}: L1 residual {resid} > {bound}")
+            out[label]["residual"] = resid
+            log(f"  {label}: L1 residual of one more step {resid:.3e} <= {bound:.3e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(ranks["butterfly"].view(torch.int32), ranks["sparse"].view(torch.int32)):
+        raise AssertionError("pagerank: the sparse wire's ranks differ from the dense ones")
+    log("  pagerank: sparse (delta) ranks == butterfly ranks bit for bit")
+    return out
+
+
+def run_cc(parts, fanout, dev):
+    """Phase 14: connected components under the butterfly and adaptive
+    syncs, labels equal to the host's ``csr.connected_components``."""
+    import numpy as np
+
+    from repro_torch import programs
+
+    want = min_id_labels(parts["labels"])
+    out = {}
+    for sync in ("butterfly", "adaptive"):
+        label = f"cc {sync}"
+        out[label], res, _ = run_program_path(
+            label, parts, programs.by_name("cc"),
+            programs.ProgramConfig(fanout=fanout, sync=sync), dev)
+        if not np.array_equal(res, want):
+            raise AssertionError(f"{label}: labels differ from the host components")
+    log("  cc: labels == host components under both syncs")
+    return out
+
+
+def run_kcore(parts, fanout, dev, small):
+    """Phase 15: k-core on the Kronecker graph, the h-index fixed point
+    checked for every vertex on the card; ``small`` against the host
+    peeling oracle.  Returns the summary and a function that runs it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import programs
+
+    prog = programs.by_name("kcore")
+    cfg = programs.ProgramConfig(fanout=fanout)
+    # thousands of rounds: the first round's set-up is lost in them
+    summary, res, _ = run_program_path("kcore", parts, prog, cfg, dev, warmup=False)
+    if summary["launches"].get("bitmap_or_reduce", 0) == 0:
+        raise AssertionError("kcore: the peel waves never launched bitmap_or_reduce")
+    src, dst = parts["check"][:2]
+    bad = hindex_violations(src, dst, torch.as_tensor(res, device=dev))
+    if bad:
+        raise AssertionError(f"kcore: {bad} vertices off the h-index fixed point")
+    got, _, _ = programs.run_program(small["pg"], prog, cfg, device=dev)
+    if not np.array_equal(got, programs.kcore_reference(small["g"])):
+        raise AssertionError(f"kcore: scale {small['scale']} differs from the host")
+    summary["max_core"] = int(res.max())
+    log(f"  kcore: h-index fixed point holds at every vertex (max core "
+        f"{summary['max_core']}); scale {small['scale']} == host peeling")
+    fn = programs.build_program_fn(parts["pg"], prog, cfg, device=dev)
+    return summary, lambda: fn(parts["arrays"])
+
+
+def run_triangles(parts, fanout, dev):
+    """Phase 16: triangle counts against the host oracle.  Returns the
+    summary and a function that runs the count."""
+    import numpy as np
+
+    from repro_torch import programs
+
+    prog = programs.by_name("tri")
+    cfg = programs.ProgramConfig(fanout=fanout)
+    summary, res, _ = run_program_path("tri", parts, prog, cfg, dev)
+    if summary["launches"].get("bitmap_or_reduce", 0) == 0:
+        raise AssertionError("tri: the adjacency merge never launched bitmap_or_reduce")
+    if not np.array_equal(res, programs.triangles_reference(parts["g"])):
+        raise AssertionError("tri: per-vertex counts differ from the host")
+    summary["triangles"] = programs.total_triangles(res)
+    log(f"  tri: per-vertex counts == host ({summary['triangles']:,} triangles)")
+    fn = programs.build_program_fn(parts["pg"], prog, cfg, device=dev)
+    return summary, lambda: fn(parts["arrays"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=23)
@@ -1178,6 +1592,13 @@ def main(argv=None) -> int:
     ap.add_argument("--torus-side", type=int, default=1024)
     ap.add_argument("--torus-roots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tri-scale", type=int, default=15,
+                    help="Kronecker scale of the triangle count (15: the largest "
+                         "whose adjacency rows the reference can address)")
+    ap.add_argument("--bc-scale", type=int, default=12,
+                    help="Kronecker scale held against host Brandes")
+    ap.add_argument("--kcore-scale", type=int, default=14,
+                    help="Kronecker scale held against host k-core peeling")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
@@ -1187,6 +1608,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from repro_torch import programs
     from repro_torch.analytics import msbfs
     from repro_torch.core import bfs
     from repro_torch.graph import generators
@@ -1198,13 +1620,13 @@ def main(argv=None) -> int:
     def phase(msg):
         log(f"{msg} (at {time.perf_counter() - t_start:.0f} s)")
 
-    phase("[1/12] card")
+    phase("[1/18] card")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    phase("[2/12] build")
+    phase("[2/18] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
@@ -1214,14 +1636,15 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    phase("[3/12] ETL")
+    phase("[3/18] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
                          use_kernels=True)
-    kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}",
-               lambda: generators.kronecker(args.scale, args.edge_factor,
-                                            seed=args.seed), args.ranks, dev, kcfg.mode)
+    kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}, weights 1..{WEIGHT}",
+               lambda: generators.kronecker(args.scale, args.edge_factor, seed=args.seed,
+                                            max_weight=WEIGHT),
+               args.ranks, dev, kcfg.mode)
     torus = etl(f"torus {args.torus_side}x{args.torus_side}",
                 lambda: generators.torus_2d(args.torus_side), args.ranks, dev,
                 tcfg.mode)
@@ -1230,8 +1653,23 @@ def main(argv=None) -> int:
         raise AssertionError(f"expected a full-gather Kronecker layout and a "
                              f"windowed torus layout, got {km} / {tm}")
     wave_words = msbfs.wave_rows(kron["pg"]) * msbfs.lane_words(LANES)
+    small = {}
+    for what, scale in (("bc", args.bc_scale), ("kcore", args.kcore_scale),
+                        ("tri", args.tri_scale)):
+        small[what] = etl(f"kronecker scale {scale} EF {args.edge_factor} ({what})",
+                          lambda scale=scale: generators.kronecker(
+                              scale, args.edge_factor, seed=args.seed),
+                          args.ranks, dev, "top_down")
+        small[what]["scale"] = scale
+    slice_words = {
+        "bc_merge": ("bc", msbfs.wave_rows(kron["pg"]) * msbfs.lane_words(BC_LANES)),
+        "kcore_merge": ("kcore", programs.program_msg_words(kron["pg"],
+                                                           programs.by_name("kcore"))),
+        "tri_merge": ("tri", programs.program_msg_words(small["tri"]["pg"],
+                                                        programs.by_name("tri"))),
+    }
 
-    phase("[4/12] kernel checks at every call site (exact, at the paths' shapes)")
+    phase("[4/18] kernel checks at every call site (exact, at the paths' shapes)")
     floor_ms = event_floor_ms()
     log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
     gen = torch.Generator(device=dev)
@@ -1244,22 +1682,26 @@ def main(argv=None) -> int:
     for case in merge_cases("kronecker", kron, gen, dev, args.fanout, wave_words):
         merge_rows.append(check_kernel(case))
         del case["args"]
+    for case in slice_merge_cases(gen, dev, args.ranks, args.fanout, slice_words):
+        merge_rows.append(check_kernel(case))
+        del case["args"]
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
-    phase("[5/12] edge cases of the scatter and both gathers (exact, every route)")
+    phase("[5/18] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
-    phase(f"[6/12] Kronecker BFS: direction_optimizing, butterfly fanout "
+    phase(f"[6/18] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    phase(f"[7/12] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    phase(f"[7/18] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    phase("[8/12] kernel launches on the main path (phases 6 and 7)")
+    phase("[8/18] kernel launches on the main path (phases 6 and 7)")
     records = []
     for name, (cell, plane, act) in MAIN_SITE.items():
         rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
@@ -1276,7 +1718,7 @@ def main(argv=None) -> int:
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    phase(f"[9/12] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
+    phase(f"[9/18] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
         f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
     paths, profiles = {}, {}
     cells = [("kronecker", kron, kcfg, "adaptive", 4 * SYNC_ROOTS)]
@@ -1302,7 +1744,7 @@ def main(argv=None) -> int:
             f"read) {paths[label]['decision_ms']:.4f} ms host, against "
             f"{per_level:.4f} ms a level of the trimmed BFS")
 
-    phase(f"[10/12] multi-source BFS: one {LANES}-lane Kronecker wave, "
+    phase(f"[10/18] multi-source BFS: one {LANES}-lane Kronecker wave, "
           f"direction_optimizing")
     single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
     for sync in ("butterfly", "adaptive"):
@@ -1312,7 +1754,36 @@ def main(argv=None) -> int:
                                                  dev, single)
         torch.cuda.empty_cache()
 
-    phase("[11/12] profiles (one root each), then the torus roots timed again")
+    slice5 = {}
+    phase(f"[11/18] SSSP: weighted Kronecker, "
+          f"{', '.join(f'{k} {v} roots' for k, v in SSSP_ROOTS.items())}, butterfly "
+          f"delta {SSSP_DELTA} 1 root")
+    slice5.update(run_sssp(kron, args.fanout, args.seed, dev, SSSP_ROOTS, SSSP_DELTA))
+    torch.cuda.empty_cache()
+
+    phase(f"[12/18] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
+          f"butterfly; scale {args.bc_scale} against host Brandes")
+    paths["bc"], profiles["bc"] = run_bc(kron, args.fanout, args.seed, dev, single,
+                                         BC_LANES, small["bc"])
+    torch.cuda.empty_cache()
+
+    phase("[13/18] PageRank: butterfly and sparse (delta)")
+    slice5.update(run_pagerank(kron, args.fanout, dev))
+    torch.cuda.empty_cache()
+
+    phase("[14/18] connected components: butterfly and adaptive")
+    slice5.update(run_cc(kron, args.fanout, dev))
+    torch.cuda.empty_cache()
+
+    phase(f"[15/18] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
+    paths["kcore"], profiles["kcore"] = run_kcore(kron, args.fanout, dev, small["kcore"])
+    torch.cuda.empty_cache()
+
+    phase(f"[16/18] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
+    paths["tri"], profiles["tri"] = run_triangles(small["tri"], args.fanout, dev)
+    torch.cuda.empty_cache()
+
+    phase("[17/18] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
     same_root = {}
@@ -1326,7 +1797,7 @@ def main(argv=None) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
 
-    phase("[12/12] result")
+    phase("[18/18] result")
     site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
     for label, path in paths.items():
         launches = path["traced_launches"] if "traced_launches" in path else path["launches"]
@@ -1347,6 +1818,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
+                           slice5=slice5,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

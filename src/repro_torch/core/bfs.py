@@ -138,7 +138,7 @@ def _sync_frontier(words: torch.Tensor, cfg: BFSConfig, comm: collectives.Commun
     if cfg.sync == "rabenseifner":
         return collectives.butterfly_allreduce_rabenseifner(words, comm, op="or", **kw)
     if cfg.sync == "all_to_all":
-        return collectives.all_to_all_merge(words, comm)
+        return collectives.all_to_all_merge(words, comm, op="or")
     return collectives.xla_allreduce(words, comm, op="or", use_kernels=use_kernels)
 
 
@@ -193,14 +193,17 @@ def _expand_pull(arrays, frontier, visited, n_words, use_kernels, meta=None, *,
 
 def place_arrays(pg: PartitionedGraph, layout: Optional[blocks.BFSKernelLayout] = None,
                  *, device="cuda") -> Dict[str, torch.Tensor]:
-    """The stacked partition (and layout) planes as tensors on ``device``."""
+    """The stacked partition (and layout) planes as tensors on ``device``;
+    a weighted partition's ``edge_weight``/``in_weight`` come as int32
+    tensors holding the uint32 weights' bit patterns."""
     dev = resolve_device(device)
     planes = dict(pg.arrays())
     if layout is not None:
         planes.update(layout.arrays)
     out = {}
     for k, v in planes.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        v = np.ascontiguousarray(v)
+        t = torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v)
         out[k] = (t.long() if k in _INDEX_KEYS else t).to(dev)
     return out
 

@@ -17,10 +17,15 @@ rank's buffer to its partner, and it counts the bytes each rank sends.
 * :func:`butterfly_allreduce_rabenseifner` — reduce-scatter plus
   all-gather on the butterfly wiring: ``2 (P-1)/P`` of the buffer per rank.
 * :func:`all_to_all_merge` — the baseline the paper replaces: ``P - 1``
-  ring shifts, each merged with ``|``.
+  ring shifts, each merged with ``op``.
 * :func:`xla_allreduce` — the compiler-scheduled reference point of the JAX
   package; on simulated ranks an all-gather (``P - 1`` shifts) and a
   ``P``-way reduce.
+
+Every sync takes the reference's merge op or monoid.  ``"min"`` and
+``"max"`` order int32 words as the uint32 values they hold
+(:func:`~repro_torch.core.monoid.umin`); float32 buffers travel the sparse
+wire bit-cast to int32 words, never converted.
 
 Where the reference picks a branch on the device (``lax.cond``), the port
 reads the deciding counts on the host: one read per call of the sparse
@@ -46,8 +51,8 @@ _MERGE_OPS = {
     "add": torch.add,
     "or": torch.bitwise_or,
     "and": torch.bitwise_and,
-    "max": torch.maximum,
-    "min": torch.minimum,
+    "max": mono.umax,
+    "min": mono.umin,
 }
 Op = Union[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
 
@@ -173,9 +178,10 @@ def _sparse_rounds(words, comm, monoid, fanout, capacity, ref):
     cap = capacity
     for rnd in comm.schedule(fanout).rounds:
         idx, vals, _, _ = fr.compact_changed(words, ref, min(cap, n_words), monoid)
+        wire = vals.view(torch.int32)  # float32 words ship as their bits
         for perm in rnd.perms:
             ridx = comm.ppermute(idx, perm)
-            rvals = comm.ppermute(vals, perm)
+            rvals = comm.ppermute(wire, perm).view(vals.dtype)
             words = fr.scatter_combine(words, ridx, rvals, monoid)
         cap *= rnd.digit
     return words
@@ -364,14 +370,18 @@ def butterfly_allreduce_rabenseifner(x: torch.Tensor, comm: Communicator, *,
 # ---------------------------------------------------------------------------
 
 
-def all_to_all_merge(x: torch.Tensor, comm: Communicator) -> torch.Tensor:
+def all_to_all_merge(x: torch.Tensor, comm: Communicator, *,
+                     op: Op = "or") -> torch.Tensor:
     """All-to-all broadcast-merge: ``P - 1`` ring shifts, each rank ships
-    its ORIGINAL buffer to every peer.  O(P^2) messages."""
+    its ORIGINAL buffer to every peer and merges it with ``op`` (a name of
+    ``_MERGE_OPS`` or a callable; the bitmap OR by default).  O(P^2)
+    messages."""
+    merge = _MERGE_OPS[op] if isinstance(op, str) else op
     ring = [(i + 1) % comm.p for i in range(comm.p)]
     shifted = x
     for _ in range(comm.p - 1):
         shifted = comm.ppermute(shifted, ring)
-        x = x | shifted
+        x = merge(x, shifted)
     return x
 
 
@@ -381,17 +391,16 @@ def xla_allreduce(x: torch.Tensor, comm: Communicator, *, op: str = "add",
     an all-gather (each rank ships its buffer to the ``P - 1`` others, one
     shift each: ``(P - 1) * 4 W`` bytes per rank for int32 words) into a
     ``[P, P, W]`` stack, then a ``P``-way reduce over the gathered axis.
-    ``op`` is ``add``, ``max`` (as the tensor's type orders its values) or
+    ``op`` is ``add``, ``min`` or ``max`` (int32 words in their uint32
+    order, as the reference's ``pmin``/``pmax`` order its uint32 words) or
     ``or`` (``bitmap_or_reduce`` with ``K = P``)."""
-    if op not in ("add", "max", "or"):
+    if op not in ("add", "min", "max", "or"):
         raise ValueError(op)
     p = comm.p
     stack = x.new_empty((p, p) + tuple(x.shape[1:]))
     stack[:, 0] = x
     for s in range(1, p):
         comm.ppermute(x, [(i + s) % p for i in range(p)], out=stack[:, s])
-    if op == "or":
-        return _merge_stack(stack, "or", use_kernels)
     if op == "add":
         return stack.sum(1, dtype=x.dtype)
-    return stack.amax(1)
+    return _merge_stack(stack, op, use_kernels)

@@ -7,17 +7,27 @@ device:
 ====  ===========  =====================================================
 col   name         meaning
 ====  ===========  =====================================================
-0     LEVEL        1-based level index (0 = row unwritten)
-1     WORDS        densest rank's nonzero-word count of the exchanged
-                   buffer — what the sparse dispatch decides on
+0     LEVEL        1-based level / iteration index (0 = row unwritten)
+1     WORDS        densest rank's active-word count of the exchanged
+                   buffer (nonzero words for OR syncs, changed-vs-ref
+                   words for monoid syncs) — what the sparse dispatch
+                   decides on
 2     POP          bit population of the NEW frontier after the merge
-3     DIR          direction: 0 = push, 1 = pull
+                   (BFS/MS-BFS/BC: vertices discovered this level; SSSP:
+                   distances improved this iteration)
+3     DIR          direction: 0 = push, 1 = pull (SSSP/BC: 0)
 4     BRANCH       sync branch taken: 0 dense, 1 sparse, 2 overflow-
                    fallback (dense-family syncs always report 0)
 5     SHIPPED      active ``(word, value)`` pairs in the densest rank's
                    compaction when the sparse wire format ran, else 0
-6     CHANGED      words the merge changed (words gaining bits)
+6     CHANGED      words the merge changed (OR: words gaining bits; MIN:
+                   words lowered)
 ====  ===========  =====================================================
+
+Vertex programs (:mod:`repro_torch.programs`) share the buffer and read
+POP as the program's progress (PageRank: L1 residual in ppm; CC: labels
+changed; k-core: vertices peeled; triangles: wedge hits) and DIR as its
+phase (k-core: the peel threshold ``k``; others 0).
 
 The statistics are computed on the device with the EXACT predicates the
 collectives dispatch on (the maximum over ranks stands for the
@@ -108,6 +118,42 @@ def or_sync_stats(buf: torch.Tensor, cfg):
     raise ValueError(f"unknown sync {cfg.sync!r}")
 
 
+def monoid_sync_stats(new: torch.Tensor, prev, cfg, capacity: int):
+    """``(words, branch, shipped)`` int32 0-d tensors for a monoid sync of
+    ``new[P, ...]`` against the sparse reference ``prev`` (a per-rank
+    ``[P, ...]`` buffer, or one every rank shares), mirroring the dispatch
+    of SSSP's and the vertex programs' syncs: the changed-word count of the
+    busiest rank against the capacity (``sparse``'s overflow guard) and
+    against ``density_threshold`` of the words (``adaptive``).  ``cfg`` is
+    an ``SSSPConfig`` or ``ProgramConfig``; ``capacity`` the resolved
+    capacity the sync was given."""
+    flat = new.reshape(new.shape[0], -1)
+    ref = prev.reshape(-1) if prev.dim() < new.dim() else prev.reshape(flat.shape)
+    n_words = flat.shape[1]
+    changed = fr.changed_count(flat, ref).max()
+    zero = torch.zeros((), dtype=torch.int32, device=new.device)
+    if cfg.sync in ("butterfly", "all_to_all", "xla"):
+        return changed, zero, zero
+    cap = min(int(capacity), n_words)
+    if cfg.sync == "sparse":
+        ok = changed <= cap
+        branch = torch.where(ok, BRANCH_SPARSE, BRANCH_FALLBACK).to(torch.int32)
+        return changed, branch, torch.where(ok, changed, zero)
+    if cfg.sync == "adaptive":
+        go_sparse = (changed <= int(cfg.density_threshold * n_words)) & (changed <= cap)
+        return changed, go_sparse.to(torch.int32), torch.where(go_sparse, changed, zero)
+    raise ValueError(f"unknown sync {cfg.sync!r}")
+
+
+def dense_sync_stats(buf: torch.Tensor):
+    """Stats for an always-dense sync of ``buf[P, ...]`` (BC's
+    non-idempotent ADD merge): nonzero words on the busiest rank, branch 0,
+    nothing shipped sparse."""
+    nz = fr.count_nonzero(buf.reshape(buf.shape[0], -1)).max()
+    zero = torch.zeros((), dtype=torch.int32, device=buf.device)
+    return nz, zero, zero
+
+
 def trace_row(level, words, pop, direction, branch, shipped, changed) -> torch.Tensor:
     """One ``int32[TRACE_COLS]`` row on the device of its tensor arguments
     (LEVEL is stored 1-based so a zero LEVEL cell marks an unwritten row).
@@ -146,6 +192,10 @@ class TraversalTrace:
     EXCHANGED buffer (the flattened word count the sync ran over), which is
     what the byte attribution is computed against.  ``wall_ms`` is per-level
     wall-clock when the trace came from :func:`timed_bfs_levels`.
+
+    Byte attribution covers the level's frontier/distance/message sync;
+    BC's dense sigma/delta ADD all-reduces (one per forward level, one per
+    backward level) are reported in ``summary()['extra_dense_syncs']``.
     """
 
     algo: str
@@ -251,6 +301,8 @@ class TraversalTrace:
             "pull_levels": int((self.data[:, COL_DIR] == 1).sum()),
             "bytes_per_node_total": float(self.level_bytes_per_node().sum()),
         }
+        if self.algo == "bc":
+            out["extra_dense_syncs"] = 2 * self.levels
         if self.wall_ms is not None:
             out["wall_ms_total"] = float(self.wall_ms.sum())
         return out
@@ -295,7 +347,13 @@ def reconcile_bytes(trace: TraversalTrace, bytes_sent) -> Dict:
     bytes per rank must equal every rank's
     :attr:`Communicator.bytes_sent` over the same run exactly (the
     counterpart of the reference's check against the compiled HLO).
+    Holds for the traces of BFS, MS-BFS, SSSP and the vertex programs,
+    whose one sync a level is the traced one; a BC trace leaves its dense
+    ADD syncs out of the rows, so it is refused.
     Returns ``{"model": {...}, "measured": [...], "matches": bool}``."""
+    if trace.algo == "bc":
+        raise ValueError("a BC trace covers the forward OR sync only; its "
+                         "dense ADD syncs are not in the rows")
     per_level = trace.level_bytes_per_node()
     model = {"dense": trace._dense_bytes_per_node(),
              "sparse": trace._sparse_bytes_per_node(),

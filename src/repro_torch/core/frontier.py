@@ -220,8 +220,12 @@ def scatter_or(n_words: int, idx: torch.Tensor, active: torch.Tensor) -> torch.T
 
     Plain path: scatter-max the 0/1 activity into a dense byte vector per
     row, then pack.  The CUDA kernel ``kernels/frontier_scatter`` replaces
-    this on the card."""
+    this on the card.  A bitmap of more than 64 bits per index (the
+    triangle count's adjacency) takes :func:`_scatter_or_words` instead,
+    which never holds a byte per bit."""
     n_bits = n_words * WORD_BITS
+    if n_bits > 64 * idx.shape[-1]:
+        return _scatter_or_words(n_words, idx, active)
     lead = idx.shape[:-1]
     rows = idx.reshape(-1, idx.shape[-1]).long()
     act = active.reshape(rows.shape) & (rows >= 0) & (rows < n_bits)
@@ -231,3 +235,18 @@ def scatter_or(n_words: int, idx: torch.Tensor, active: torch.Tensor) -> torch.T
                         device=idx.device)
     dense.scatter_reduce_(0, flat, act.reshape(-1).to(torch.uint8), "amax")
     return pack(dense.view(rows.shape[0], n_bits)).reshape(*lead, n_words)
+
+
+def _scatter_or_words(n_words: int, idx: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """:func:`scatter_or` word by word: the active in-range bits of each
+    row, deduplicated, each added as ``1 << (i & 31)`` into its int64 word
+    (distinct bits of a word add up to their OR), then cut to 32 bits."""
+    n_bits = n_words * WORD_BITS
+    lead = idx.shape[:-1]
+    rows = idx.reshape(-1, idx.shape[-1]).long()
+    act = active.reshape(rows.shape) & (rows >= 0) & (rows < n_bits)
+    offset = torch.arange(rows.shape[0], device=idx.device)[:, None] * n_bits
+    bits = torch.unique((rows + offset)[act])
+    words = torch.zeros(rows.shape[0] * n_words, dtype=torch.int64, device=idx.device)
+    words.scatter_add_(0, bits >> 5, torch.ones_like(bits) << (bits & 31))
+    return (words & 0xFFFFFFFF).to(torch.int32).reshape(*lead, n_words)

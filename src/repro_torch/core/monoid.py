@@ -5,7 +5,7 @@ The port of ``repro.core.monoid``.  The paper's phase-2 synchronization is
 associative and commutative for the butterfly to be exact.  The SPARSE
 changed-word wire format adds the idempotence/delta dichotomy:
 
-* **remerge** (idempotent monoids, OR): each rank ships the full value of
+* **remerge** (idempotent monoids, OR/MIN/MAX): each rank ships the full value of
   every word CHANGED since a shared reference; duplicate delivery of a word
   across butterfly rounds re-combines harmlessly because
   ``combine(x, x) == x``.
@@ -19,9 +19,19 @@ is validated at construction against the combine fn on sample words; a
 contradiction raises :class:`MonoidContractError` with the counterexample.
 
 Words are int32 tensors holding the reference's uint32 bit patterns (see
-:mod:`repro_torch.core.frontier`).  Of the reference's monoids this module
-has ``OR_U32`` (reachability bitmaps) and ``ADD_U32`` (int32 addition
-wraps exactly as uint32 addition does).
+:mod:`repro_torch.core.frontier`), so every integer comparison goes through
+:func:`umin` / :func:`umax` / :func:`ult`, which order int32 words as the
+uint32 values they hold: a signed min would make the unreached sentinel
+``0xFFFFFFFF`` (``-1`` as an int32) the smallest distance.
+
+* ``OR_U32``  — reachability bitmaps (BFS / MS-BFS / k-core / triangles).
+* ``MIN_U32`` — tentative distances and labels (SSSP, CC): identity
+  ``0xFFFFFFFF``, the unreached sentinel, so sparse padding is free.
+* ``MAX_U32`` — label propagation toward the largest label.
+* ``ADD_F32`` / ``ADD_U32`` — path counts, rank mass, dependencies
+  (betweenness centrality, PageRank); not idempotent, so the sparse path
+  ships delta contributions only.  int32 addition wraps exactly as uint32
+  addition does.
 """
 
 from __future__ import annotations
@@ -38,16 +48,52 @@ __all__ = [
     "SPARSE_REMERGE",
     "SPARSE_DELTA",
     "OR_U32",
+    "MIN_U32",
+    "MAX_U32",
+    "ADD_F32",
     "ADD_U32",
     "by_name",
+    "umin",
+    "umax",
+    "ult",
 ]
 
 #: Sparse wire modes (the §19 dichotomy).
 SPARSE_REMERGE = "remerge"  # idempotent: changed-vs-ref full values
 SPARSE_DELTA = "delta"  # non-idempotent: contributions vs the identity
 
-# the reference's monoids that come with SSSP and betweenness centrality
-_LATER = {"min": "MIN_U32", "max": "MAX_U32", "add": "ADD_F32"}
+# XOR with the sign bit maps uint32 order onto int32 order (0 -> INT32_MIN,
+# 0xFFFFFFFF -> INT32_MAX), and is its own inverse
+_SIGN = -(1 << 31)
+
+
+def _biased(x: torch.Tensor) -> bool:
+    """Whether ``x`` holds uint32 words as int32 patterns (compare biased);
+    floats and wider integers compare as they are."""
+    return x.dtype == torch.int32
+
+
+def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum in the order of the values held: int32 words as
+    uint32."""
+    if _biased(a):
+        return torch.minimum(a ^ _SIGN, b ^ _SIGN) ^ _SIGN
+    return torch.minimum(a, b)
+
+
+def umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise maximum in the order of the values held: int32 words as
+    uint32."""
+    if _biased(a):
+        return torch.maximum(a ^ _SIGN, b ^ _SIGN) ^ _SIGN
+    return torch.maximum(a, b)
+
+
+def ult(a: torch.Tensor, b) -> torch.Tensor:
+    """``a < b`` in the order of the values held: int32 words as uint32."""
+    if _biased(a):
+        return (a ^ _SIGN) < (b ^ _SIGN)
+    return a < b
 
 
 class MonoidContractError(ValueError):
@@ -64,6 +110,9 @@ class MonoidContractError(ValueError):
         self.monoid = monoid
         self.flag = flag
         self.counterexample = counterexample
+
+
+_SCATTERS = ("or", "add", "min", "max")
 
 
 def _word(value):
@@ -95,19 +144,21 @@ class Monoid:
 
     ``combine`` must be associative + commutative with ``identity`` as unit.
     ``scatter`` names the scatter of :meth:`scatter_into`: ``"or"`` (a true
-    OR of each value into its word) or ``"add"`` (duplicates add).
-    ``idempotent`` selects the sparse wire mode (see module docstring) and
-    is validated against ``combine`` on sample words at construction.
+    OR of each value into its word), ``"add"`` (duplicates add), ``"min"``
+    or ``"max"`` (duplicates combine in the words' uint32 order).
+    ``idempotent`` selects the sparse wire mode (see module docstring).
+    Both are validated against ``combine`` on sample words at construction:
+    a scatter of one sample into each word must equal ``combine``.
     """
 
     name: str
     identity: int | float
     combine: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-    scatter: str  # "or" | "add"
+    scatter: str  # "or" | "add" | "min" | "max"
     idempotent: bool
 
     def __post_init__(self):
-        if self.scatter not in ("or", "add"):
+        if self.scatter not in _SCATTERS:
             raise ValueError(f"monoid {self.name!r}: unknown scatter {self.scatter!r}")
         xs = _probe_words(self.identity)
         mismatch = torch.nonzero(self.combine(xs, xs) != xs).flatten()
@@ -136,6 +187,17 @@ class Monoid:
                 f"monoid {self.name!r}: identity {self.identity!r} is not "
                 f"a unit — combine(x, e) != x for x={x!r}",
                 monoid=self.name, counterexample=x,
+            )
+        # the scatter must combine as combine does (the sparse receive side)
+        ys = xs.flip(0)
+        got = self.scatter_into(xs, torch.arange(xs.numel()), ys)
+        bad = torch.nonzero(got != self.combine(xs, ys)).flatten()
+        if bad.numel():
+            i = int(bad[0])
+            raise MonoidContractError(
+                f"monoid {self.name!r}: scatter {self.scatter!r} disagrees "
+                f"with combine at x={_show(xs[i])!r}, y={_show(ys[i])!r}",
+                monoid=self.name, counterexample=_show(xs[i]),
             )
 
     @property
@@ -172,17 +234,26 @@ class Monoid:
         """Combine ``vals[..., C]`` into ``buf[..., W]`` at ``idx[..., C]``
         along the last axis (leading axes shared); returns a new buffer.
 
-        ``"add"`` adds duplicates together.  ``"or"`` ORs each value into
-        its word: slots holding the identity (the pads of a compaction,
-        which all sit at index 0) go to a spare word past the end that is
-        then dropped, so a real word at index 0 is never overwritten by a
-        pad.  The other slots must name distinct words, as one
-        compaction's pairs do (the reference's scatter-max makes the same
-        assumption); OR-ing the identity is a no-op, so no pad is lost."""
+        ``"add"`` adds duplicates together; ``"min"`` and ``"max"`` combine
+        them, int32 words in their uint32 order (biased through a signed
+        ``scatter_reduce``: torch has no unsigned one on the CPU).  ``"or"``
+        ORs each value into its word: slots holding the identity (the pads
+        of a compaction, which all sit at index 0) go to a spare word past
+        the end that is then dropped, so a real word at index 0 is never
+        overwritten by a pad.  The other slots must name distinct words, as
+        one compaction's pairs do (the reference's scatter-max makes the
+        same assumption); OR-ing the identity is a no-op, so no pad is
+        lost."""
         idx = idx.long()
         vals = vals.to(buf.dtype)
         if self.scatter == "add":
             return buf.scatter_add(-1, idx, vals)
+        if self.scatter in ("min", "max"):
+            how = "amin" if self.scatter == "min" else "amax"
+            if _biased(buf):
+                out = (buf ^ _SIGN).scatter_reduce(-1, idx, vals ^ _SIGN, how)
+                return out ^ _SIGN
+            return buf.scatter_reduce(-1, idx, vals, how)
         w = buf.shape[-1]
         ext = torch.cat([buf, self.full((*buf.shape[:-1], 1), buf.dtype, buf.device)], -1)
         tgt = torch.where(vals == self.identity_like(vals), w, idx)
@@ -190,19 +261,18 @@ class Monoid:
 
 
 OR_U32 = Monoid("or", 0, torch.bitwise_or, "or", idempotent=True)
+MIN_U32 = Monoid("min", 0xFFFFFFFF, umin, "min", idempotent=True)
+MAX_U32 = Monoid("max", 0, umax, "max", idempotent=True)
+ADD_F32 = Monoid("add", 0.0, torch.add, "add", idempotent=False)
 ADD_U32 = Monoid("add_u32", 0, torch.add, "add", idempotent=False)
 
-_REGISTRY = {m.name: m for m in (OR_U32, ADD_U32)}
+_REGISTRY = {m.name: m for m in (OR_U32, MIN_U32, MAX_U32, ADD_F32, ADD_U32)}
 
 
 def by_name(name: str) -> Monoid:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"monoid {name!r} ({_LATER[name]}) is not ported yet; it comes "
-            f"with SSSP and betweenness centrality (ROADMAP.md Queue 1 item 10)")
     try:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown monoid {name!r}; expected one of "
-            f"{sorted(_REGISTRY) + sorted(_LATER)}") from None
+            f"unknown monoid {name!r}; expected one of {sorted(_REGISTRY)}"
+        ) from None

@@ -1,9 +1,14 @@
 """Host-side graph container + ETL (paper Sec. 4 "Inputs"), in NumPy.
 
-A copy of ``repro.graph.csr`` for unweighted graphs: directed inputs are
-symmetrized, duplicate edges and self-loops removed, and vertex counts
-padded to a multiple of 32 so frontier bitmaps pack into whole words and
-1D partition boundaries can sit on word boundaries.
+A copy of ``repro.graph.csr``: directed inputs are symmetrized, duplicate
+edges and self-loops removed, and vertex counts padded to a multiple of 32
+so frontier bitmaps pack into whole words and 1D partition boundaries can
+sit on word boundaries.
+
+Edges optionally carry ``uint32`` weights: symmetrization mirrors the
+weight to both directions and deduplication keeps the MINIMUM over
+duplicates (the shortest-path-preserving choice), so a weighted symmetric
+graph always satisfies ``w(u, v) == w(v, u)``.
 
 :func:`connected_components` returns the reference's labels but is
 vectorised: the reference's per-edge Python union-find takes minutes at
@@ -13,6 +18,7 @@ Kronecker scale 23 (130 M directed edges).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -37,7 +43,8 @@ def _check(cond: bool, msg: str) -> None:
 @dataclasses.dataclass
 class Graph:
     """CSR graph.  ``src``/``dst`` are the COO view sorted by (src, dst);
-    ``row_offsets`` indexes it as CSR.  Always deduplicated, no self-loops."""
+    ``row_offsets`` indexes it as CSR.  Always deduplicated, no self-loops.
+    ``weights`` (optional) is ``uint32[E]`` aligned with ``src``/``dst``."""
 
     n: int  # padded to a multiple of 32; trailing vertices are isolated
     n_real: int
@@ -45,6 +52,7 @@ class Graph:
     dst: np.ndarray  # int32[E]
     row_offsets: np.ndarray  # int64[n + 1]
     symmetric: bool = True
+    weights: Optional[np.ndarray] = None  # uint32[E] or None (unweighted)
     # set by a successful validate(); lets the partitioner skip re-checking
     _validated: bool = dataclasses.field(
         default=False, init=False, repr=False, compare=False
@@ -53,6 +61,10 @@ class Graph:
     @property
     def n_edges(self) -> int:
         return int(self.src.shape[0])
+
+    @property
+    def weighted(self) -> bool:
+        return self.weights is not None
 
     @property
     def out_degree(self) -> np.ndarray:
@@ -64,6 +76,11 @@ class Graph:
 
     def neighbors(self, v: int) -> np.ndarray:
         return self.dst[self.row_offsets[v] : self.row_offsets[v + 1]]
+
+    def neighbor_weights(self, v: int) -> np.ndarray:
+        if self.weights is None:
+            raise ValueError("graph is unweighted")
+        return self.weights[self.row_offsets[v] : self.row_offsets[v + 1]]
 
     def validate(self) -> None:
         """Raise :class:`GraphValidationError` on any broken invariant."""
@@ -88,31 +105,68 @@ class Graph:
             key = (self.src.astype(np.int64) << 32) | self.dst.astype(np.int64)
             _check(bool(np.all(np.diff(key) > 0)),
                    "COO must be strictly (src, dst)-sorted and deduplicated")
+        if self.weights is not None:
+            _check(self.weights.shape == self.src.shape,
+                   f"weights shape {self.weights.shape} != edge count "
+                   f"({self.src.shape})")
+            _check(self.weights.dtype == np.uint32,
+                   f"weights must be uint32, got {self.weights.dtype}")
         if self.symmetric and self.n_edges:
             # the (src, dst) keys were checked sorted above, so only the
             # reversed keys need a sort
             rev = (self.dst.astype(np.int64) << 32) | self.src.astype(np.int64)
-            _check(np.array_equal(key, np.sort(rev)), "not symmetric")
+            if self.weights is None:
+                _check(np.array_equal(key, np.sort(rev)), "not symmetric")
+            else:
+                # w(u,v) == w(v,u): each reversed edge's weight, looked up
+                order = np.argsort(rev)
+                _check(np.array_equal(key, rev[order]), "not symmetric")
+                _check(np.array_equal(self.weights, self.weights[order]),
+                       "weights are not symmetric: w(u,v) != w(v,u)")
         self._validated = True
 
 
 def from_edges(
-    src: np.ndarray, dst: np.ndarray, n: int, *, symmetrize: bool = True
+    src: np.ndarray, dst: np.ndarray, n: int, *, symmetrize: bool = True,
+    weights: Optional[np.ndarray] = None,
 ) -> Graph:
-    """ETL: (optionally) symmetrize, drop self-loops, dedup, sort, build CSR."""
+    """ETL: (optionally) symmetrize, drop self-loops, dedup, sort, build CSR.
+
+    ``weights`` (any integer dtype, cast to uint32) ride along: symmetrize
+    mirrors them, dedup keeps the minimum over duplicate edges.
+    """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
+    if weights is not None:
+        weights = np.asarray(weights, dtype=np.uint32)
+        if weights.shape != src.shape:
+            raise ValueError(
+                f"weights shape {weights.shape} != edges shape {src.shape}")
     if symmetrize:
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        if weights is not None:
+            weights = np.concatenate([weights, weights])
     keep = src != dst
     src, dst = src[keep], dst[keep]
+    if weights is not None:
+        weights = weights[keep]
     n_pad = max(_pad32(n), WORD_BITS)
-    # sort + drop repeats: np.unique's own path took 100 s at 34 M keys
-    # under numpy 2.3, against under 1 s to sort
-    key = np.sort((src << 32) | dst)
+    key = (src << 32) | dst
+    if weights is None:
+        # sort + drop repeats: np.unique's own path took 100 s at 34 M keys
+        # under numpy 2.3, against under 1 s to sort
+        key = np.sort(key)
+    else:
+        order = np.argsort(key, kind="stable")
+        key, weights = key[order], weights[order]
     first = np.ones(key.size, dtype=bool)
     first[1:] = key[1:] != key[:-1]
     key = key[first]
+    if weights is not None:
+        # min over each duplicate run (shortest-path-preserving dedup)
+        starts = np.flatnonzero(first)
+        weights = (np.minimum.reduceat(weights, starts) if key.size
+                   else weights[:0])
     src = (key >> 32).astype(np.int32)
     dst = (key & 0xFFFFFFFF).astype(np.int32)
     row_offsets = np.zeros(n_pad + 1, dtype=np.int64)
@@ -120,23 +174,37 @@ def from_edges(
     row_offsets[1:] = np.cumsum(counts)
     g = Graph(
         n=n_pad, n_real=n, src=src, dst=dst, row_offsets=row_offsets,
-        symmetric=symmetrize,
+        symmetric=symmetrize, weights=weights,
     )
     g.validate()
     return g
 
 
+def with_weights(g: Graph, weights: np.ndarray) -> Graph:
+    """``g`` with ``weights`` (``uint32[E]``, aligned with ``g.src``)
+    attached, validated.  The generators weight their deduplicated edges
+    this way: their weights are a function of the canonical endpoint pair,
+    so every duplicate and both directions of an edge share one weight,
+    and :func:`from_edges`'s min-dedup of the weighted input would give
+    the same graph after a stable sort of every raw edge."""
+    out = dataclasses.replace(g, weights=np.asarray(weights, dtype=np.uint32))
+    out.validate()
+    return out
+
+
 def in_csr(g: Graph):
-    """(in_offsets, in_src, in_dst) — the CSC view (edges grouped by
-    destination).  For symmetric graphs this equals the CSR with endpoints
-    swapped."""
+    """(in_offsets, in_src, in_dst, in_weights) — the CSC view (edges
+    grouped by destination).  For symmetric graphs this equals the CSR
+    with endpoints swapped.  ``in_weights`` is None for unweighted
+    graphs."""
     order = np.lexsort((g.src, g.dst))
     in_src = g.src[order]
     by_dst = g.dst[order]
+    in_w = g.weights[order] if g.weights is not None else None
     counts = np.bincount(by_dst, minlength=g.n)
     in_offsets = np.zeros(g.n + 1, dtype=np.int64)
     in_offsets[1:] = np.cumsum(counts)
-    return in_offsets, in_src, by_dst
+    return in_offsets, in_src, by_dst, in_w
 
 
 def largest_component_root(g: Graph, rng: np.random.Generator) -> int:

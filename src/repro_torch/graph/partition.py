@@ -1,19 +1,21 @@
 """1D edge-balanced partitioning (paper Sec. 4 "Graph Partitioning").
 
-A copy of ``repro.graph.partition`` for unweighted graphs, in NumPy.
+A copy of ``repro.graph.partition``, in NumPy.
 Vertices are split into contiguous ranges of near-equal edge counts, with
 boundaries rounded to multiples of 32 so each rank's owned range is a
 whole number of bitmap words; per-rank edge arrays are padded to a common
 shape and stacked into ``[P, emax]``, the simulated-rank axis the torch
 traversal runs over.
 
-Out-edges are kept sorted by (src, dst) and in-edges by (dst, src).
+Out-edges are kept sorted by (src, dst) and in-edges by (dst, src).  A
+weighted graph's ``uint32`` weights are partitioned alongside (``edge_weight``
+with the out-edges, ``in_weight`` with the in-edges).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -22,6 +24,8 @@ from repro_torch.graph.csr import WORD_BITS
 
 #: The scalar fields of :class:`PartitionedGraph`; the rest are arrays.
 SCALARS = ("p", "n", "n_words", "n_edges", "vmax", "emax", "wmax")
+#: The weight planes, present together on weighted partitions only.
+WEIGHT_KEYS = ("edge_weight", "in_weight")
 
 
 @dataclasses.dataclass
@@ -45,6 +49,14 @@ class PartitionedGraph:
     in_dst: np.ndarray  # int32[P, emax]
     in_count: np.ndarray  # int32[P]
     deg_out: np.ndarray  # int32[P, vmax]  out-degree of owned vertices
+    # uint32[P, emax] edge weights, partitioned alongside dst (out view) and
+    # src (in view); None for unweighted graphs
+    edge_weight: Optional[np.ndarray] = None
+    in_weight: Optional[np.ndarray] = None
+
+    @property
+    def weighted(self) -> bool:
+        return self.edge_weight is not None
 
     def owner_of(self, v: int) -> int:
         return int(np.searchsorted(self.v_start, v, side="right") - 1)
@@ -53,8 +65,9 @@ class PartitionedGraph:
         return {k: int(getattr(self, k)) for k in SCALARS}
 
     def arrays(self) -> Dict[str, np.ndarray]:
-        """The ``[P, ...]`` planes handed to the traversal."""
-        return dict(
+        """The ``[P, ...]`` planes handed to the traversal.  Weighted
+        partitions add ``edge_weight``/``in_weight``."""
+        out = dict(
             v_start=self.v_start,
             v_count=self.v_count,
             word_start=self.word_start,
@@ -66,6 +79,10 @@ class PartitionedGraph:
             in_count=self.in_count,
             deg_out=self.deg_out,
         )
+        if self.edge_weight is not None:
+            out["edge_weight"] = self.edge_weight
+            out["in_weight"] = self.in_weight
+        return out
 
 
 def from_reference(scalars: dict, arrays: Dict[str, np.ndarray]) -> PartitionedGraph:
@@ -73,18 +90,20 @@ def from_reference(scalars: dict, arrays: Dict[str, np.ndarray]) -> PartitionedG
     state: its scalars (``p``, ``n``, ...) and its ``pg.arrays()``.
 
     Carries one partition across the two packages so that both traverse
-    identical state.  Weighted partitions are not part of the port yet.
+    identical state; a weighted partition's ``edge_weight``/``in_weight``
+    stay ``uint32``.
     """
     if set(scalars) != set(SCALARS):
         raise ValueError(f"scalars must have exactly the keys {SCALARS}, "
                          f"got {sorted(scalars)}")
     keys = {f.name for f in dataclasses.fields(PartitionedGraph)} - set(SCALARS)
-    if set(arrays) != keys:
-        raise ValueError(f"arrays must have exactly the keys {sorted(keys)}, "
-                         f"got {sorted(arrays)}")
+    if set(arrays) not in (keys - set(WEIGHT_KEYS), keys):
+        raise ValueError(f"arrays must have exactly the keys {sorted(keys)} "
+                         f"(the weights optional, together), got {sorted(arrays)}")
     return PartitionedGraph(
         **{k: int(v) for k, v in scalars.items()},
-        **{k: np.array(v, dtype=np.int32) for k, v in arrays.items()},
+        **{k: np.array(v, dtype=np.uint32 if k in WEIGHT_KEYS else np.int32)
+           for k, v in arrays.items()},
     )
 
 
@@ -114,7 +133,7 @@ def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGra
     edge_count = (e_hi - e_lo).astype(np.int32)
 
     # --- in-edges per rank (CSC view, grouped by destination)
-    in_offsets, in_src_all, in_dst_all = csr.in_csr(g)
+    in_offsets, in_src_all, in_dst_all, in_w_all = csr.in_csr(g)
     ie_lo = in_offsets[v_start]
     ie_hi = in_offsets[v_end]
     in_count = (ie_hi - ie_lo).astype(np.int32)
@@ -130,14 +149,20 @@ def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGra
     in_src = np.zeros((p, emax), dtype=np.int32)
     in_dst = np.zeros((p, emax), dtype=np.int32)
     deg_out = np.zeros((p, vmax), dtype=np.int32)
+    edge_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
+    in_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
     degrees = g.out_degree
     for i in range(p):
         s, e = int(e_lo[i]), int(e_hi[i])
         edge_src[i, : e - s] = g.src[s:e]
         edge_dst[i, : e - s] = g.dst[s:e]
+        if g.weighted:
+            edge_weight[i, : e - s] = g.weights[s:e]
         s, e = int(ie_lo[i]), int(ie_hi[i])
         in_src[i, : e - s] = in_src_all[s:e]
         in_dst[i, : e - s] = in_dst_all[s:e]
+        if g.weighted:
+            in_weight[i, : e - s] = in_w_all[s:e]
         deg_out[i, : v_count[i]] = degrees[v_start[i] : v_end[i]]
 
     # Exchanged bitmap length: whole graph + one rank window of slack so
@@ -164,4 +189,6 @@ def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGra
         in_dst=in_dst,
         in_count=in_count,
         deg_out=deg_out,
+        edge_weight=edge_weight,
+        in_weight=in_weight,
     )

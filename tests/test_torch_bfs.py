@@ -137,8 +137,9 @@ def test_direction_optimizing_scans_fewer_edges():
 
 def test_config_rejects_unknown_and_unported():
     """Unknown modes and syncs raise; every sync of the reference is
-    ported (its parity is test_bfs_matches_reference), and the monoids
-    still to come name their ROADMAP item."""
+    ported (its parity is test_bfs_matches_reference), and so is every
+    monoid of the reference: ``by_name`` returns each with the reference's
+    name, identity and sparse mode."""
     with pytest.raises(ValueError, match="mode"):
         bfs.BFSConfig(mode="sideways")
     with pytest.raises(ValueError, match="sync"):
@@ -146,11 +147,13 @@ def test_config_rejects_unknown_and_unported():
     assert bfs.SYNCS == ref_bfs.SYNCS
     for sync in bfs.SYNCS:
         assert bfs.BFSConfig(sync=sync).sync == sync
+    from repro.core import monoid as ref_monoid
     from repro_torch.core import monoid
 
     for name in ("min", "max", "add"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            monoid.by_name(name)
+        m, rm = monoid.by_name(name), ref_monoid.by_name(name)
+        assert (m.name, m.identity, m.sparse_mode) == (rm.name, rm.identity,
+                                                       rm.sparse_mode)
 
 
 def test_kernel_path_needs_layout_and_valid_root(partitions):

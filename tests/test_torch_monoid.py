@@ -1,7 +1,9 @@
-"""PyTorch port, merge monoids: OR_U32 and ADD_U32 keep the JAX package's
-laws, construction checks, idempotence/delta dichotomy and identity
-padding, and their butterfly reductions (dense and sparse) equal the
-reference's collectives, its host oracles and the byte model exactly."""
+"""PyTorch port, merge monoids: OR_U32, MIN_U32, MAX_U32, ADD_U32 and
+ADD_F32 keep the JAX package's laws, construction checks, idempotence/delta
+dichotomy and identity padding, and their butterfly reductions (dense and
+sparse) equal the reference's collectives, its host oracles and the byte
+model exactly; MIN and MAX order int32 words as uint32 (bit 31 and the
+``0xFFFFFFFF`` sentinel included)."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,8 @@ from repro_torch.core import frontier as fr
 NW = 64
 _OPS = {
     "or": (mono.OR_U32, ref_mono.OR_U32, np.bitwise_or),
+    "min": (mono.MIN_U32, ref_mono.MIN_U32, np.minimum),
+    "max": (mono.MAX_U32, ref_mono.MAX_U32, np.maximum),
     "add_u32": (mono.ADD_U32, ref_mono.ADD_U32, np.add),
 }
 
@@ -206,9 +210,11 @@ def test_sparse_mode_and_registry():
     assert mono.by_name("add_u32") is mono.ADD_U32
     with pytest.raises(ValueError, match="unknown monoid"):
         mono.by_name("xor")
-    for later in ("min", "max", "add"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            mono.by_name(later)
+    for name, m in (("min", mono.MIN_U32), ("max", mono.MAX_U32), ("add", mono.ADD_F32)):
+        rm = ref_mono.by_name(name)
+        assert mono.by_name(name) is m
+        assert (m.name, m.identity, m.idempotent, m.sparse_mode) == \
+            (rm.name, rm.identity, rm.idempotent, rm.sparse_mode)
 
 
 @pytest.mark.parametrize("density", ["low", "high"])
@@ -231,3 +237,135 @@ def test_adaptive_reduce_dispatches_both_ways(density):
     want = (butterfly.bytes_per_node_sparse(p, 2, 8, NW) if density == "low"
             else butterfly.bytes_per_node_allreduce(p, 2, NW * 4))
     assert comm.bytes_sent.tolist() == [want] * p
+
+
+# --- MIN_U32 / MAX_U32: uint32 order on int32 words --------------------------
+
+
+def test_min_max_order_words_as_uint32():
+    """The unreached sentinel 0xFFFFFFFF (-1 as int32) is the LARGEST word
+    and bit-31 words sit above every word without it: a signed compare
+    fails each of these."""
+    a = _t(np.array([0xFFFFFFFF, 0x80000000, 5, 0x7FFFFFFF], np.uint32))
+    b = _t(np.array([5, 7, 0xFFFFFFFF, 0x80000000], np.uint32))
+    assert _u32(mono.MIN_U32.combine(a, b)).tolist() == [5, 7, 5, 0x7FFFFFFF]
+    assert _u32(mono.MAX_U32.combine(a, b)).tolist() == [0xFFFFFFFF, 0x80000000,
+                                                         0xFFFFFFFF, 0x80000000]
+    assert mono.ult(a, b).tolist() == [False, False, True, True]
+    f = torch.tensor([-1.0, 2.0])
+    assert mono.umin(f, -f).tolist() == [-1.0, -2.0]  # floats compare as floats
+
+
+@pytest.mark.parametrize("name", ["min", "max"])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_min_max_scatter_into_matches_reference(name, seed):
+    """Duplicates combine in uint32 order, bit 31 and the sentinel
+    included, as the reference's scatter-min/max on uint32."""
+    m, rm, _ = _OPS[name]
+    rng = np.random.default_rng(seed)
+    buf = _rand((2, 16), seed)
+    buf[:, 0] = 0xFFFFFFFF
+    idx = rng.integers(0, 16, size=(2, 40)).astype(np.int32)
+    vals = _rand((2, 40), seed + 1)
+    vals[:, :3] = [0x80000000, 0xFFFFFFFF, 1]
+    idx[:, :3] = 0
+    got = m.scatter_into(_t(buf), torch.from_numpy(idx), _t(vals))
+    for r in range(2):
+        want = rm.scatter_into(jnp.asarray(buf[r]), jnp.asarray(idx[r]),
+                               jnp.asarray(vals[r]))
+        np.testing.assert_array_equal(_u32(got)[r], np.asarray(want))
+
+
+def test_construction_refuses_a_signed_min_and_a_mismatched_scatter():
+    """The probe words carry bit 31 and 0xFFFFFFFF: a signed ``minimum``
+    makes the identity no unit, and a scatter that disagrees with combine
+    is refused."""
+    with pytest.raises(mono.MonoidContractError, match="unit") as ei:
+        mono.Monoid("signed_min", 0xFFFFFFFF, torch.minimum, "min", idempotent=True)
+    assert ei.value.counterexample is not None
+    with pytest.raises(mono.MonoidContractError, match="scatter 'max'"):
+        mono.Monoid("min_max", 0xFFFFFFFF, mono.umin, "max", idempotent=True)
+    with pytest.raises(mono.MonoidContractError, match="scatter 'min'"):
+        mono.Monoid("signed_scatter", 0, mono.umax, "min", idempotent=True)
+
+
+@pytest.mark.parametrize("p,fanout,n_changed", [(2, 1, 3), (8, 4, 5), (4, 2, 40)])
+def test_sparse_min_remerge_matches_dense_and_jax(mesh8, p, fanout, n_changed):
+    """SSSP's exchange: MIN_U32 remerge against a shared reference holding
+    the sentinel and bit-31 distances; 40 changed words overflow the
+    capacity of 16 and take the dense path."""
+    rng = np.random.default_rng(p * 3 + fanout)
+    ref = _rand(NW, p)
+    ref[::3] = 0xFFFFFFFF
+    x = np.tile(ref, (p, 1))
+    for r in range(p):
+        ii = rng.choice(NW, size=n_changed, replace=False)
+        x[r, ii] = np.minimum(_rand(n_changed, r + 50), ref[ii])  # improvements
+    comm = collectives.Communicator(p, "cpu")
+    got = collectives.butterfly_reduce_sparse(_t(x), comm, mono.MIN_U32, fanout=fanout,
+                                              capacity=16, ref=_t(ref))
+    want = np.minimum.reduce(x, axis=0)
+    sim, stats = ref_bf.simulate_reduce_sparse(list(x), fanout, 16, combine=np.minimum,
+                                               identity=0xFFFFFFFF, ref=ref)
+    for r in range(p):
+        np.testing.assert_array_equal(_u32(got)[r], want, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(sim[r], want)
+    assert comm.bytes_sent.tolist() == [stats["bytes_per_node"]] * p
+    if p == 8:
+        jref = _ref_run(lambda v: ref_coll.butterfly_reduce_sparse(
+            v[0], "data", ref_mono.MIN_U32, fanout=fanout, capacity=16,
+            ref=jnp.asarray(ref))[None], x)
+        np.testing.assert_array_equal(_u32(got), jref)
+
+
+@pytest.mark.parametrize("fanout", [1, 4])
+@pytest.mark.parametrize("n_changed", [2, 30])
+def test_sparse_add_f32_delta_equals_dense_bit_for_bit(mesh8, fanout, n_changed):
+    """PageRank's exchange: each rank's own float32 contributions against
+    ref=None; the sparse wire (float bits shipped as int32 words, 8 bytes a
+    pair) sums in the dense butterfly's order, so the result is bit-equal;
+    30 changed words overflow the capacity and fall back to the dense
+    path."""
+    rng = np.random.default_rng(fanout * 7 + n_changed)
+    x = np.zeros((8, NW), np.float32)
+    for r in range(8):
+        ii = rng.choice(NW, size=n_changed, replace=False)
+        x[r, ii] = rng.random(n_changed).astype(np.float32) / 3
+    dense_comm = collectives.Communicator(8, "cpu")
+    dense = collectives.butterfly_reduce(torch.from_numpy(x), dense_comm, mono.ADD_F32,
+                                         fanout=fanout)
+    comm = collectives.Communicator(8, "cpu")
+    got = collectives.butterfly_reduce_sparse(torch.from_numpy(x), comm, mono.ADD_F32,
+                                              fanout=fanout, capacity=16)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
+    want = (butterfly.bytes_per_node_sparse(8, fanout, 16, NW) if n_changed <= 16
+            else dense_comm.bytes_sent[0])
+    assert comm.bytes_sent.tolist() == [want] * 8
+    jref = _ref_run(lambda v: ref_coll.butterfly_reduce_sparse(
+        v[0], "data", ref_mono.ADD_F32, fanout=fanout, capacity=16)[None], x)
+    np.testing.assert_allclose(got.numpy(), jref, rtol=1e-6)
+    with pytest.raises(mono.MonoidContractError, match="DELTA"):
+        collectives.butterfly_reduce_adaptive(torch.from_numpy(x), comm, mono.ADD_F32,
+                                              ref=torch.zeros(NW))
+
+
+@pytest.mark.parametrize("op", ["min", "max", "add"])
+def test_all_to_all_merge_takes_the_monoid_op(mesh8, op):
+    x = _rand((8, NW), 21)
+    x[0, 0], x[1, 0] = 0xFFFFFFFF, 0x80000000
+    m = {"min": mono.MIN_U32, "max": mono.MAX_U32, "add": mono.ADD_U32}[op]
+    rop = {"min": jnp.minimum, "max": jnp.maximum, "add": "add"}[op]
+    comm = collectives.Communicator(8, "cpu")
+    got = collectives.all_to_all_merge(_t(x), comm, op=m.combine)
+    np.testing.assert_array_equal(_u32(got), _ref_run(
+        lambda v: ref_coll.all_to_all_merge(v, "data", op=rop), x))
+    assert torch.equal(collectives.all_to_all_merge(_t(x), comm, op=op), got)
+
+
+def test_rabenseifner_adds_float32(mesh8):
+    """BC's ADD merge on the Rabenseifner wiring, float32 (zero pads)."""
+    x = np.random.default_rng(3).random((8, 50)).astype(np.float32)
+    got = collectives.butterfly_allreduce_rabenseifner(
+        torch.from_numpy(x), collectives.Communicator(8, "cpu"), fanout=4, op="add")
+    np.testing.assert_allclose(got.numpy(), np.broadcast_to(x.sum(0), x.shape), rtol=1e-6)

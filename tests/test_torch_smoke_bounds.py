@@ -350,3 +350,115 @@ def test_validate_holds_a_bfs_tree_to_graph500_rules(torus_parts, fault, message
     else:
         with pytest.raises(AssertionError, match=message):
             chip_smoke.validate(torus_parts, 5, d_owned)
+
+
+# --- the weighted traversals' and vertex programs' checks (phases 11-16) -------
+
+
+@pytest.fixture(scope="module")
+def weighted_torus():
+    """A weighted torus, its SSSP distances from vertex 5 (Dijkstra) and
+    its edges as the chip run holds them."""
+    from repro_torch.graph import generators
+    from repro_torch.traversal import sssp
+
+    g = generators.torus_2d(12, max_weight=9, seed=1)
+    dist = torch.as_tensor(sssp.sssp_reference(g, 5))
+    return (torch.as_tensor(g.src.astype("int64")), torch.as_tensor(g.dst.astype("int64")),
+            torch.as_tensor(g.weights.astype("int64")), dist, g)
+
+
+@pytest.mark.parametrize("fault,message", [
+    (None, None),
+    ("root", "d\\[root\\]"),
+    ("long", "relaxes a distance further"),
+    ("leaf", "no in-edge on a shortest path"),
+    ("unreached", "neighbours an unreached one"),
+])
+def test_sssp_certificate_holds_distances_to_graph500_rules(weighted_torus, fault, message):
+    src, dst, w, dist, _ = weighted_torus
+    dist = dist.clone()
+    if fault == "root":
+        dist[5] = 1
+    elif fault == "long":  # one vertex farther than an edge allows
+        dist[40] += 1
+    elif fault == "leaf":  # nearer than any path, on no other's shortest path
+        slack = torch.ones(dist.numel(), dtype=torch.bool)
+        slack.scatter_reduce_(0, src, dist[dst] < dist[src] + w, "amin")
+        slack &= dist != 0xFFFFFFFF
+        slack[5] = False
+        dist[int(torch.nonzero(slack)[0])] -= 1
+    elif fault == "unreached":
+        dist[40] = 0xFFFFFFFF
+    if fault is None:
+        chip_smoke.sssp_certificate(src, dst, w, dist, 5)
+    else:
+        with pytest.raises(AssertionError, match=message):
+            chip_smoke.sssp_certificate(src, dst, w, dist, 5)
+
+
+def test_sssp_dist_reads_the_uint32_patterns():
+    d_owned = torch.tensor([[0, -1], [7, -2]], dtype=torch.int32)
+    slot = torch.tensor([0, 2, 1, 3])
+    assert chip_smoke.sssp_dist(d_owned, slot).tolist() == [0, 7, 0xFFFFFFFF, 0xFFFFFFFE]
+
+
+def test_brandes_identity_on_a_path_and_its_failure():
+    """Path 0-1-2-3 from source 0: the dependencies are 2, 1, 0 (vertex 1
+    lies on the paths to 2 and 3, vertex 2 on the path to 3), and
+    sum(d - 1) over the reached = 0 + 1 + 2."""
+    from repro_torch.core.bfs import INF
+
+    levels = torch.tensor([0, 1, 2, 3, INF], dtype=torch.int32)
+    assert chip_smoke.brandes_identity(torch.tensor([0.0, 2.0, 1.0, 0.0, 0.0]),
+                                       levels) == (3.0, 3.0)
+    with pytest.raises(AssertionError, match="Brandes"):
+        chip_smoke.brandes_identity(torch.tensor([0.0, 2.0, 1.5, 0.0, 0.0]), levels)
+
+
+def test_hindex_fixed_point_holds_for_core_numbers_only():
+    """A triangle with a pendant vertex: cores 2, 2, 2, 1.  Raising the
+    pendant's core, or lowering a triangle vertex's, leaves the fixed
+    point."""
+    from repro_torch.graph import csr
+    from repro_torch.programs import kcore
+
+    g = csr.from_edges(torch.tensor([0, 1, 2, 2]).numpy(), torch.tensor([1, 2, 0, 3]).numpy(), 4)
+    src, dst = torch.as_tensor(g.src.astype("int64")), torch.as_tensor(g.dst.astype("int64"))
+    core = torch.as_tensor(kcore.kcore_reference(g))
+    assert core[:4].tolist() == [2, 2, 2, 1]
+    assert chip_smoke.hindex_violations(src, dst, core) == 0
+    for v, c in ((3, 2), (0, 1)):
+        bad = core.clone()
+        bad[v] = c
+        assert chip_smoke.hindex_violations(src, dst, bad) >= 1
+
+
+def test_pagerank_residual_is_small_at_the_fixed_point_only():
+    from repro_torch.graph import generators
+    from repro_torch.programs import pagerank
+
+    g = generators.kronecker(7, 8, seed=2)
+    src, dst = torch.as_tensor(g.src.astype("int64")), torch.as_tensor(g.dst.astype("int64"))
+    fixed = torch.as_tensor(pagerank.pagerank_reference(g, tol=1e-13, max_iters=1000))
+    assert chip_smoke.pagerank_residual(src, dst, g.n, fixed, 0.85) < 1e-11
+    uniform = torch.full((g.n,), 1.0 / g.n, dtype=torch.float64)
+    assert chip_smoke.pagerank_residual(src, dst, g.n, uniform, 0.85) > 1e-2
+
+
+def test_min_id_labels_name_each_component_by_its_smallest_vertex():
+    import numpy as np
+
+    assert chip_smoke.min_id_labels(np.array([0, 1, 0, 2, 1, 2])).tolist() == [0, 1, 0, 3, 1, 3]
+
+
+def test_slice_merge_cases_take_the_butterfly_shape_per_plane():
+    gen = torch.Generator().manual_seed(0)
+    cases = chip_smoke.slice_merge_cases(gen, torch.device("cpu"), 16, 4,
+                                         {"bc_merge": ("bc", 40), "tri_merge": ("tri", 9)})
+    assert [(c["plane"], c["path"], tuple(c["args"][0].shape)) for c in cases] == [
+        ("bc_merge", "bc", (16, 4, 40)), ("tri_merge", "tri", (16, 4, 9))]
+    for c in cases:
+        assert c["bytes"] == chip_smoke.nbytes(c["args"][0]) // 4 * 5
+    odd = chip_smoke.slice_merge_cases(gen, torch.device("cpu"), 12, 4, {"x": ("p", 5)})
+    assert odd[0]["args"][0].shape == (12, 4, 5)  # digit plan [4, 3]: first round K = 4

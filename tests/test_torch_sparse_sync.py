@@ -280,21 +280,26 @@ def test_all_to_all_merge_matches_reference(mesh8):
     assert sent == [7 * 40 * 4] * 8
 
 
-@pytest.mark.parametrize("op", ["or", "add", "max"])
+@pytest.mark.parametrize("op", ["or", "add", "max", "min"])
 def test_xla_allreduce_matches_reference(mesh8, op):
-    """The all-gather + P-way reduce: equal to the reference's psum, pmax
-    and all-gather OR, (P - 1) * 4 W bytes a rank."""
+    """The all-gather + P-way reduce: equal to the reference's psum, pmax,
+    pmin and all-gather OR, (P - 1) * 4 W bytes a rank.  The port's words
+    are uint32 patterns, so ``max`` and ``min`` run on uint32 words with
+    bit 31 set (the reference's on uint32)."""
     rng = np.random.default_rng(len(op))
-    x = (_bitmaps(8, 20, seed=9, nw=24) if op == "or"
-         else rng.integers(-1000, 1000, size=(8, 24)).astype(np.int32))
-    want = _ref_run(lambda v: ref_coll.xla_allreduce(v, "data", op=op), x)
+    x = (rng.integers(-1000, 1000, size=(8, 24)).astype(np.int32) if op == "add"
+         else _bitmaps(8, 20, seed=9, nw=24))
+    if op == "min":
+        want = _ref_run(lambda v: jax.lax.pmin(v, "data"), x)
+    else:
+        want = _ref_run(lambda v: ref_coll.xla_allreduce(v, "data", op=op), x)
     comm = collectives.Communicator(8, "cpu")
-    got = collectives.xla_allreduce(_t(x) if op == "or" else torch.from_numpy(x), comm,
+    got = collectives.xla_allreduce(torch.from_numpy(x) if op == "add" else _t(x), comm,
                                     op=op)
-    np.testing.assert_array_equal(_u32(got) if op == "or" else got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy() if op == "add" else _u32(got), want)
     assert comm.bytes_sent.tolist() == [7 * 24 * 4] * 8
     with pytest.raises(ValueError):
-        collectives.xla_allreduce(got, comm, op="min")
+        collectives.xla_allreduce(got, comm, op="xor")
 
 
 # --- BFS end to end -------------------------------------------------------------

@@ -213,3 +213,121 @@ def test_cli_writes_trace_and_stats_json(tmp_path, capsys):
     assert stats["schema"] == "bfs_run_stats/v1" and stats["engine_stats"] is None
     assert stats["config"]["sync"] == "sparse" and stats["config"]["sparse_capacity"] == 4
     assert stats["trace"]["levels"] == len(stats["trace"]["per_level"])
+
+
+# --- monoid syncs: SSSP and the vertex programs ------------------------------
+
+
+def _weighted_partitions(p=8):
+    from repro.graph import partition as rp
+
+    rg = ref_gen.kronecker(9, 8, seed=1, max_weight=16)
+    rpg = rp.partition_1d(rg, p)
+    return rpg, partition.from_reference({k: getattr(rpg, k) for k in partition.SCALARS},
+                                         rpg.arrays())
+
+
+@pytest.mark.parametrize("sync", ["butterfly", "sparse", "adaptive", "xla"])
+def test_sssp_trace_rows_match_reference(mesh8, sync):
+    """monoid_sync_stats rows (changed-vs-reference distance words, the
+    branch and the shipped pairs) and the rest of each row equal the
+    reference's traced SSSP; the byte attribution reconciles with what
+    the ranks sent."""
+    from repro.traversal import sssp as ref_sssp
+    from repro_torch.traversal import sssp
+
+    rpg, tpg = _weighted_partitions()
+    kw = dict(sync=sync, fanout=4, sparse_capacity=64)
+    rfn = ref_sssp.build_sssp_fn(rpg, mesh8, ref_sssp.SSSPConfig(axes=("data",), **kw),
+                                 trace=True)
+    want = rfn(ref_bfs.place_arrays(rpg, mesh8, ("data",)), np.int32(3))
+    cfg = sssp.SSSPConfig(**kw)
+    comm = collectives.Communicator(8, "cpu")
+    arrays = bfs.place_arrays(tpg, device="cpu")
+    got = sssp.build_sssp_fn(tpg, cfg, device="cpu", trace=True)(arrays, 3, comm)
+    n_rows = sssp.dist_rows(tpg)
+    tr = flightrec.TraversalTrace.from_buffer(got[3], algo="sssp", sync=sync, p=8,
+                                              fanout=4, n_words=n_rows,
+                                              capacity=cfg.resolved_capacity(n_rows))
+    np.testing.assert_array_equal(tr.data, ref_fl.TraversalTrace.from_buffer(
+        np.asarray(want[3]), algo="sssp", sync=sync, p=8, fanout=4, n_words=n_rows,
+        capacity=cfg.resolved_capacity(n_rows)).data)
+    assert tr.levels == got[1] == int(np.max(want[1]))
+    assert flightrec.reconcile_bytes(tr, comm.bytes_sent)["matches"]
+    if sync in ("sparse", "adaptive"):
+        assert (tr.data[:, COL_BRANCH] != BRANCH_DENSE).any()
+    untraced = sssp.build_sssp_fn(tpg, cfg, device="cpu")(arrays, 3)
+    assert torch.equal(untraced[0], got[0]) and untraced[1:] == got[1:3]
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "cc", "kcore", "tri"])
+@pytest.mark.parametrize("sync", ["butterfly", "sparse", "adaptive"])
+def test_program_trace_rows_match_reference(mesh8, algo, sync):
+    """A traced program's rows equal the reference's exactly: the monoid
+    sync's columns (PageRank's delta mode against the identity) and each
+    program's POP/DIR (PageRank's float32 residual in ppm, labels changed,
+    vertices peeled and k, wedge hits); the bytes reconcile."""
+    from repro import programs as ref_programs
+    from repro.graph import partition as rp
+    from repro_torch import programs
+
+    rpg = rp.partition_1d(ref_gen.kronecker(8, 8, seed=3), 8)
+    tpg = partition.from_reference({k: getattr(rpg, k) for k in partition.SCALARS},
+                                   rpg.arrays())
+    rprog, prog = ref_programs.by_name(algo), programs.by_name(algo)
+    rcfg = ref_programs.ProgramConfig(sync=sync, fanout=4)
+    want = ref_programs.build_program_fn(rpg, mesh8, rprog, rcfg, trace=True)(
+        ref_bfs.place_arrays(rpg, mesh8, ("data",)), rprog.default_arg(rpg))
+    cfg = programs.ProgramConfig(sync=sync, fanout=4)
+    comm = collectives.Communicator(8, "cpu")
+    got = programs.build_program_fn(tpg, prog, cfg, device="cpu", trace=True)(
+        bfs.place_arrays(tpg, device="cpu"), prog.default_arg(tpg), comm)
+    n_words = programs.program_msg_words(tpg, prog)
+    kw = dict(algo=algo, sync=sync, p=8, fanout=4, n_words=n_words,
+              capacity=cfg.resolved_capacity(n_words))
+    tr = flightrec.TraversalTrace.from_buffer(got[-1], **kw)
+    ref = ref_fl.TraversalTrace.from_buffer(np.asarray(want[-1]), **kw).data
+    assert tr.levels == got[-3] == int(np.max(want[-3]))
+    np.testing.assert_array_equal(tr.data, ref)
+    assert flightrec.reconcile_bytes(tr, comm.bytes_sent)["matches"]
+
+
+def test_monoid_and_dense_sync_stats_dispatch():
+    """The stats name the branch the sync takes: changed words against the
+    capacity (sparse) and the density limit (adaptive)."""
+    from types import SimpleNamespace
+
+    prev = torch.full((2, 64), -1, dtype=torch.int32)
+    new = prev.clone()
+    new[0, :3] = 5
+    new[1, :10] = 7
+    for sync, want in (("butterfly", (10, 0, 0)), ("sparse", (10, 1, 10)),
+                       ("adaptive", (10, 0, 0))):
+        cfg = SimpleNamespace(sync=sync, density_threshold=0.1)
+        got = flightrec.monoid_sync_stats(new, prev, cfg, capacity=16)
+        assert tuple(int(x) for x in got) == want, sync
+    cfg = SimpleNamespace(sync="sparse", density_threshold=0.1)
+    assert int(flightrec.monoid_sync_stats(new, prev, cfg, capacity=8)[1]) == BRANCH_FALLBACK
+    cfg = SimpleNamespace(sync="adaptive", density_threshold=0.5)
+    assert int(flightrec.monoid_sync_stats(new, prev[0], cfg, capacity=16)[1]) == 1
+    assert [int(x) for x in flightrec.dense_sync_stats(new)] == [64, 0, 0]
+    with pytest.raises(ValueError, match="unknown sync"):
+        flightrec.monoid_sync_stats(new, prev, SimpleNamespace(sync="carrier"), 16)
+
+
+def test_bc_trace_reports_its_extra_dense_syncs(partitions):
+    """A BC trace covers the forward OR sync; its ADD syncs (two a level)
+    are counted in the summary and the trace refuses reconciliation."""
+    from repro_torch.traversal import bc
+
+    _, tpg = partitions["kron10"]
+    cfg = bfs.BFSConfig(fanout=4)
+    out = bc.build_bc_fn(tpg, cfg, 2, device="cpu", trace=True)(
+        bfs.place_arrays(tpg, device="cpu"), [3, 5])
+    n_flat = msbfs.wave_rows(tpg) * msbfs.lane_words(2)
+    tr = flightrec.TraversalTrace.from_buffer(out[-1], algo="bc", sync="butterfly", p=8,
+                                              fanout=4, n_words=n_flat,
+                                              capacity=cfg.resolved_capacity(n_flat))
+    assert tr.levels == out[1] and tr.summary()["extra_dense_syncs"] == 2 * out[1]
+    with pytest.raises(ValueError, match="BC"):
+        flightrec.reconcile_bytes(tr, np.zeros(8))
