@@ -67,21 +67,44 @@ components, k-core and triangle counting), and holds them to account:
 15. k-core: the h-index fixed point at every vertex, on the card; scale
     14 against host peeling;
 16. triangle counts at scale 15 against the host oracle;
-17. one root of each cell of phases 6-7 under ``torch.profiler`` (device
+17. the lane-packed repair (``repair_rows``, two 32-lane waves) at
+    Kronecker scale 21, each row against the plain BFS from scratch;
+18. streaming mutations on a copy of the Kronecker partition (the phases
+    before and after keep the original): each rank's slack; an
+    insert-only and a mixed (inserts and deletes) seeded batch, cut to the
+    slack, patched in place; after each, cached BFS rows repaired under
+    ``butterfly``, ``sparse`` and ``adaptive`` and SSSP rows under the
+    butterfly (``dynamic.repair.repair_row``), every repaired row equal
+    bit for bit to the from-scratch port traversal of the mutated
+    partition and every SSSP row certified on the overlay's edges; then a
+    root whose one-edge batch is proven unchanged with no launch;
+19. a batch of 0.1 % of the edges refused by the in-place patch with every
+    partition array byte-equal to before, then the compaction path
+    (``overlay.compact()``, ``partition_1d``) whose fresh BFS and SSSP
+    pass the certificates;
+20. the query engine: 40 queries (32 distinct) in one wave, each row equal
+    to the single-source BFS; ``sssp`` equal to phase 11; ``cc`` equal to
+    the host components; a second engine on the same key builds nothing;
+    the engine on the mutated copy, refreshed, answers for it;
+21. ``bitmap_or_reduce`` at the repair's OR-sync shapes, exact and timed;
+22. one root of each cell of phases 6-7 under ``torch.profiler`` (device
     time by kernel and by call site, the device's busy share), after every
     timed run, with its per-level directions and launch counts against the
     same root run unprofiled; the Kronecker paths of phase 9 (and the
-    butterfly at the adaptive one's root), the waves, BC, k-core and the
-    triangle count in the same way; then the torus roots timed again, to
-    show what a profiler session costs the runs after it;
-18. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
+    butterfly at the adaptive one's root), the waves, BC, k-core, the
+    triangle count and the repairs in the same way;
+    then the torus roots timed again, to show what a profiler session
+    costs the runs after it;
+23. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
 
-Each path of phases 11-16 records its time, iterations, edges relaxed or
+Each path of phases 11-20 records its time, iterations, edges relaxed or
 examined and their rate, bytes a rank and peak memory.  Every path is
 driven with the launch counts set to 0 just before it and read just after;
-BC, k-core and the triangle count must launch ``bitmap_or_reduce``.  Any
-failure raises and exits non-zero; without a CUDA device it exits 1 before
-printing any result.  ``--out PATH`` also writes the results as JSON.
+BC, k-core, the triangle count, a repair with a taint phase under the
+butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
+Any failure raises and exits non-zero; without a CUDA device it exits 1
+before printing any result.  ``--out PATH`` also writes the results as
+JSON.
 """
 
 from __future__ import annotations
@@ -135,6 +158,19 @@ WEIGHT = 64
 SSSP_ROOTS = {"butterfly": 4, "adaptive": 2, "sparse": 2}
 SSSP_DELTA = 32
 BC_LANES = 4
+# the mutation phases: undirected inserts and deletes sampled for each
+# in-place batch (the inserts cut to the ranks' slack), cached roots per
+# row kind, the syncs of the BFS repairs, the share of the edges inserted
+# by the batch that overflows the slack, and the lane wave's Kronecker
+# scale (its replicated [n_rows, 32] columns, about five 16-rank copies,
+# fit 80 GB up to scale 21; PERF.md section 4) and rows (two waves)
+MUTATION_INSERTS = 64
+MUTATION_DELETES = 32
+REPAIR_ROOTS = 2
+REPAIR_SYNCS = ("butterfly", "sparse", "adaptive")
+OVERFLOW_FRACTION = 1e-3
+WAVE_SCALE = 21
+WAVE_SUSPECTS = 40
 # what the profiler calls the device work of each wrapper
 DEVICE_NAMES = {"frontier_gather_full": ("::gather_full",),
                 "frontier_gather": ("::gather_window_kernel",),
@@ -605,10 +641,8 @@ def etl(label, make_graph, ranks, dev, mode):
     dev_bytes = nbytes(*arrays.values())
     # what validate() reads: the edges, the components, and the slot of each
     # vertex in the flat [P, vmax] distances
-    owner = np.searchsorted(pg.v_start, np.arange(g.n), side="right") - 1
-    slot = owner * pg.vmax + np.arange(g.n) - pg.v_start[owner]
     check = tuple(torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
-                  for a in (g.src, g.dst, labels, slot))
+                  for a in (g.src, g.dst, labels)) + (vertex_slots(pg, dev),)
     # what the SSSP certificate reads besides: each edge's weight
     weights = (torch.as_tensor(g.weights.astype(np.int64), device=dev)
                if g.weighted else None)
@@ -1330,13 +1364,14 @@ def timed_run(fn, *args, **kwargs):
     return out, ms, dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
-def run_sssp(parts, fanout, seed, dev, syncs, delta):
+def run_sssp(parts, fanout, seed, dev, syncs, delta, keep=None):
     """Phase 11: SSSP on the weighted Kronecker graph under each sync of
     ``syncs`` (sync -> roots) and the butterfly with ``delta`` buckets at
     the first root; every root passes the certificate on the card, the
     first root equals the butterfly's distances bit for bit under every
     sync, and, traced, sends at every iteration the bytes the trace's model
-    gives each rank."""
+    gives each rank.  A dict ``keep`` receives the butterfly's per-rank
+    distances by root (for the engine's check)."""
     import numpy as np
     import torch
 
@@ -1364,6 +1399,8 @@ def run_sssp(parts, fanout, seed, dev, syncs, delta):
             sssp_certificate(src, dst, w, sssp_dist(d_owned, slot), r)
         if base is None:
             base = runs[0][3]
+            if keep is not None:
+                keep.update({r: x[3] for r, x in zip(roots, runs)})
         elif not torch.equal(runs[0][3], base):
             raise AssertionError(f"{label}: root {roots[0]} differs from the butterfly")
         # the first root traced: the bytes of every iteration against the model
@@ -1582,6 +1619,416 @@ def run_triangles(parts, fanout, dev):
     return summary, lambda: fn(parts["arrays"])
 
 
+# ---------------------------------------------------------------------------
+# Streaming mutations and the batched query engine (phases 17-21)
+# ---------------------------------------------------------------------------
+
+
+def rank_owners(pg, vids):
+    """The rank that owns each vertex of ``vids``."""
+    import numpy as np
+
+    return np.searchsorted(pg.v_start, np.asarray(vids), side="right") - 1
+
+
+def fitting_batch(overlay, pg, rng, n_insert, n_delete, max_weight):
+    """A seeded batch against the overlay's current edges
+    (``DeltaOverlay.sample_batch``) cut to the ranks' slack: the sampled
+    undirected inserts are kept in order while both directions' slots fit
+    every rank's ``emax - count`` (out and in), so the in-place patch
+    accepts the batch.  Returns ``(batch, inserts kept)``."""
+    import numpy as np
+
+    from repro_torch.dynamic import delta
+
+    b = overlay.sample_batch(rng, n_insert, n_delete, max_weight=max_weight)
+    free_out = (pg.emax - pg.edge_count).astype(np.int64)
+    free_in = (pg.emax - pg.in_count).astype(np.int64)
+    keep = []
+    for i, (u, v) in enumerate(zip(b.insert_src.tolist(), b.insert_dst.tolist())):
+        if u == v:
+            continue
+        need = np.bincount(rank_owners(pg, [u, v]), minlength=pg.p)
+        if np.all(free_out >= need) and np.all(free_in >= need):
+            free_out -= need
+            free_in -= need
+            keep.append(i)
+    w = None if b.insert_weights is None else b.insert_weights[keep]
+    return delta.EdgeBatch(insert_src=b.insert_src[keep], insert_dst=b.insert_dst[keep],
+                           insert_weights=w, delete_src=b.delete_src,
+                           delete_dst=b.delete_dst), len(keep)
+
+
+def vertex_slots(pg, dev):
+    """int64[n] on ``dev``: each vertex's slot in the flat ``[P, vmax]``
+    owned rows."""
+    import numpy as np
+    import torch
+
+    owner = rank_owners(pg, np.arange(pg.n))
+    slot = owner * pg.vmax + np.arange(pg.n) - pg.v_start[owner]
+    return torch.as_tensor(slot.astype(np.int64), device=dev)
+
+
+def edge_tensors(src, dst, w, dev):
+    """The certificate's edge arrays (int64) on ``dev``."""
+    import numpy as np
+    import torch
+
+    return tuple(torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+                 for a in (src, dst, w))
+
+
+def certify_levels(edges, dist_row, root, dev):
+    """BFS levels (int64[n], INT32_MAX unreached) held to the SSSP
+    certificate with unit weights on ``edges`` (a symmetric graph): the
+    Graph500 rules of a BFS tree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.traversal import sssp
+
+    src, dst, _ = edges
+    d = torch.as_tensor(np.where(dist_row >= np.iinfo(np.int32).max, sssp.UNREACHED,
+                                 dist_row), device=dev)
+    sssp_certificate(src, dst, torch.ones_like(src), d, root)
+
+
+def scratch_fns(pg, fanout, dev):
+    """From-scratch port traversals of ``pg`` as it stands: the plain BFS
+    (direction-optimizing, butterfly; no kernel layout, which is built from
+    the edge arrays and would go stale under a patch) and the butterfly
+    SSSP.  Each maps ``(arrays, root)`` to the global int64 row."""
+    from repro_torch.core import bfs
+    from repro_torch.traversal import sssp
+
+    bfn = bfs.build_bfs_fn(pg, bfs.BFSConfig(fanout=fanout, mode="direction_optimizing"),
+                           device=dev)
+    sfn = sssp.build_sssp_fn(pg, sssp.SSSPConfig(fanout=fanout), device=dev)
+    return {"bfs": lambda a, r: bfs.assemble_distances(pg, bfn(a, r)[0]),
+            "sssp": lambda a, r: sssp.assemble_distances(pg, sfn(a, r)[0])}
+
+
+def mutation_setup(parts, fanout, seed, dev, n_roots):
+    """Phase 18's state: a copy of the weighted Kronecker partition (the
+    phases before keep the original), the delta overlay on its graph, an
+    engine placed on the copy (its arrays are refreshed after every patch
+    and the repairs read them), and cached BFS and SSSP rows of
+    ``n_roots`` largest-component roots, computed from scratch."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.analytics.engine import BFSQueryEngine
+    from repro_torch.core import bfs
+    from repro_torch.dynamic import delta
+    from repro_torch.graph import csr
+
+    t0 = time.perf_counter()
+    pg = copy.deepcopy(parts["pg"])
+    overlay = delta.DeltaOverlay(parts["g"])
+    eng = BFSQueryEngine(pg, bfs.BFSConfig(fanout=fanout), lanes=LANES, device=dev)
+    roots = csr.largest_component_roots(parts["g"], n_roots, np.random.default_rng(seed + 5),
+                                        labels=parts["labels"]).tolist()
+    scratch = scratch_fns(pg, fanout, dev)
+    rows = {(kind, r): fn(eng._arrays, r) for kind, fn in scratch.items() for r in roots}
+    free_out, free_in = pg.emax - pg.edge_count, pg.emax - pg.in_count
+    log(f"  copy, overlay, engine and {len(rows)} cached rows in "
+        f"{time.perf_counter() - t0:.1f} s; slack per rank (emax - count), out: "
+        f"{free_out.tolist()}; in: {free_in.tolist()}")
+    return dict(pg=pg, overlay=overlay, engine=eng, roots=roots, rows=rows,
+                scratch=scratch, rng=np.random.default_rng(seed + 6), fanout=fanout,
+                slack_out=free_out.tolist(), slack_in=free_in.tolist())
+
+
+def repair_batch(label, mut, batch, dev):
+    """Apply ``batch`` to the overlay and, in place, to the partition copy
+    (the patch must accept it), refresh the engine's arrays, and repair
+    every cached row: BFS levels under each of ``REPAIR_SYNCS``, SSSP
+    distances under the butterfly.  Each repaired row must equal the
+    from-scratch port traversal of the mutated partition bit for bit, and
+    every SSSP row pass the Graph500 SSSP certificate on the overlay's
+    current edges; a repair with a taint phase under the butterfly must
+    launch ``bitmap_or_reduce``.  The cached rows become the repaired ones.
+    Returns the summary and a function that repeats the first root's BFS
+    repair under the butterfly (for the profile)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.dynamic import delta, repair
+    from repro_torch.traversal import sssp
+
+    pg, eng = mut["pg"], mut["engine"]
+    t0 = time.perf_counter()
+    update = mut["overlay"].apply(batch)
+    if not delta.apply_update_to_partition(pg, update):
+        raise AssertionError(f"{label}: the in-place patch refused a batch cut to the slack")
+    eng.refresh_arrays()
+    patch_s = time.perf_counter() - t0
+    edges = edge_tensors(*mut["overlay"].edge_arrays(), dev)
+    out = dict(inserts=int(update.ins_src.size), deletes=int(update.del_src.size),
+               patch_s=patch_s, rows={})
+    r0, row0 = mut["roots"][0], mut["rows"]["bfs", mut["roots"][0]]
+    cfg0 = sssp.SSSPConfig(fanout=mut["fanout"])
+    rerun = lambda: repair.repair_row(pg, row0, update, cfg0,  # noqa: E731
+                                      unit_weight=True, arrays=eng._arrays, device=dev)
+    for r in mut["roots"]:
+        for kind, syncs in (("bfs", REPAIR_SYNCS), ("sssp", ("butterfly",))):
+            want, scratch_ms, _, _ = timed_run(mut["scratch"][kind], eng._arrays, r)
+            for sync in syncs:
+                comm = collectives.Communicator(pg.p, dev)
+                cfg = sssp.SSSPConfig(fanout=mut["fanout"], sync=sync)
+                (row, touched, iters), ms, launches, peak = timed_run(
+                    repair.repair_row, pg, mut["rows"][kind, r], update, cfg,
+                    unit_weight=kind == "bfs", arrays=eng._arrays, device=dev, comm=comm)
+                if not np.array_equal(row, want):
+                    raise AssertionError(f"{label}: {kind} root {r} under {sync}: the "
+                                         f"repaired row differs from the from-scratch one")
+                tainted = repair.repair_seeds(mut["rows"][kind, r], update,
+                                              unit_weight=kind == "bfs")[1].size > 0
+                if sync == "butterfly" and tainted and not launches["bitmap_or_reduce"]:
+                    raise AssertionError(f"{label}: {kind} root {r}: the taint phase never "
+                                         f"launched bitmap_or_reduce")
+                out["rows"][f"{kind} {sync} {r}"] = dict(
+                    ms=ms, scratch_ms=scratch_ms, iters=iters, touched=touched,
+                    bytes_per_rank=int(comm.bytes_sent[0]), launches=launches,
+                    peak_bytes=peak, tainted=tainted)
+                log(f"  {label}: {kind} {sync} root {r}: repair {ms:.1f} ms, {iters} "
+                    f"iterations, {touched:,} touched, {int(comm.bytes_sent[0]):,} B per "
+                    f"rank, launches {launches}, peak {peak / 1e9:.2f} GB; from scratch "
+                    f"{scratch_ms:.1f} ms; equal")
+            if kind == "sssp":
+                sssp_certificate(*edges, torch.as_tensor(want, device=dev), r)
+            mut["rows"][kind, r] = want
+    del edges
+    out["first"] = out["rows"][f"bfs butterfly {r0}"]
+    log(f"  {label}: {out['inserts']} directed inserts, {out['deletes']} deletes patched "
+        f"in place in {patch_s:.1f} s; every row equal to from scratch, SSSP rows certified")
+    return out, rerun
+
+
+def unchanged_batch(mut, dev):
+    """One insert between two vertices at the same BFS level of the first
+    cached root, patched in place: the root's row is proven unchanged on
+    the host (touched 0, iterations 0, the row itself returned, no kernel
+    launched), and equals the from-scratch BFS."""
+    import numpy as np
+
+    from repro_torch.dynamic import delta, repair
+    from repro_torch.traversal import sssp
+
+    pg, eng, r = mut["pg"], mut["engine"], mut["roots"][0]
+    row = mut["rows"]["bfs", r]
+    level = np.flatnonzero(row == 2)
+    for a, b in zip(level[:-1:2].tolist(), level[1::2].tolist()):
+        if np.any(np.bincount(rank_owners(pg, [a, b]), minlength=pg.p)
+                  > np.minimum(pg.emax - pg.edge_count, pg.emax - pg.in_count)):
+            continue
+        update = mut["overlay"].apply(delta.EdgeBatch.insert([a], [b], [WEIGHT]))
+        if not update.empty:
+            break
+    else:
+        raise AssertionError("no same-level pair fits the slack")
+    if not delta.apply_update_to_partition(pg, update):
+        raise AssertionError("the same-level insert was refused")
+    eng.refresh_arrays()
+    (got, touched, iters), ms, launches, _ = timed_run(
+        repair.repair_row, pg, row, update, sssp.SSSPConfig(fanout=mut["fanout"]),
+        unit_weight=True, arrays=eng._arrays, device=dev)
+    if got is not row or touched or iters or any(launches.values()):
+        raise AssertionError(f"unchanged root {r}: touched {touched}, iterations {iters}, "
+                             f"launches {launches}")
+    if not np.array_equal(mut["scratch"]["bfs"](eng._arrays, r), row):
+        raise AssertionError(f"unchanged root {r}: the row differs from the from-scratch one")
+    log(f"  unchanged: insert ({a}, {b}) at level 2 of root {r}: proven unchanged in "
+        f"{ms:.3f} ms, touched 0, 0 iterations, launches {launches}; == from scratch")
+    return dict(edge=(a, b), ms=ms, launches=launches)
+
+
+def overflow_batch(mut, fanout, dev, ranks, fraction=OVERFLOW_FRACTION):
+    """A batch of random inserts, ``fraction`` of the edges or the ranks'
+    total slack if that is more: the in-place patch must refuse it with
+    every partition array byte-equal to before;
+    then the compaction path (``overlay.compact()``, ``partition_1d``)
+    gives a partition whose fresh BFS and SSSP pass the certificates on
+    the compacted graph's edges."""
+    import numpy as np
+
+    from repro_torch.core import bfs
+    from repro_torch.dynamic import delta
+    from repro_torch.graph import partition
+    from repro_torch.traversal import sssp
+
+    pg, overlay = mut["pg"], mut["overlay"]
+    n_ins = max(int(fraction * overlay.n_edges) // 2, int((pg.emax - pg.edge_count).sum()))
+    update = overlay.apply(overlay.sample_batch(mut["rng"], n_ins, 0, max_weight=WEIGHT))
+    before = {k: v.copy() for k, v in pg.arrays().items()}
+    t0 = time.perf_counter()
+    if delta.apply_update_to_partition(pg, update):
+        raise AssertionError(f"overflow: a {n_ins}-insert batch was patched in place")
+    refuse_ms = (time.perf_counter() - t0) * 1e3
+    changed = [k for k, v in pg.arrays().items() if not np.array_equal(v, before[k])]
+    if changed:
+        raise AssertionError(f"overflow: the refused patch changed {changed}")
+    del before
+    t = [time.perf_counter()]
+    gc = overlay.compact()
+    t.append(time.perf_counter())
+    pc = partition.partition_1d(gc, ranks)
+    t.append(time.perf_counter())
+    arrays = bfs.place_arrays(pc, device=dev)
+    root = mut["roots"][0]
+    edges = edge_tensors(gc.src, gc.dst, gc.weights, dev)
+    fn = bfs.build_bfs_fn(pc, bfs.BFSConfig(fanout=fanout, mode="direction_optimizing"),
+                          device=dev)
+    certify_levels(edges, bfs.assemble_distances(pc, fn(arrays, root)[0]), root, dev)
+    d_owned = sssp.build_sssp_fn(pc, sssp.SSSPConfig(fanout=fanout), device=dev)(
+        arrays, root)[0]
+    sssp_certificate(*edges, sssp_dist(d_owned, vertex_slots(pc, dev)), root)
+    del arrays, edges, d_owned
+    out = dict(inserts=int(update.ins_src.size), refuse_ms=refuse_ms,
+               compact_s=t[1] - t[0], partition_s=t[2] - t[1], m=gc.n_edges,
+               emax=(pg.emax, pc.emax))
+    log(f"  overflow: {out['inserts']:,} directed inserts refused atomically in "
+        f"{refuse_ms:.1f} ms (every array byte-equal); compaction {out['compact_s']:.1f} s, "
+        f"partition {out['partition_s']:.1f} s (emax {pg.emax:,} -> {pc.emax:,}, "
+        f"m {gc.n_edges:,}); fresh BFS and SSSP from root {root} certified")
+    return out
+
+
+def run_wave_repair(scale, edge_factor, ranks, fanout, seed, dev, n_rows_kept=WAVE_SUSPECTS):
+    """Phase 17: ``repair_rows`` over ``n_rows_kept`` cached BFS rows of a
+    Kronecker graph of ``scale`` after a mixed batch (two 32-lane waves:
+    32 suspects and the rest), each row against the from-scratch plain
+    BFS of the mutated partition.  Returns the summary, a function that
+    runs the repair again (for the profile) and the flat OR-sync width.
+    Its 32-lane distance columns, replicated on the 16 ranks, are why it
+    runs at scale 21 (PERF.md section 4); it runs before the mutation
+    phases, with the least held on the card."""
+    import numpy as np
+
+    from repro_torch.analytics import msbfs
+    from repro_torch.analytics.engine import BFSQueryEngine
+    from repro_torch.core import bfs, collectives
+    from repro_torch.dynamic import delta, repair
+    from repro_torch.graph import csr, generators, partition
+    from repro_torch.traversal import sssp
+
+    t0 = time.perf_counter()
+    g = generators.kronecker(scale, edge_factor, seed=seed, max_weight=WEIGHT)
+    pg = partition.partition_1d(g, ranks)
+    roots = csr.largest_component_roots(g, n_rows_kept, np.random.default_rng(seed + 7))
+    eng = BFSQueryEngine(pg, bfs.BFSConfig(fanout=fanout), lanes=LANES, device=dev)
+    rows = list(eng.query(roots))
+    overlay = delta.DeltaOverlay(g)
+    batch, kept = fitting_batch(overlay, pg, np.random.default_rng(seed + 8),
+                                MUTATION_INSERTS, MUTATION_DELETES, WEIGHT)
+    update = overlay.apply(batch)
+    if not delta.apply_update_to_partition(pg, update):
+        raise AssertionError("wave: the in-place patch refused a batch cut to the slack")
+    eng.refresh_arrays()
+    setup_s = time.perf_counter() - t0
+    suspects = sum(1 for row in rows
+                   if any(x.size for x in repair.repair_seeds(row, update, unit_weight=True)))
+    if suspects <= LANES:
+        raise AssertionError(f"wave: {suspects} suspects fill one wave, not two")
+    cfg = sssp.SSSPConfig(fanout=fanout)
+    comm = collectives.Communicator(pg.p, dev)
+    got, ms, launches, peak = timed_run(repair.repair_rows, pg, rows, update, cfg,
+                                        unit_weight=True, arrays=eng._arrays, device=dev,
+                                        comm=comm)
+    if not launches["bitmap_or_reduce"]:
+        raise AssertionError("wave: the repair waves never launched bitmap_or_reduce")
+    single = bfs.build_bfs_fn(pg, bfs.BFSConfig(fanout=fanout, mode="direction_optimizing"),
+                              device=dev)
+    t1 = time.perf_counter()
+    for r, row, (new, touched, iters) in zip(roots.tolist(), rows, got):
+        if not np.array_equal(new, bfs.assemble_distances(pg, single(eng._arrays, r)[0])):
+            raise AssertionError(f"wave: root {r}'s repaired row differs from scratch")
+    scratch_ms = (time.perf_counter() - t1) * 1e3 / len(rows)
+    n_rows = sssp.dist_rows(pg)
+    summary = dict(scale=scale, n=g.n, m=g.n_edges, n_rows=n_rows, rows=len(rows),
+                   suspects=suspects, inserts=int(update.ins_src.size),
+                   deletes=int(update.del_src.size), kept_inserts=kept, ms=ms,
+                   iters=[x[2] for x in got], touched=[x[1] for x in got],
+                   bytes_per_rank=int(comm.bytes_sent[0]), launches=launches,
+                   peak_bytes=peak, setup_s=setup_s, scratch_ms_per_row=scratch_ms)
+    log(f"  wave: scale {scale} (n {g.n:,}, m {g.n_edges:,}, dist_rows {n_rows:,}), "
+        f"{summary['inserts']} inserts / {summary['deletes']} deletes, {len(rows)} rows "
+        f"({suspects} suspects, two waves) repaired in {ms:.1f} ms, iterations "
+        f"{sorted(set(summary['iters']))}, touched {min(summary['touched']):,}.."
+        f"{max(summary['touched']):,}; {summary['bytes_per_rank']:,} B per rank; launches "
+        f"{launches}; peak {peak / 1e9:.2f} GB; every row == plain BFS from scratch "
+        f"({scratch_ms:.1f} ms a row); set-up {setup_s:.1f} s")
+    rerun = lambda: repair.repair_rows(pg, rows, update, cfg, unit_weight=True,  # noqa: E731
+                                       arrays=eng._arrays, device=dev)
+    return summary, rerun, n_rows * msbfs.lane_words(LANES)
+
+
+def run_engine(parts, fanout, seed, dev, single, sssp_rows, mut):
+    """Phase 20: the query engine on the Kronecker graph: ``query`` of
+    ``LANES`` distinct roots (phase 10's) and 8 duplicates in one wave,
+    each row equal to the single-source kernel BFS and ``deduped_roots`` 8;
+    ``sssp`` of two roots equal to phase 11's distances; ``cc`` equal to
+    the host components; a second engine on the same key builds nothing;
+    the mutation engine, refreshed after the in-place patches, answers for
+    the mutated graph (phase 18's from-scratch rows)."""
+    import numpy as np
+
+    from repro_torch.analytics import engine as engine_mod
+    from repro_torch.core import bfs
+    from repro_torch.graph import csr
+    from repro_torch.traversal import sssp
+
+    g, pg, arrays = parts["g"], parts["pg"], parts["arrays"]
+    cfg = bfs.BFSConfig(fanout=fanout, mode="direction_optimizing")
+    eng = engine_mod.BFSQueryEngine(pg, cfg, lanes=LANES, device=dev)
+    roots = csr.largest_component_roots(g, LANES, np.random.default_rng(seed + 1),
+                                        labels=parts["labels"]).tolist()
+    asked = roots + roots[:8]
+    eng.query(roots[:1])  # warm-up
+    waves0 = eng.stats.waves
+    dist, ms, launches, peak = timed_run(eng.query, asked)
+    if eng.stats.waves - waves0 != 1 or eng.stats.deduped_roots != 8:
+        raise AssertionError(f"engine: {eng.stats}")
+    for b, r in enumerate(asked):
+        if not np.array_equal(dist[b], bfs.assemble_distances(pg, single(arrays, r)[0])):
+            raise AssertionError(f"engine: row {b} (root {r}) differs from the single BFS")
+    del dist
+    two = list(sssp_rows)[:2]
+    got, sssp_ms, _, _ = timed_run(eng.sssp, two)
+    for r, row in zip(two, got):
+        if not np.array_equal(row, sssp.assemble_distances(pg, sssp_rows[r])):
+            raise AssertionError(f"engine: sssp root {r} differs from phase 11")
+    labels, cc_ms, _, _ = timed_run(eng.vertex_program, "cc")
+    if not np.array_equal(labels, min_id_labels(parts["labels"])):
+        raise AssertionError("engine: cc labels differ from the host components")
+    builds = engine_mod._BUILDS.value(algo="bfs")
+    hits = engine_mod._CACHE_EVENTS.value(event="hit")
+    again = engine_mod.BFSQueryEngine(pg, cfg, lanes=LANES, device=dev)
+    if again._fn is not eng._fn or engine_mod._BUILDS.value(algo="bfs") != builds \
+            or engine_mod._CACHE_EVENTS.value(event="hit") != hits + 1:
+        raise AssertionError("engine: a second engine on the same key built a program")
+    del again
+    mroots = mut["roots"]
+    mdist, refresh_ms, _, _ = timed_run(mut["engine"].query, mroots)
+    for r, row in zip(mroots, mdist):
+        if not np.array_equal(row, mut["rows"]["bfs", r]):
+            raise AssertionError(f"engine: refreshed root {r} differs from the mutated graph")
+    summary = dict(ms=ms, roots=len(roots), asked=len(asked), waves=1, deduped=8,
+                   launches=launches, peak_bytes=peak, sssp_ms=sssp_ms, cc_ms=cc_ms,
+                   refreshed_query_ms=refresh_ms, scanned=eng.stats.scanned_edges,
+                   levels=eng.stats.max_levels)
+    log(f"  engine: {len(asked)} queries ({len(roots)} distinct) in one wave, {ms:.1f} ms, "
+        f"== single-source BFS, 8 folded; launches {launches}; peak {peak / 1e9:.2f} GB; "
+        f"sssp {len(two)} roots {sssp_ms:.1f} ms == phase 11; cc {cc_ms:.1f} ms == host; "
+        f"a second engine built nothing (cache hit); the refreshed mutation engine's "
+        f"{len(mroots)} rows == from scratch on the mutated graph ({refresh_ms:.1f} ms)")
+    return summary
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=23)
@@ -1599,6 +2046,8 @@ def main(argv=None) -> int:
                     help="Kronecker scale held against host Brandes")
     ap.add_argument("--kcore-scale", type=int, default=14,
                     help="Kronecker scale held against host k-core peeling")
+    ap.add_argument("--wave-scale", type=int, default=WAVE_SCALE,
+                    help="Kronecker scale of the lane-packed repair")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
@@ -1618,15 +2067,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     def phase(msg):
-        log(f"{msg} (at {time.perf_counter() - t_start:.0f} s)")
+        log(f"{msg} (at {time.perf_counter() - t_start:.0f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
-    phase("[1/18] card")
+    phase("[1/23] card")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    phase("[2/18] build")
+    phase("[2/23] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
@@ -1636,7 +2086,7 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    phase("[3/18] ETL")
+    phase("[3/23] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
@@ -1669,7 +2119,7 @@ def main(argv=None) -> int:
                                                         programs.by_name("tri"))),
     }
 
-    phase("[4/18] kernel checks at every call site (exact, at the paths' shapes)")
+    phase("[4/23] kernel checks at every call site (exact, at the paths' shapes)")
     floor_ms = event_floor_ms()
     log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
     gen = torch.Generator(device=dev)
@@ -1688,20 +2138,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
-    phase("[5/18] edge cases of the scatter and both gathers (exact, every route)")
+    phase("[5/23] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
-    phase(f"[6/18] Kronecker BFS: direction_optimizing, butterfly fanout "
+    phase(f"[6/23] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    phase(f"[7/18] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    phase(f"[7/23] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    phase("[8/18] kernel launches on the main path (phases 6 and 7)")
+    phase("[8/23] kernel launches on the main path (phases 6 and 7)")
     records = []
     for name, (cell, plane, act) in MAIN_SITE.items():
         rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
@@ -1718,7 +2168,7 @@ def main(argv=None) -> int:
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    phase(f"[9/18] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
+    phase(f"[9/23] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
         f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
     paths, profiles = {}, {}
     cells = [("kronecker", kron, kcfg, "adaptive", 4 * SYNC_ROOTS)]
@@ -1744,7 +2194,7 @@ def main(argv=None) -> int:
             f"read) {paths[label]['decision_ms']:.4f} ms host, against "
             f"{per_level:.4f} ms a level of the trimmed BFS")
 
-    phase(f"[10/18] multi-source BFS: one {LANES}-lane Kronecker wave, "
+    phase(f"[10/23] multi-source BFS: one {LANES}-lane Kronecker wave, "
           f"direction_optimizing")
     single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
     for sync in ("butterfly", "adaptive"):
@@ -1754,40 +2204,84 @@ def main(argv=None) -> int:
                                                  dev, single)
         torch.cuda.empty_cache()
 
-    slice5 = {}
-    phase(f"[11/18] SSSP: weighted Kronecker, "
+    slice5, sssp_rows = {}, {}
+    phase(f"[11/23] SSSP: weighted Kronecker, "
           f"{', '.join(f'{k} {v} roots' for k, v in SSSP_ROOTS.items())}, butterfly "
           f"delta {SSSP_DELTA} 1 root")
-    slice5.update(run_sssp(kron, args.fanout, args.seed, dev, SSSP_ROOTS, SSSP_DELTA))
+    slice5.update(run_sssp(kron, args.fanout, args.seed, dev, SSSP_ROOTS, SSSP_DELTA,
+                           keep=sssp_rows))
     torch.cuda.empty_cache()
 
-    phase(f"[12/18] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
+    phase(f"[12/23] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
           f"butterfly; scale {args.bc_scale} against host Brandes")
     paths["bc"], profiles["bc"] = run_bc(kron, args.fanout, args.seed, dev, single,
                                          BC_LANES, small["bc"])
     torch.cuda.empty_cache()
 
-    phase("[13/18] PageRank: butterfly and sparse (delta)")
+    phase("[13/23] PageRank: butterfly and sparse (delta)")
     slice5.update(run_pagerank(kron, args.fanout, dev))
     torch.cuda.empty_cache()
 
-    phase("[14/18] connected components: butterfly and adaptive")
+    phase("[14/23] connected components: butterfly and adaptive")
     slice5.update(run_cc(kron, args.fanout, dev))
     torch.cuda.empty_cache()
 
-    phase(f"[15/18] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
+    phase(f"[15/23] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
     paths["kcore"], profiles["kcore"] = run_kcore(kron, args.fanout, dev, small["kcore"])
     torch.cuda.empty_cache()
 
-    phase(f"[16/18] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
+    phase(f"[16/23] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
     paths["tri"], profiles["tri"] = run_triangles(small["tri"], args.fanout, dev)
     torch.cuda.empty_cache()
 
-    phase("[17/18] profiles (one root each), then the torus roots timed again")
+    phase(f"[17/23] lane-packed repair: Kronecker scale {args.wave_scale}, "
+          f"{WAVE_SUSPECTS} rows in two {LANES}-lane waves")
+    paths["repair wave"], profiles["repair wave"], wave_width = run_wave_repair(
+        args.wave_scale, args.edge_factor, args.ranks, args.fanout, args.seed, dev)
+    torch.cuda.empty_cache()
+
+    phase(f"[18/23] mutation batches on a copy of the Kronecker partition, in place, "
+          f"and single-row repair ({REPAIR_ROOTS} roots: BFS under "
+          f"{', '.join(REPAIR_SYNCS)}, SSSP under butterfly)")
+    from repro_torch.traversal import sssp
+
+    mut = mutation_setup(kron, args.fanout, args.seed, dev, REPAIR_ROOTS)
+    slice6 = dict(slack_out=mut["slack_out"], slack_in=mut["slack_in"])
+    for label, n_del in (("insert-only", 0), ("mixed", MUTATION_DELETES)):
+        batch, kept = fitting_batch(mut["overlay"], mut["pg"], mut["rng"], MUTATION_INSERTS,
+                                    n_del, WEIGHT)
+        slice6[label], rerun = repair_batch(label, mut, batch, dev)
+        slice6[label]["kept_inserts"] = kept
+    paths["repair butterfly"], profiles["repair butterfly"] = slice6["mixed"]["first"], rerun
+    slice6["unchanged"] = unchanged_batch(mut, dev)
+    torch.cuda.empty_cache()
+
+    phase(f"[19/23] a batch of {OVERFLOW_FRACTION:g} of the edges: refused in place "
+          f"atomically, then compaction and repartition")
+    slice6["overflow"] = overflow_batch(mut, args.fanout, dev, args.ranks)
+    torch.cuda.empty_cache()
+
+    phase("[20/23] query engine: BFS waves with duplicates, SSSP, CC, the program "
+          "cache, refresh after the patches")
+    paths["engine"] = run_engine(kron, args.fanout, args.seed, dev, single, sssp_rows, mut)
+    repair_width = sssp.dist_rows(mut["pg"]) // 32
+    del mut
+    torch.cuda.empty_cache()
+
+    phase("[21/23] bitmap_or_reduce at the repair's OR-sync shapes (exact, timed)")
+    for case in slice_merge_cases(gen, dev, args.ranks, args.fanout, {
+            "repair_or": ("repair butterfly", repair_width),
+            "repair_wave_or": ("repair wave", wave_width)}):
+        merge_rows.append(check_kernel(case))
+        del case["args"]
+        torch.cuda.empty_cache()
+
+    phase("[22/23] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
     same_root = {}
     for label, run in profiles.items():
+        torch.cuda.empty_cache()
         prof = merge_profile(label, run)
         (paths[label] if label in paths else same_root.setdefault(label, {}))["profile"] = prof
     _, torus_sum["after_profiler_ms"], _ = torus_again()
@@ -1797,7 +2291,7 @@ def main(argv=None) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
 
-    phase("[18/18] result")
+    phase("[23/23] result")
     site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
     for label, path in paths.items():
         launches = path["traced_launches"] if "traced_launches" in path else path["launches"]
@@ -1818,7 +2312,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
-                           slice5=slice5,
+                           slice5=slice5, slice6=slice6,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

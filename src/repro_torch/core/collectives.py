@@ -126,13 +126,15 @@ def butterfly_merge(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
     Round by round (``butterfly.build_schedule(P, fanout).rounds``), each
     rank's accumulator and the ``digit - 1`` buffers it receives are
     stacked into ``[P, digit, ...]`` and merged (``op`` associative and
-    commutative)."""
+    commutative).  A round's stack is freed before the next is allocated:
+    at a lane wave's widths one stack is tens of GB."""
     for rnd in comm.schedule(fanout).rounds:
         stack = x.new_empty((x.shape[0], rnd.digit) + tuple(x.shape[1:]))
         stack[:, 0] = x
         for j, perm in enumerate(rnd.perms, start=1):
             comm.ppermute(x, perm, out=stack[:, j])
         x = _merge_stack(stack, op, use_kernels)
+        del stack
     return x
 
 

@@ -174,8 +174,13 @@ def record(tbuf: torch.Tensor, index: int, row: torch.Tensor) -> torch.Tensor:
     return tbuf
 
 
-def zeros(trace_levels: int, device="cpu") -> torch.Tensor:
-    return torch.zeros((trace_levels, TRACE_COLS), dtype=torch.int32, device=device)
+def zeros(trace_levels: int, device="cuda") -> torch.Tensor:
+    """An empty trace buffer on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    from repro_torch.core.bfs import resolve_device
+
+    return torch.zeros((trace_levels, TRACE_COLS), dtype=torch.int32,
+                       device=resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,18 @@ one warm-up run, then one run per root, the fastest and slowest quartiles
 trimmed, GTEP/s = edges examined / BFS wall time.  Each run's clock stops
 after ``torch.cuda.synchronize()``.
 
-``--algo`` also runs the weighted traversals and the vertex programs:
-``sssp`` (weighted shortest paths, ``--delta`` buckets; weights default to
-``--max-weight 64``), ``bc`` (Brandes betweenness in waves of
-``--num-sources`` lanes) and ``pagerank``, ``cc``, ``tri``, ``kcore``
-(called through ``programs.run_program`` until the query engine is
-ported; each timed over a few repetitions, being root-free).
+``--num-sources B`` (B > 1) packs the roots into B-lane multi-source
+waves through the batched query engine (``analytics.engine``).  ``--algo``
+also runs the weighted traversals and the vertex programs: ``sssp``
+(weighted shortest paths, ``--delta`` buckets; weights default to
+``--max-weight 64``), and through the engine ``bc`` (Brandes betweenness
+in waves of ``--num-sources`` lanes) and ``pagerank``, ``cc``, ``tri``,
+``kcore`` (each timed over a few repetitions, being root-free).
+
+``--updates FILE`` replays a recorded JSONL edge-update stream (the
+reference's ``serve_graph --record-updates`` format) through the delta
+overlay and the in-place partition patch before measuring, compacting and
+repartitioning where a patch is refused or the overlay asks for it.
 
 ``--sync`` picks any of the six frontier syncs (``--sparse-capacity`` and
 ``--density-threshold`` tune the sparse and adaptive ones).  ``--trace
@@ -26,6 +32,7 @@ level timed, and writes the Perfetto/Chrome ``trace_event`` document;
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -38,8 +45,10 @@ STATS_SCHEMA = "bfs_run_stats/v1"
 def write_stats_json(path, *, algo, graph, devices, config, timing_ms,
                      engine_stats, **extra) -> None:
     """Persist one run's machine-readable stats in the reference's
-    ``bfs_run_stats/v1`` schema (``engine_stats`` is null until the query
-    engine is ported)."""
+    ``bfs_run_stats/v1`` schema (``engine_stats`` an ``EngineStats`` or a
+    dict)."""
+    if dataclasses.is_dataclass(engine_stats):
+        engine_stats = dataclasses.asdict(engine_stats)
     doc = {"schema": STATS_SCHEMA, "algo": algo, "graph": graph,
            "devices": devices, "config": config, "timing_ms": timing_ms,
            "engine_stats": engine_stats}
@@ -100,9 +109,7 @@ def main(argv=None) -> int:
     ap.add_argument("--algo", default="bfs",
                     choices=["bfs", "sssp", "bc", "pagerank", "cc", "tri", "kcore"],
                     help="traversal (bfs, sssp, bc) or vertex program (pagerank, "
-                         "connected components, triangle counting, k-core); the "
-                         "programs run through programs.run_program until the "
-                         "query engine is ported")
+                         "connected components, triangle counting, k-core)")
     ap.add_argument("--max-weight", type=int, default=0,
                     help="uint32 edge weights in [1, max-weight]; 0 = unweighted "
                          "(sssp defaults to 64)")
@@ -110,13 +117,17 @@ def main(argv=None) -> int:
                     help="sssp bucket width (delta-stepping-style); 0 = "
                          "level-synchronous relaxation")
     ap.add_argument("--num-sources", type=int, default=1,
-                    help="bc: sources (lanes) per Brandes wave")
+                    help="lanes per wave: bfs packs the roots into multi-source "
+                         "waves when > 1; bc: sources per Brandes wave")
     ap.add_argument("--roots", type=int, default=16,
                     help="number of distinct roots (bc: sources) to time")
     ap.add_argument("--kernels", action="store_true",
                     help="phase 1 and the butterfly merge via the CUDA kernels")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--updates", default=None, metavar="FILE",
+                    help="replay a recorded JSONL edge-update stream through the "
+                         "delta overlay and the partition patch before measuring")
     ap.add_argument("--trace", default=None, metavar="FILE",
                     help="write the per-level flight-recorder trace of the "
                          "first root, each level timed, as Perfetto/Chrome "
@@ -126,6 +137,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch import programs
+    from repro_torch.analytics.engine import EngineStats
     from repro_torch.core import bfs, flightrec
     from repro_torch.graph import csr, generators, partition
     from repro_torch.kernels import blocks
@@ -139,9 +151,9 @@ def main(argv=None) -> int:
                  f"got {args.sync!r}")
     if args.algo == "bc" and args.mode != "top_down":
         ap.error("--algo bc uses the push traversal; use --mode top_down")
-    if args.algo != "bfs" and args.kernels:
+    if args.kernels and (args.algo != "bfs" or args.num_sources > 1):
         ap.error("--kernels drives the single-source BFS; drop it for "
-                 f"--algo {args.algo}")
+                 f"--algo {args.algo} --num-sources {args.num_sources}")
 
     dev = bfs.resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -160,11 +172,15 @@ def main(argv=None) -> int:
     print(f"graph: {args.graph} n={g.n:,} m={g.n_edges:,} (directed, symmetrized"
           f"{', weighted' if g.weighted else ''})")
     pg = partition.partition_1d(g, args.ranks)
+    if args.updates:
+        g, pg = replay_updates(args.updates, g, pg, args.ranks)
     graph_doc = {"name": args.graph, "scale": args.scale,
                  "edge_factor": args.edge_factor, "n": g.n, "n_real": g.n_real,
                  "n_edges": g.n_edges, "weighted": bool(g.weighted)}
     if args.algo != "bfs":
         return run_algo(args, g, pg, dev, name, graph_doc, max_weight)
+    if args.num_sources > 1:
+        return run_waves(args, g, pg, dev, name, graph_doc)
     cfg = bfs.BFSConfig(fanout=args.fanout, sync=args.sync, mode=args.mode,
                         use_kernels=args.kernels, sparse_capacity=args.sparse_capacity,
                         density_threshold=args.density_threshold)
@@ -191,7 +207,88 @@ def main(argv=None) -> int:
                     "sparse_capacity": cfg.resolved_capacity(pg.n_words),
                     "density_threshold": args.density_threshold},
             timing_ms={"mean": ms, "total": float(sum(x[0] for x in runs) * 1e3)},
-            engine_stats=None, device=name,
+            engine_stats=EngineStats(
+                queries=len(roots), waves=len(roots),
+                scanned_edges=float(sum(x[2] for x in runs)),
+                max_levels=max(x[1] for x in runs)),
+            device=name,
+            **({"trace": trace_doc} if trace_doc else {}))
+    return 0
+
+
+def replay_updates(path, g, pg, ranks):
+    """Replay the update stream at ``path`` through the delta overlay and
+    the in-place partition patch; where a patch is refused (a rank's slack
+    is full) or the overlay asks for compaction, compact and repartition.
+    A weighted graph replaying an unweighted stream takes unit weights.
+    Returns the current graph and partition."""
+    from repro_torch.dynamic import delta
+    from repro_torch.graph import partition
+
+    overlay = delta.DeltaOverlay(g)
+    n_ins = n_del = n_comp = 0
+    for batch in delta.read_update_stream(path):
+        if g.weighted and batch.insert_weights is None:
+            batch = delta.EdgeBatch(
+                insert_src=batch.insert_src, insert_dst=batch.insert_dst,
+                insert_weights=np.ones(batch.insert_src.size, np.uint32),
+                delete_src=batch.delete_src, delete_dst=batch.delete_dst)
+        update = overlay.apply(batch)
+        n_ins += update.ins_src.size
+        n_del += update.del_src.size
+        if (not delta.apply_update_to_partition(pg, update)
+                or overlay.needs_compaction()):
+            pg = partition.partition_1d(overlay.compact(), ranks)
+            n_comp += 1
+    g = overlay.current_graph()
+    print(f"replayed updates: {n_ins} directed inserts, {n_del} deletes, "
+          f"{n_comp} compactions -> m={g.n_edges:,}")
+    return g, pg
+
+
+def run_waves(args, g, pg, dev, name, graph_doc) -> int:
+    """``--num-sources B > 1``: the roots packed into B-lane multi-source
+    waves through the query engine, after a warm-up wave; the clock stops
+    after the last wave's result is on the host."""
+    from repro_torch.analytics import msbfs
+    from repro_torch.analytics.engine import BFSQueryEngine, EngineStats
+    from repro_torch.core import bfs, flightrec
+    from repro_torch.graph import csr
+
+    cfg = bfs.BFSConfig(fanout=args.fanout, sync=args.sync, mode=args.mode,
+                        sparse_capacity=args.sparse_capacity,
+                        density_threshold=args.density_threshold)
+    lanes = args.num_sources
+    roots = csr.largest_component_roots(
+        g, args.roots, np.random.default_rng(args.seed)).tolist()
+    eng = BFSQueryEngine(pg, cfg, lanes=lanes, device=dev)
+    eng.query(roots[:lanes])  # warm-up
+    eng.stats = EngineStats()
+    t0 = time.perf_counter()
+    eng.query(np.asarray(roots, np.int32))
+    dt = time.perf_counter() - t0
+    print(f"MS-BFS {args.sync} fanout={args.fanout} mode={args.mode} "
+          f"ranks={args.ranks} lanes={lanes} on {name}: {len(roots)} searches in "
+          f"{dt * 1e3:.3f} ms over {eng.stats.waves} waves ({len(roots) / dt:.1f} "
+          f"searches/s, aggregate GTEP/s {eng.stats.scanned_edges / dt / 1e9:.4f})")
+    trace_doc = None
+    if args.trace:
+        n_flat = msbfs.wave_rows(pg) * msbfs.lane_words(lanes)
+        wave = (roots[:lanes] + [-1] * lanes)[:lanes]
+        out = msbfs.build_msbfs_fn(pg, cfg, lanes, device=dev, trace=True)(
+            eng._arrays, wave)
+        trace_doc = write_trace(args.trace, flightrec.TraversalTrace.from_buffer(
+            out[-1], algo="msbfs", sync=cfg.sync, p=pg.p, fanout=cfg.fanout,
+            n_words=n_flat, capacity=cfg.resolved_capacity(n_flat),
+            density_threshold=cfg.density_threshold))
+    if args.stats_json:
+        write_stats_json(
+            args.stats_json, algo="bfs", graph=graph_doc, devices=args.ranks,
+            config={"sync": args.sync, "mode": args.mode, "fanout": args.fanout,
+                    "lanes": lanes, "use_kernels": False,
+                    "density_threshold": args.density_threshold},
+            timing_ms={"mean": dt * 1e3 / max(len(roots), 1), "total": dt * 1e3},
+            engine_stats=eng.stats, device=name,
             **({"trace": trace_doc} if trace_doc else {}))
     return 0
 
@@ -211,23 +308,27 @@ def write_trace(path, trace) -> dict:
 
 
 def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
-    """``--algo sssp|bc|pagerank|cc|tri|kcore``: time the traversal from
-    the same distinct largest-component roots as BFS (each clock stopping
-    after the device synchronises), or a root-free program over three
-    repetitions after a warm-up; print the result's summary, and write the
-    trace and stats as for BFS."""
+    """``--algo sssp|bc|pagerank|cc|tri|kcore``: time SSSP from the same
+    distinct largest-component roots as BFS (each clock stopping after the
+    device synchronises), BC's waves and the root-free programs (three
+    repetitions) through the query engine after a warm-up; print the
+    result's summary, and write the trace and stats as for BFS."""
     from repro_torch import programs
+    from repro_torch.analytics import msbfs
+    from repro_torch.analytics.engine import BFSQueryEngine, EngineStats
     from repro_torch.core import bfs, flightrec
     from repro_torch.graph import csr
     from repro_torch.traversal import bc, sssp
 
     sync = bfs.device_sync(dev)
-    arrays = bfs.place_arrays(pg, device=dev)
     roots = csr.largest_component_roots(
         g, args.roots, np.random.default_rng(args.seed)).tolist()
     config = {"sync": args.sync, "mode": args.mode, "fanout": args.fanout,
               "lanes": args.num_sources, "delta": args.delta,
               "max_weight": max_weight, "use_kernels": False}
+    bcfg = bfs.BFSConfig(fanout=args.fanout, sync=args.sync, mode=args.mode,
+                         sparse_capacity=args.sparse_capacity,
+                         density_threshold=args.density_threshold)
 
     def timed(fn, *a):
         sync()
@@ -238,6 +339,7 @@ def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
 
     trace_doc = None
     if args.algo == "sssp":
+        arrays = bfs.place_arrays(pg, device=dev)
         cfg = sssp.SSSPConfig(fanout=args.fanout, sync=args.sync, delta=args.delta,
                               sparse_capacity=args.sparse_capacity,
                               density_threshold=args.density_threshold)
@@ -246,6 +348,8 @@ def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
         runs = [timed(fn, arrays, r) for r in roots]
         times = np.array([dt for _, dt in runs])
         relaxed = np.array([out[2] for out, _ in runs])
+        stats = EngineStats(sssp_queries=len(roots), relaxed_edges=float(relaxed.sum()))
+        timing = {"mean": float(times.mean() * 1e3), "total": float(times.sum() * 1e3)}
         print(f"SSSP {cfg.sync} fanout={args.fanout} delta={args.delta} "
               f"ranks={args.ranks} on {name}: {len(roots)} roots, time "
               f"{times.mean() * 1e3:.3f} ms, GRelax/s {np.mean(relaxed / times) / 1e9:.4f}")
@@ -257,44 +361,39 @@ def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
                 n_words=n_rows, capacity=cfg.resolved_capacity(n_rows),
                 density_threshold=cfg.density_threshold))
     elif args.algo == "bc":
-        from repro_torch.analytics import msbfs
-
-        cfg = bfs.BFSConfig(fanout=args.fanout, sync=args.sync, mode=args.mode,
-                            sparse_capacity=args.sparse_capacity,
-                            density_threshold=args.density_threshold)
         lanes = max(args.num_sources, 1)
-        fn = bc.build_bc_fn(pg, cfg, lanes, device=dev)
-        waves = [(roots[i : i + lanes] + [-1] * lanes)[:lanes]
-                 for i in range(0, len(roots), lanes)]
-        fn(arrays, waves[0])  # warm-up
-        runs = [timed(fn, arrays, w) for w in waves]
-        times = np.array([dt for _, dt in runs])
-        scores = sum(bc.assemble_bc(pg, out[0]) for out, _ in runs)
+        eng = BFSQueryEngine(pg, bcfg, lanes=lanes, device=dev)
+        eng.betweenness(roots[:lanes])  # warm-up
+        scores, dt = timed(eng.betweenness, np.asarray(roots, np.int32))
+        stats = eng.stats
+        timing = {"mean": dt * 1e3 / max(len(roots), 1), "total": dt * 1e3}
         top = np.argsort(scores)[::-1][:5]
-        print(f"BC {cfg.sync} fanout={args.fanout} ranks={args.ranks} lanes={lanes} "
-              f"on {name}: {len(roots)} sources in {times.sum() * 1e3:.3f} ms "
-              f"({len(roots) / times.sum():.1f} sources/s)")
+        print(f"BC {args.sync} fanout={args.fanout} ranks={args.ranks} lanes={lanes} "
+              f"on {name}: {len(roots)} sources in {dt * 1e3:.3f} ms "
+              f"({len(roots) / dt:.1f} sources/s)")
         print("top-5 central vertices:",
               ", ".join(f"{v}={scores[v]:.1f}" for v in top))
         if args.trace:
             n_flat = msbfs.wave_rows(pg) * msbfs.lane_words(lanes)
-            out = bc.build_bc_fn(pg, cfg, lanes, device=dev, trace=True)(arrays, waves[0])
+            wave = (roots[:lanes] + [-1] * lanes)[:lanes]
+            out = bc.build_bc_fn(pg, bcfg, lanes, device=dev, trace=True)(eng._arrays, wave)
             trace_doc = write_trace(args.trace, flightrec.TraversalTrace.from_buffer(
-                out[-1], algo="bc", sync=cfg.sync, p=pg.p, fanout=cfg.fanout,
-                n_words=n_flat, capacity=cfg.resolved_capacity(n_flat),
-                density_threshold=cfg.density_threshold))
+                out[-1], algo="bc", sync=bcfg.sync, p=pg.p, fanout=bcfg.fanout,
+                n_words=n_flat, capacity=bcfg.resolved_capacity(n_flat),
+                density_threshold=bcfg.density_threshold))
     else:
         prog = programs.by_name(args.algo)
         cfg = programs.ProgramConfig(fanout=args.fanout, sync=args.sync,
                                      sparse_capacity=args.sparse_capacity,
                                      density_threshold=args.density_threshold)
-        fn = programs.build_program_fn(pg, prog, cfg, device=dev)
-        arg = prog.default_arg(pg, dev)
-        fn(arrays, arg)  # warm-up
-        runs = [timed(fn, arrays, arg) for _ in range(3)]
+        eng = BFSQueryEngine(pg, bcfg, device=dev)
+        eng.run_program(args.algo, cfg)  # warm-up
+        eng.stats = EngineStats()
+        runs = [timed(eng.run_program, args.algo, cfg) for _ in range(3)]
         times = np.array([dt for _, dt in runs])
-        out = runs[-1][0]
-        res, iters, work = prog.assemble(pg, out[0]), out[-2], out[-1]
+        (res, iters, work), _ = runs[-1]
+        stats = eng.stats
+        timing = {"mean": float(times.mean() * 1e3), "total": float(times.sum() * 1e3)}
         print(f"{args.algo} {cfg.sync} fanout={args.fanout} ranks={args.ranks} on "
               f"{name}: {iters} rounds in {times.mean() * 1e3:.3f} ms, GEdge/s "
               f"{work / times.mean() / 1e9:.4f}")
@@ -311,7 +410,7 @@ def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
         if args.trace:
             n_words = programs.program_msg_words(pg, prog)
             out = programs.build_program_fn(pg, prog, cfg, device=dev, trace=True)(
-                arrays, arg)
+                eng._arrays, prog.default_arg(pg, dev))
             trace_doc = write_trace(args.trace, flightrec.TraversalTrace.from_buffer(
                 out[-1], algo=args.algo, sync=cfg.sync, p=pg.p, fanout=cfg.fanout,
                 n_words=n_words, capacity=cfg.resolved_capacity(n_words),
@@ -319,10 +418,7 @@ def run_algo(args, g, pg, dev, name, graph_doc, max_weight) -> int:
     if args.stats_json:
         write_stats_json(
             args.stats_json, algo=args.algo, graph=graph_doc, devices=args.ranks,
-            config=config,
-            timing_ms={"mean": float(times.mean() * 1e3),
-                       "total": float(times.sum() * 1e3)},
-            engine_stats=None, device=name,
+            config=config, timing_ms=timing, engine_stats=stats, device=name,
             **({"trace": trace_doc} if trace_doc else {}))
     return 0
 

@@ -32,6 +32,7 @@ from repro_torch.programs.pagerank import (
     PageRankProgram,
     pagerank_reference,
     rank_arg,
+    repair_rank_rows,
     uniform_ranks,
 )
 from repro_torch.programs.triangles import (
@@ -87,4 +88,5 @@ __all__ = [
     "total_triangles",
     "uniform_ranks",
     "rank_arg",
+    "repair_rank_rows",
 ]

@@ -70,7 +70,7 @@ class ConnectedComponentsProgram(core.VertexProgram):
     def default_max_iters(self, pg: PartitionedGraph) -> int:
         return pg.n + 1  # min-label propagation worst case (a path)
 
-    def default_arg(self, pg: PartitionedGraph, device="cpu"):
+    def default_arg(self, pg: PartitionedGraph, device="cuda"):
         return identity_labels(pg, device)
 
     def assemble(self, pg: PartitionedGraph, out) -> np.ndarray:
@@ -78,10 +78,11 @@ class ConnectedComponentsProgram(core.VertexProgram):
                                    np.int64)
 
 
-def identity_labels(pg: PartitionedGraph, device="cpu") -> torch.Tensor:
+def identity_labels(pg: PartitionedGraph, device="cuda") -> torch.Tensor:
     """Cold-start labels: each real vertex its own id, pad rows the MIN
     identity (they never propose — no edges touch them); int32 patterns."""
-    rows = torch.arange(core.program_rows(pg), dtype=torch.int32, device=device)
+    rows = torch.arange(core.program_rows(pg), dtype=torch.int32,
+                        device=core.resolve_device(device))
     return torch.where(rows < pg.n, rows, -1)
 
 

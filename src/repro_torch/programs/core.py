@@ -197,7 +197,8 @@ class VertexProgram:
     def default_max_iters(self, pg: PartitionedGraph) -> int:
         return 1 << 30
 
-    def default_arg(self, pg: PartitionedGraph, device="cpu"):
+    def default_arg(self, pg: PartitionedGraph, device="cuda"):
+        resolve_device(device)
         return None
 
     def assemble(self, pg: PartitionedGraph, out) -> np.ndarray:

@@ -85,25 +85,48 @@ class PageRankProgram(core.VertexProgram):
     def default_max_iters(self, pg: PartitionedGraph) -> int:
         return 200
 
-    def default_arg(self, pg: PartitionedGraph, device="cpu"):
+    def default_arg(self, pg: PartitionedGraph, device="cuda"):
         return uniform_ranks(pg, device)
 
     def assemble(self, pg: PartitionedGraph, out) -> np.ndarray:
         return core.assemble_owned(pg, out, 0.0, np.float64)
 
 
-def uniform_ranks(pg: PartitionedGraph, device="cpu") -> torch.Tensor:
+def uniform_ranks(pg: PartitionedGraph, device="cuda") -> torch.Tensor:
     """The cold-start operand: ``1/n`` on real vertices, zero pad rows."""
-    rows = torch.arange(core.program_rows(pg), device=device)
+    rows = torch.arange(core.program_rows(pg), device=core.resolve_device(device))
     return torch.where(rows < pg.n, np.float32(1.0 / pg.n), np.float32(0.0))
 
 
-def rank_arg(pg: PartitionedGraph, ranks: np.ndarray, device="cpu") -> torch.Tensor:
+def rank_arg(pg: PartitionedGraph, ranks: np.ndarray, device="cuda") -> torch.Tensor:
     """Lift a cached global rank vector back into the replicated operand
     (a warm-start seed)."""
     buf = np.zeros(core.program_rows(pg), dtype=np.float32)
     buf[: pg.n] = np.asarray(ranks, dtype=np.float32)[: pg.n]
-    return torch.from_numpy(buf).to(device)
+    return torch.from_numpy(buf).to(core.resolve_device(device))
+
+
+def repair_rank_rows(rows, *, pg: PartitionedGraph, fn, arrays):
+    """§16 batch repairer: warm-start re-push of cached rank vectors.
+
+    ``fn`` is the built program (the one the cold path runs — a warm start
+    is only a different operand), ``arrays`` the engine's placed partition
+    (already refreshed for the mutated partition); the operands go to the
+    device those arrays are on.  Returns ``[(new_row, touched, iters),
+    ...]`` in ``migrate_cache``'s outcome contract: ``touched`` counts
+    vertices whose rank moved, ``iters`` the re-push rounds (the
+    recompute-vs-repair §16 accounting).
+    """
+    program = PageRankProgram()
+    device = arrays["edge_src"].device
+    outcomes = []
+    for row in rows:
+        out = fn(arrays, rank_arg(pg, row, device))
+        new = program.assemble(pg, out[0])
+        iters = int(out[1])
+        touched = int(np.sum(~np.isclose(new, row, rtol=1e-6, atol=1e-12)))
+        outcomes.append((new if touched else row, touched, iters))
+    return outcomes
 
 
 def pagerank_reference(

@@ -143,17 +143,19 @@ def _sync_dist(new: torch.Tensor, prev: torch.Tensor, cfg: SSSPConfig, capacity:
     return collectives.xla_allreduce(new, comm, op="min")
 
 
-def relax(arrays, dist: torch.Tensor, active: torch.Tensor):
+def relax(arrays, dist: torch.Tensor, active: torch.Tensor, *, unit_weight: bool = False):
     """Phase 1: every owned out-edge of an active source proposes ``dist[u]
     + w`` for its destination, saturating to :data:`UNREACHED` where the
     uint32 sum would wrap (added in int64: ``nd < 2**32``); the proposals
-    are scatter-MINed into ``dist``.  Returns ``(relaxed [P, n_rows],
-    src_active bool[P, emax])``."""
+    are scatter-MINed into ``dist``.  ``unit_weight`` takes every weight
+    as 1 (BFS levels; the partition may be unweighted).  Returns
+    ``(relaxed [P, n_rows], src_active bool[P, emax])``."""
     src, dst = arrays["edge_src"], arrays["edge_dst"]
     emask = torch.arange(src.shape[1], device=src.device) < arrays["edge_count"][:, None]
     src_active = fr.get_bits(active, src) & emask
     ds = torch.gather(dist, 1, src.long())
-    nd = (ds.long() & 0xFFFFFFFF) + (arrays["edge_weight"].long() & 0xFFFFFFFF)
+    w = 1 if unit_weight else arrays["edge_weight"].long() & 0xFFFFFFFF
+    nd = (ds.long() & 0xFFFFFFFF) + w
     ok = src_active & (ds != mono.MIN_U32.identity_like(ds)) & (nd < 1 << 32)
     cand = torch.where(ok, nd, UNREACHED).to(torch.int32)  # the uint32 pattern
     return mono.MIN_U32.scatter_into(dist, dst, cand), src_active

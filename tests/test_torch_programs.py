@@ -186,7 +186,7 @@ def test_pagerank_warm_start_from_cached_ranks():
     pg = partition.partition_1d(GRAPHS["kron8"](generators), 4)
     prog = programs.by_name("pagerank")
     cold, iters, _ = programs.run_program(pg, prog, device="cpu")
-    warm, witers, _ = programs.run_program(pg, prog, arg=programs.rank_arg(pg, cold),
+    warm, witers, _ = programs.run_program(pg, prog, arg=programs.rank_arg(pg, cold, device="cpu"),
                                            device="cpu")
     assert witers < iters
     np.testing.assert_allclose(warm, cold, atol=PR_SLACK, rtol=0)

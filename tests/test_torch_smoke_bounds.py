@@ -462,3 +462,59 @@ def test_slice_merge_cases_take_the_butterfly_shape_per_plane():
         assert c["bytes"] == chip_smoke.nbytes(c["args"][0]) // 4 * 5
     odd = chip_smoke.slice_merge_cases(gen, torch.device("cpu"), 12, 4, {"x": ("p", 5)})
     assert odd[0]["args"][0].shape == (12, 4, 5)  # digit plan [4, 3]: first round K = 4
+
+
+# --- the mutation phases' helpers (phases 17-20) --------------------------------
+
+
+@pytest.mark.parametrize("n_delete", [0, 8])
+def test_fitting_batch_is_accepted_by_the_in_place_patch(n_delete):
+    """The sampled inserts are cut to every rank's slack, so the patch
+    takes the batch; the deletes are kept whole."""
+    import numpy as np
+
+    from repro_torch.dynamic import delta
+    from repro_torch.graph import generators, partition
+
+    g = generators.kronecker(9, 8, seed=2, max_weight=8)
+    pg = partition.partition_1d(g, 8)
+    ov = delta.DeltaOverlay(g)
+    batch, kept = chip_smoke.fitting_batch(ov, pg, np.random.default_rng(0), 4 * pg.emax,
+                                           n_delete, 8)
+    assert 0 < kept < 4 * pg.emax and batch.insert_src.size == kept
+    assert batch.delete_src.size == n_delete and batch.insert_weights.size == kept
+    assert delta.apply_update_to_partition(pg, ov.apply(batch))
+
+
+def test_vertex_slots_map_each_vertex_to_its_owned_row():
+    import numpy as np
+
+    from repro_torch.graph import generators, partition
+
+    pg = partition.partition_1d(generators.kronecker(8, 8, seed=1), 4)
+    slots = chip_smoke.vertex_slots(pg, torch.device("cpu")).numpy()
+    for v in (0, 77, pg.n - 1):
+        r = pg.owner_of(v)
+        assert slots[v] == r * pg.vmax + v - pg.v_start[r]
+    assert np.unique(slots).size == pg.n
+
+
+@pytest.mark.parametrize("fault", [None, "far", "root"])
+def test_certify_levels_holds_bfs_levels_to_the_unit_certificate(fault):
+    import numpy as np
+
+    from repro_torch.core import bfs
+    from repro_torch.graph import generators
+
+    g = generators.torus_2d(10)
+    row = bfs.bfs_reference(g, 3)
+    edges = chip_smoke.edge_tensors(g.src, g.dst, np.ones(g.n_edges), torch.device("cpu"))
+    if fault == "far":
+        row[50] += 2
+    elif fault == "root":
+        row[3] = 1
+    if fault is None:
+        chip_smoke.certify_levels(edges, row, 3, torch.device("cpu"))
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.certify_levels(edges, row, 3, torch.device("cpu"))

@@ -210,7 +210,9 @@ def test_cli_writes_trace_and_stats_json(tmp_path, capsys):
     doc = json.loads(trace_path.read_text())
     assert validate_schema(doc, _schema()) == []
     stats = json.loads(stats_path.read_text())
-    assert stats["schema"] == "bfs_run_stats/v1" and stats["engine_stats"] is None
+    assert stats["schema"] == "bfs_run_stats/v1"
+    es = stats["engine_stats"]
+    assert es["queries"] == es["waves"] == 2 and es["scanned_edges"] > 0
     assert stats["config"]["sync"] == "sparse" and stats["config"]["sparse_capacity"] == 4
     assert stats["trace"]["levels"] == len(stats["trace"]["per_level"])
 
@@ -281,7 +283,7 @@ def test_program_trace_rows_match_reference(mesh8, algo, sync):
     cfg = programs.ProgramConfig(sync=sync, fanout=4)
     comm = collectives.Communicator(8, "cpu")
     got = programs.build_program_fn(tpg, prog, cfg, device="cpu", trace=True)(
-        bfs.place_arrays(tpg, device="cpu"), prog.default_arg(tpg), comm)
+        bfs.place_arrays(tpg, device="cpu"), prog.default_arg(tpg, device="cpu"), comm)
     n_words = programs.program_msg_words(tpg, prog)
     kw = dict(algo=algo, sync=sync, p=8, fanout=4, n_words=n_words,
               capacity=cfg.resolved_capacity(n_words))
