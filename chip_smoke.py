@@ -8,7 +8,9 @@ points a user calls (``build_bfs_fn`` on ``place_arrays``), then each
 further path of the port (the sparse, adaptive, Rabenseifner and xla
 frontier syncs, the flight recorder, the multi-source BFS wave, SSSP,
 Brandes betweenness and the vertex programs PageRank, connected
-components, k-core and triangle counting), and holds them to account:
+components, k-core and triangle counting, streaming mutations, the query
+engine, the query service, the replicated serving CLI and the cost-model
+profiler), and holds them to account:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and numpy versions;
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
@@ -87,7 +89,24 @@ components, k-core and triangle counting), and holds them to account:
     the host components; a second engine on the same key builds nothing;
     the engine on the mutated copy, refreshed, answers for it;
 21. ``bitmap_or_reduce`` at the repair's OR-sync shapes, exact and timed;
-22. one root of each cell of phases 6-7 under ``torch.profiler`` (device
+22. the query service (``GraphQueryService``) on a copy of the Kronecker
+    partition: a seeded stream of about 100 requests (``bfs`` on 40 roots
+    with duplicates in flight, ``closeness``, ``sssp``, ``cc``,
+    ``pagerank``, then repeats), each answer equal to the direct path
+    (the single-source kernel BFS, phases 11, 13 and 14), the duplicates
+    folded, the repeats served from the cache with no wave; then a batch
+    cut to the slack through ``apply_updates``, every cached row that
+    survives or is repaired equal to the from-scratch traversal of the
+    mutated copy;
+23. the serving CLI (``serve_graph.main``) at Kronecker scale 20: two
+    replicas, one killed by seeded chaos, mutation batches, the event log,
+    SLOs and the stats: no future fails, one kill and one recovery, the
+    reference's stats keys, every event valid, the SLO verdict written;
+24. the cost-model profiler (``BFSQueryEngine.profile``) on the kernel
+    path: the byte model equal to the Communicator's count, the per-level
+    directions equal to phase 6's for the root, every supported cached
+    program reconciled, the three kernels of the path launched;
+25. one root of each cell of phases 6-7 under ``torch.profiler`` (device
     time by kernel and by call site, the device's busy share), after every
     timed run, with its per-level directions and launch counts against the
     same root run unprofiled; the Kronecker paths of phase 9 (and the
@@ -95,7 +114,7 @@ components, k-core and triangle counting), and holds them to account:
     triangle count and the repairs in the same way;
     then the torus roots timed again, to show what a profiler session
     costs the runs after it;
-23. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
+26. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
 
 Each path of phases 11-20 records its time, iterations, edges relaxed or
 examined and their rate, bytes a rank and peak memory.  Every path is
@@ -112,6 +131,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -122,7 +142,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-SECTOR_BYTES = 32  # the least the memory delivers
 L2_FLUSH_BYTES = 256 << 20  # over the 50 MB L2
 REPLACES = {
     "frontier_gather_full": "src/repro/kernels/frontier_gather.py:77",
@@ -246,13 +265,11 @@ def random_words(shape, gen, dev, density=0.5):
 
 def distinct_word_bytes(word_idx) -> int:
     """Bytes of the distinct bitmap words ``word_idx[P, ...]`` reads, each
-    rank's words counted apart: what a gather must read at the least."""
-    import torch
+    rank's words counted apart: what a gather must read at the least (the
+    count the profiler's tally uses, ``kernels/bounds.py``)."""
+    from repro_torch.kernels import bounds
 
-    p = word_idx.shape[0]
-    rank = torch.arange(p, device=word_idx.device).view(p, *[1] * (word_idx.dim() - 1))
-    keys = rank * (int(word_idx.max()) + 1) + word_idx.long()
-    return 4 * torch.unique(keys).numel()
+    return bounds.distinct_word_bytes(word_idx)
 
 
 def scatter_least_bytes(active, block_win, dst_local, out_words: int) -> int:
@@ -260,13 +277,9 @@ def scatter_least_bytes(active, block_win, dst_local, out_words: int) -> int:
     the ``out_words`` int32 output words whole, and of ``dst_local`` the
     32-byte sectors that hold an active slot (an inactive slot's offset
     need not be read; a sector is the least the memory delivers)."""
-    import torch.nn.functional as F
+    from repro_torch.kernels import bounds
 
-    per = SECTOR_BYTES // dst_local.element_size()
-    flat = active.reshape(-1)
-    flat = F.pad(flat, (0, -flat.numel() % per))
-    sectors = int(flat.view(-1, per).any(dim=1).sum())
-    return nbytes(active, block_win) + 4 * out_words + SECTOR_BYTES * sectors
+    return bounds.scatter_least_bytes(active, block_win, dst_local, out_words)
 
 
 def site_launches(counts, meta, n_runs):
@@ -873,7 +886,7 @@ def run_bfs(label, parts, cfg, n_roots, seed, dev):
             raise AssertionError(f"{label}: merge bytes per rank "
                                  f"{comm.bytes_sent} != {want}")
     summary = dict(
-        roots=len(roots), ms=[x[0] * 1e3 for x in runs],
+        roots=len(roots), first_root=roots[0], ms=[x[0] * 1e3 for x in runs],
         levels=[x[1] for x in runs], scanned=[x[2] for x in runs],
         trimmed_ms=trimmed_ms, trimmed_gteps=trimmed_gteps,
         merge_bytes_per_rank=int(comm.bytes_sent[0]),
@@ -1514,13 +1527,14 @@ def run_program_path(label, parts, prog, cfg, dev, warmup=True):
     return summary, prog.assemble(parts["pg"], out[0]), out
 
 
-def run_pagerank(parts, fanout, dev, tol=1e-5):
+def run_pagerank(parts, fanout, dev, tol=1e-5, keep=None):
     """Phase 13: PageRank under the butterfly and the sparse (delta) sync,
     both with PyTorch's deterministic algorithms on (the per-rank
     contribution sum is a ``scatter_add_``, whose CUDA atomics add in an
     order that changes from run to run): the L1 residual of one more power
     step within the reference's ``2 tol d / (1 - d)``, and the sparse
-    wire's ranks equal to the dense ones bit for bit."""
+    wire's ranks equal to the dense ones bit for bit.  A dict ``keep``
+    receives the butterfly's global ranks (for the service's check)."""
     import torch
 
     from repro_torch import programs
@@ -1536,6 +1550,8 @@ def run_pagerank(parts, fanout, dev, tol=1e-5):
             label = f"pagerank {sync}"
             out[label], res, raw = run_program_path(label, parts, prog, cfg, dev)
             ranks[sync] = raw[0]
+            if keep is not None and sync == "butterfly":
+                keep["pagerank"] = res
             resid = pagerank_residual(src, dst, parts["pg"].n,
                                       torch.as_tensor(res, device=dev), cfg.damping)
             if not resid <= bound:
@@ -2028,6 +2044,375 @@ def run_engine(parts, fanout, seed, dev, single, sssp_rows, mut):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The serving stack and the profiler (phases 22-24)
+# ---------------------------------------------------------------------------
+
+# the service at full size: result-cache rows (an int64 row is 8 B a vertex,
+# 67 MB at scale 23: 64 rows hold 4.3 GB of host memory, PERF.md section 4),
+# distinct BFS roots with their duplicates, closeness roots (among them),
+# repeats after the answers, and the device-repair budget a batch (a lane
+# repair wave at scale 23 does not fit the card, PERF.md section 4)
+SERVICE_CACHE_ROWS = 64
+SERVICE_ROOTS = 40
+SERVICE_DUPLICATES = 10
+SERVICE_CLOSENESS = 10
+SERVICE_REPEATS = 36
+SERVICE_REPAIR_BUDGET = 1
+# PageRank's agreement between two converged runs: 2 tol d / (1 - d) at
+# phase 13's tol 1e-5 and damping 0.85
+PR_SLACK = 2 * 1e-5 * 0.85 / 0.15
+# the serving CLI: Kronecker scale, seconds and rate of open-loop load,
+# chaos, mutation batches a second and their undirected inserts
+CLI_SCALE = 20
+CLI_SECONDS = 10.0
+CLI_QPS = 10.0
+CLI_CHAOS = "kill-one@op=20"
+CLI_CHAOS_SEED = 7
+CLI_MUTATE_RATE = 2.0
+CLI_MUTATE_EDGES = 4
+# the keys of the reference's serve_graph_stats/v2 document and its
+# telemetry's faults block
+STATS_KEYS = {"schema", "algo", "graph", "devices", "config", "timing_ms",
+              "engine_stats", "telemetry", "slo"}
+FAULT_KEYS = {"injected", "schedule", "retries", "hedges", "failovers", "recoveries",
+              "shed", "stale_serves", "catch_up_batches", "suspect_marks"}
+
+
+def service_stream(parts, seed, sssp_roots):
+    """Phase 22's seeded request stream: ``bfs`` on ``SERVICE_ROOTS``
+    distinct largest-component roots and ``SERVICE_DUPLICATES`` duplicates,
+    ``closeness`` on some of those roots, ``sssp`` on ``sssp_roots`` (phase
+    11's), one ``cc`` and one ``pagerank``, in a seeded order (the burst);
+    then the repeats of answered roots.  Returns ``(burst, repeats)``, each
+    ``[(algo, root)]``."""
+    import numpy as np
+
+    from repro_torch.graph import csr
+
+    rng = np.random.default_rng(seed + 9)
+    roots = csr.largest_component_roots(parts["g"], SERVICE_ROOTS, rng,
+                                        labels=parts["labels"]).tolist()
+    burst = [("bfs", r) for r in roots]
+    burst += [("bfs", int(r)) for r in rng.choice(roots, SERVICE_DUPLICATES)]
+    burst += [("closeness", int(r)) for r in rng.choice(roots, SERVICE_CLOSENESS,
+                                                        replace=False)]
+    burst += [("sssp", int(r)) for r in sssp_roots] + [("cc", 0), ("pagerank", 0)]
+    burst = [burst[i] for i in rng.permutation(len(burst))]
+    answered = [x for x in burst if x[0] in ("bfs", "closeness")]
+    repeats = [answered[i] for i in rng.choice(len(answered), SERVICE_REPEATS,
+                                               replace=False)]
+    return burst, repeats
+
+
+def run_service(parts, fanout, seed, dev, single, sssp_rows, ranks):
+    """Phase 22: ``GraphQueryService`` on a deep copy of the weighted
+    Kronecker partition (the later phases keep the original), the burst of
+    :func:`service_stream` queued before the scheduler starts, then its
+    repeats.  Every answer equals the direct path: ``bfs`` the single-source
+    kernel BFS (``single``), ``closeness`` ``measures.closeness_centrality``
+    of it, ``sssp`` phase 11's distances, ``cc`` the host components (phase
+    14's labels), ``pagerank`` phase 13's ranks within ``PR_SLACK``.
+    Duplicates fold, the repeats cost zero waves.  Then a batch cut to the
+    slack (``fitting_batch``) through ``apply_updates``: every cached row
+    that survives or is repaired equals the from-scratch traversal of the
+    mutated copy.  Returns the summary."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analytics import measures
+    from repro_torch.core import bfs
+    from repro_torch.kernels import build
+    from repro_torch.service import GraphQueryService
+    from repro_torch.traversal import sssp
+
+    g, pg0, arrays = parts["g"], parts["pg"], parts["arrays"]
+    t0 = time.perf_counter()
+    pg = copy.deepcopy(pg0)
+    cfg = bfs.BFSConfig(fanout=fanout, mode="direction_optimizing")
+    svc = GraphQueryService(pg, dev, cfg, lanes=LANES, n_real=g.n_real,
+                            cache_capacity=SERVICE_CACHE_ROWS,
+                            repair_budget=SERVICE_REPAIR_BUDGET, start=False)
+    try:
+        setup_s = time.perf_counter() - t0
+        burst, repeats = service_stream(parts, seed, list(sssp_rows)[:2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t1 = time.perf_counter()
+        futs = [svc.submit(a, r) for a, r in burst]
+        svc.start()
+        answers = [f.result(timeout=1800) for f in futs]
+        serve_s = time.perf_counter() - t1
+        launches, peak = dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
+        waves = svc.engine.stats.waves
+        snap = svc.snapshot()
+        t2 = time.perf_counter()
+        for (algo, r), got in zip(burst, answers):
+            if algo in ("bfs", "closeness"):
+                want = bfs.assemble_distances(pg0, single(arrays, r)[0])
+                if algo == "closeness":
+                    want = float(measures.closeness_centrality(want[None, :], n=g.n_real)[0])
+                ok = got == want if algo == "closeness" else np.array_equal(got, want)
+            elif algo == "sssp":
+                ok = np.array_equal(got, sssp.assemble_distances(pg0, sssp_rows[r]))
+            elif algo == "cc":
+                ok = np.array_equal(got, min_id_labels(parts["labels"]))
+            else:
+                ok = float(np.max(np.abs(got - ranks["pagerank"]))) <= PR_SLACK
+            if not ok:
+                raise AssertionError(f"service: {algo} root {r} differs from the direct path")
+        check_s = time.perf_counter() - t2
+        if snap["coalesced_roots"] < SERVICE_DUPLICATES:
+            raise AssertionError(f"service: {snap['coalesced_roots']} riders folded, "
+                                 f"expected at least {SERVICE_DUPLICATES}")
+        hits0 = snap["cache"]["hits"]
+        t3 = time.perf_counter()
+        again = [svc.submit(a, r).result(timeout=60) for a, r in repeats]
+        repeat_ms = (time.perf_counter() - t3) * 1e3
+        if svc.engine.stats.waves != waves:
+            raise AssertionError("service: the repeats ran waves")
+        for (algo, r), got in zip(repeats, again):
+            want = answers[burst.index((algo, r))]
+            if not (got == want if algo == "closeness" else np.array_equal(got, want)):
+                raise AssertionError(f"service: repeat {algo} {r} differs from its answer")
+        snap = svc.snapshot()
+        if snap["cache"]["hits"] - hits0 != len(repeats):
+            raise AssertionError(f"service: {snap['cache']['hits'] - hits0} cache hits "
+                                 f"for {len(repeats)} repeats")
+        lat = snap["latency_ms"]
+        summary = dict(
+            requests=len(burst) + len(repeats), burst=len(burst), repeats=len(repeats),
+            setup_s=setup_s, serve_s=serve_s, check_s=check_s, repeat_ms=repeat_ms,
+            waves=waves, p50_ms=lat["p50"], p99_ms=lat["p99"],
+            occupancy=snap["wave_occupancy"], hit_rate=snap["cache"]["hit_rate"],
+            coalesced=snap["coalesced_roots"], launches=launches,
+            merges_per_wave=launches["bitmap_or_reduce"] / max(waves, 1),
+            peak_bytes=peak, cached_rows=len(svc.cache))
+        log(f"  service: {len(burst)} requests in {serve_s:.1f} s ({waves} waves, "
+            f"{snap['coalesced_roots']} riders folded, occupancy {snap['wave_occupancy']:.3f}); "
+            f"request-to-answer p50 {lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms; every answer "
+            f"== the direct path ({check_s:.1f} s of checks); {len(repeats)} repeats in "
+            f"{repeat_ms:.1f} ms, 0 waves, all cache hits (hit rate "
+            f"{snap['cache']['hit_rate']:.3f}); bitmap_or_reduce "
+            f"{summary['merges_per_wave']:.1f} a wave ({launches}); peak "
+            f"{peak / 1e9:.2f} GB; set-up {setup_s:.1f} s")
+        summary["mutation"] = service_mutation(svc, parts, fanout, seed, dev)
+        return summary
+    finally:
+        svc.stop()
+
+
+def service_mutation(svc, parts, fanout, seed, dev):
+    """The second half of phase 22: ``apply_updates`` of a seeded batch cut
+    to the copy's slack; every cached row under the new version (kept or
+    repaired) equals the from-scratch traversal of the mutated copy: BFS
+    and SSSP rows bit for bit, closeness from the scratch BFS row, PageRank
+    within ``PR_SLACK`` of a cold run."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analytics import measures
+    from repro_torch.dynamic import versioning
+    from repro_torch.kernels import build
+
+    captured = []
+    real = versioning.migrate_cache
+
+    def capture(*a, **kw):
+        captured.append(real(*a, **kw))
+        return captured[-1]
+
+    pg = svc.engine.pg
+    t0 = time.perf_counter()
+    overlay = svc.overlay
+    batch, kept_inserts = fitting_batch(overlay, pg, np.random.default_rng(seed + 10),
+                                        MUTATION_INSERTS, MUTATION_DELETES, WEIGHT)
+    overlay_s = time.perf_counter() - t0
+    versioning.migrate_cache = capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t1 = time.perf_counter()
+        version = svc.apply_updates(batch)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        versioning.migrate_cache = real
+    launches, peak = dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
+    if len(captured) != 1 or version.delta_seq != 1:
+        raise AssertionError(f"service: the batch took the swap path ({version})")
+    stats = captured[0]
+    scratch = scratch_fns(pg, fanout, dev)
+    arrays = svc.engine._arrays
+    rows, checked = svc.cache.items_snapshot(), {}
+    t2 = time.perf_counter()
+    cold = None
+    for key, value in rows:
+        if key[0] != version:
+            continue
+        algo, root = key[1], key[3]
+        if algo in ("bfs", "sssp", "closeness"):
+            want = scratch["sssp" if algo == "sssp" else "bfs"](arrays, root)
+            if algo == "closeness":
+                want = float(measures.closeness_centrality(want[None, :], n=svc.n_real)[0])
+            ok = value == want if algo == "closeness" else np.array_equal(value, want)
+        elif algo == "pagerank":
+            if cold is None:
+                cold = svc.engine.vertex_program("pagerank", svc.program_cfg)
+            ok = float(np.max(np.abs(value - cold))) <= PR_SLACK
+        else:
+            raise AssertionError(f"service: a cached {algo} row survived the batch")
+        if not ok:
+            raise AssertionError(f"service: cached {algo} root {root} differs from the "
+                                 f"from-scratch traversal of the mutated copy")
+        checked[algo] = checked.get(algo, 0) + 1
+    if sum(checked.values()) != stats.kept + stats.repaired:
+        raise AssertionError(f"service: {checked} rows under {version}, stats {stats}")
+    out = dict(inserts=kept_inserts, deletes=int(batch.delete_src.size),
+               overlay_s=overlay_s, apply_ms=apply_ms, launches=launches, peak_bytes=peak,
+               stats=dc.asdict(stats), checked=checked,
+               check_s=time.perf_counter() - t2, version=str(version))
+    log(f"  service mutation: {kept_inserts} undirected inserts / {out['deletes']} deletes "
+        f"applied in {apply_ms:.1f} ms ({version}; overlay built in {overlay_s:.1f} s); "
+        f"{stats}; launches {launches}; peak {peak / 1e9:.2f} GB; every surviving row "
+        f"== from scratch on the mutated copy {checked} ({out['check_s']:.1f} s)")
+    return out
+
+
+def run_serving_cli(scale, edge_factor, ranks, fanout, seed, out_dir, dev_name="cuda",
+                    seconds=CLI_SECONDS):
+    """Phase 23: ``repro_torch.launch.serve_graph.main`` in this process: two
+    replicas behind the router, ``CLI_CHAOS`` killing one, mutation batches
+    through the replication log, the event log, the SLOs of
+    ``examples/slo_chaos.json`` and the stats, all written to ``out_dir``.
+    No future fails; the faults block shows one kill and one recovery; the
+    stats have the reference's ``serve_graph_stats/v2`` keys; every event
+    line validates against ``tests/event_schema.json``; the SLO verdict is
+    there.  Returns the summary."""
+    import json as _json
+
+    import torch
+
+    from repro_torch.core import events
+    from repro_torch.launch import serve_graph
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = {k: os.path.join(out_dir, f) for k, f in (
+        ("stats", "stats.json"), ("events", "events.jsonl"), ("verdict", "slo_verdict.json"))}
+    for f in path.values():
+        if os.path.exists(f):
+            os.remove(f)
+    argv = ["--scale", str(scale), "--edge-factor", str(edge_factor), "--ranks", str(ranks),
+            "--fanout", str(fanout), "--device", dev_name, "--seed", str(seed),
+            "--qps", str(CLI_QPS), "--duration", str(seconds), "--replicas", "2",
+            "--chaos", CLI_CHAOS, "--chaos-seed", str(CLI_CHAOS_SEED),
+            "--mutate-rate", str(CLI_MUTATE_RATE), "--mutate-edges", str(CLI_MUTATE_EDGES),
+            "--events", path["events"], "--slo-config",
+            os.path.join(ROOT, "examples", "slo_chaos.json"),
+            "--slo-verdict", path["verdict"], "--stats-json", path["stats"]]
+    log(f"  serve_graph {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if serve_graph.main(argv) != 0:
+        raise AssertionError("serve_graph: non-zero exit")
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(path["stats"]) as f:
+        doc = _json.load(f)
+    tele = doc["telemetry"]
+    fb = tele["faults"]
+    if set(doc) != STATS_KEYS or set(fb) != FAULT_KEYS \
+            or doc["schema"] != "serve_graph_stats/v2":
+        raise AssertionError(f"serve_graph: stats keys {sorted(doc)}, faults {sorted(fb)}")
+    if tele["failed"] or tele["completed"] != tele["submitted"]:
+        raise AssertionError(f"serve_graph: {tele['failed']} failed of "
+                             f"{tele['submitted']} submitted, {tele['completed']} completed")
+    if fb["injected"].get("kill-replica") != 1 or fb["recoveries"] != 1:
+        raise AssertionError(f"serve_graph: faults {fb}")
+    with open(os.path.join(ROOT, "tests", "event_schema.json")) as f:
+        errs = events.validate_events_file(path["events"], _json.load(f))
+    with open(path["events"]) as f:
+        n_events = sum(1 for line in f if line.strip())
+    if errs or not n_events:
+        raise AssertionError(f"serve_graph: {n_events} events, violations {errs[:5]}")
+    with open(path["verdict"]) as f:
+        verdict = _json.load(f)
+    if verdict.get("schema") != "slo_verdict/v1" or doc["slo"] is None:
+        raise AssertionError("serve_graph: no SLO verdict")
+    lat = tele["latency_ms"]
+    summary = dict(scale=scale, wall_s=wall_s, submitted=tele["submitted"],
+                   completed=tele["completed"], failed=tele["failed"], p50_ms=lat["p50"],
+                   p99_ms=lat["p99"], qps=tele["qps"], faults=fb, events=n_events,
+                   slo_ok=verdict["ok"], slo_any_fired=verdict["any_fired"],
+                   peak_bytes=peak)
+    log(f"  serving CLI: scale {scale}, 2 replicas, {CLI_CHAOS} (seed {CLI_CHAOS_SEED}): "
+        f"{tele['completed']}/{tele['submitted']} completed, 0 failed; p50 {lat['p50']:.1f} "
+        f"ms, p99 {lat['p99']:.1f} ms; kills 1, recoveries {fb['recoveries']}, failovers "
+        f"{fb['failovers']}, catch-up batches {fb['catch_up_batches']}; {n_events} events "
+        f"valid; SLO ok={verdict['ok']} any_fired={verdict['any_fired']}; stats keys == "
+        f"the reference's; {wall_s:.1f} s; peak {peak / 1e9:.2f} GB")
+    return summary
+
+
+def run_profiler(parts, fanout, dev, root, single):
+    """Phase 24: ``BFSQueryEngine.profile`` on the Kronecker graph (the
+    engine of phase 20's config, its programs from the cache), on the
+    kernel path with the ETL's layout: the byte model reconciles with the
+    Communicator exactly, the per-level directions equal phase 6's for the
+    root, every supported cached program reconciles, and the three kernels
+    of the path launch.  Returns the summary."""
+    import torch
+
+    from repro_torch.analytics.engine import BFSQueryEngine
+    from repro_torch.core import bfs
+    from repro_torch.kernels import build
+
+    cfg = bfs.BFSConfig(fanout=fanout, mode="direction_optimizing")
+    eng = BFSQueryEngine(parts["pg"], cfg, lanes=LANES, device=dev)
+    with direction_log() as seq:
+        single(parts["arrays"], root)
+    report, ms, launches, peak = timed_run(eng.profile, root, layout=parts["layout"])
+    prof, cache = report["program"], report["cache"]
+    dirs = [r.direction for r in prof.per_level]
+    if not prof.reconciled or prof.wire_efficiency != 1.0:
+        raise AssertionError(f"profile: not reconciled ({prof.model_bytes} / {prof.hlo_bytes})")
+    if dirs != seq:
+        raise AssertionError(f"profile: directions {dirs} != phase 6's {seq}")
+    bad = [c.algo for c in cache if c.supported and not c.reconciled]
+    if bad or not any(c.supported for c in cache):
+        raise AssertionError(f"profile: cached programs not reconciled: {bad} of "
+                             f"{[c.algo for c in cache]}")
+    idle = [k for k in ("frontier_gather_full", "frontier_scatter", "bitmap_or_reduce")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"profile: {idle} never launched ({launches})")
+    rf = prof.roofline
+    summary = dict(root=root, ms=ms, wall_ms=prof.wall_ms, levels=prof.levels,
+                   achieved_gteps=prof.achieved_gteps, modeled_gteps=prof.modeled_gteps,
+                   dominant=rf["dominant"], t_memory=rf["t_memory"],
+                   t_collective=rf["t_collective"], kernel_bytes=rf["kernel_bytes"],
+                   kernel_calls=rf["kernel_calls"], bytes_per_rank=prof.hlo_bytes["total"],
+                   directions=dirs, launches=launches, peak_bytes=peak,
+                   cache=[c.to_dict() for c in cache])
+    log(f"  profile root {root}: {prof.levels} levels ({run_lengths(dirs)} == phase 6), "
+        f"wall {prof.wall_ms:.3f} ms min of 3; achieved {prof.achieved_gteps:.4f} GTEP/s "
+        f"vs modeled {prof.modeled_gteps:.4f}, dominant {rf['dominant']} (memory "
+        f"{rf['t_memory'] * 1e3:.3f} ms for {rf['bytes_per_device'] / 1e9:.3f} GB, network "
+        f"{rf['t_collective'] * 1e3:.3f} ms for {prof.hlo_bytes['total']:,.0f} B a rank); "
+        f"reconciled; cache {[(c.algo, c.reconciled if c.supported else 'unsupported') for c in cache]}; "
+        f"launches {launches}; {ms:.0f} ms in all; peak {peak / 1e9:.2f} GB")
+    del eng
+    torch.cuda.empty_cache()
+    return summary
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2048,6 +2433,12 @@ def main(argv=None) -> int:
                     help="Kronecker scale held against host k-core peeling")
     ap.add_argument("--wave-scale", type=int, default=WAVE_SCALE,
                     help="Kronecker scale of the lane-packed repair")
+    ap.add_argument("--cli-scale", type=int, default=CLI_SCALE,
+                    help="Kronecker scale of the serving CLI's phase")
+    ap.add_argument("--cli-seconds", type=float, default=CLI_SECONDS,
+                    help="seconds of open-loop load in the serving CLI's phase")
+    ap.add_argument("--cli-out", default=os.path.join(ROOT, "build", "serve_cli"),
+                    help="where the serving CLI writes its stats, events and verdict")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
@@ -2070,13 +2461,13 @@ def main(argv=None) -> int:
         log(f"{msg} (at {time.perf_counter() - t_start:.0f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
-    phase("[1/23] card")
+    phase("[1/26] card")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    phase("[2/23] build")
+    phase("[2/26] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
@@ -2086,7 +2477,7 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    phase("[3/23] ETL")
+    phase("[3/26] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
@@ -2119,7 +2510,7 @@ def main(argv=None) -> int:
                                                         programs.by_name("tri"))),
     }
 
-    phase("[4/23] kernel checks at every call site (exact, at the paths' shapes)")
+    phase("[4/26] kernel checks at every call site (exact, at the paths' shapes)")
     floor_ms = event_floor_ms()
     log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
     gen = torch.Generator(device=dev)
@@ -2138,20 +2529,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
-    phase("[5/23] edge cases of the scatter and both gathers (exact, every route)")
+    phase("[5/26] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
-    phase(f"[6/23] Kronecker BFS: direction_optimizing, butterfly fanout "
+    phase(f"[6/26] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    phase(f"[7/23] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    phase(f"[7/26] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    phase("[8/23] kernel launches on the main path (phases 6 and 7)")
+    phase("[8/26] kernel launches on the main path (phases 6 and 7)")
     records = []
     for name, (cell, plane, act) in MAIN_SITE.items():
         rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
@@ -2168,7 +2559,7 @@ def main(argv=None) -> int:
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    phase(f"[9/23] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
+    phase(f"[9/26] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
         f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
     paths, profiles = {}, {}
     cells = [("kronecker", kron, kcfg, "adaptive", 4 * SYNC_ROOTS)]
@@ -2194,7 +2585,7 @@ def main(argv=None) -> int:
             f"read) {paths[label]['decision_ms']:.4f} ms host, against "
             f"{per_level:.4f} ms a level of the trimmed BFS")
 
-    phase(f"[10/23] multi-source BFS: one {LANES}-lane Kronecker wave, "
+    phase(f"[10/26] multi-source BFS: one {LANES}-lane Kronecker wave, "
           f"direction_optimizing")
     single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
     for sync in ("butterfly", "adaptive"):
@@ -2205,42 +2596,43 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     slice5, sssp_rows = {}, {}
-    phase(f"[11/23] SSSP: weighted Kronecker, "
+    phase(f"[11/26] SSSP: weighted Kronecker, "
           f"{', '.join(f'{k} {v} roots' for k, v in SSSP_ROOTS.items())}, butterfly "
           f"delta {SSSP_DELTA} 1 root")
     slice5.update(run_sssp(kron, args.fanout, args.seed, dev, SSSP_ROOTS, SSSP_DELTA,
                            keep=sssp_rows))
     torch.cuda.empty_cache()
 
-    phase(f"[12/23] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
+    phase(f"[12/26] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
           f"butterfly; scale {args.bc_scale} against host Brandes")
     paths["bc"], profiles["bc"] = run_bc(kron, args.fanout, args.seed, dev, single,
                                          BC_LANES, small["bc"])
     torch.cuda.empty_cache()
 
-    phase("[13/23] PageRank: butterfly and sparse (delta)")
-    slice5.update(run_pagerank(kron, args.fanout, dev))
+    phase("[13/26] PageRank: butterfly and sparse (delta)")
+    ranks = {}
+    slice5.update(run_pagerank(kron, args.fanout, dev, keep=ranks))
     torch.cuda.empty_cache()
 
-    phase("[14/23] connected components: butterfly and adaptive")
+    phase("[14/26] connected components: butterfly and adaptive")
     slice5.update(run_cc(kron, args.fanout, dev))
     torch.cuda.empty_cache()
 
-    phase(f"[15/23] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
+    phase(f"[15/26] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
     paths["kcore"], profiles["kcore"] = run_kcore(kron, args.fanout, dev, small["kcore"])
     torch.cuda.empty_cache()
 
-    phase(f"[16/23] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
+    phase(f"[16/26] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
     paths["tri"], profiles["tri"] = run_triangles(small["tri"], args.fanout, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[17/23] lane-packed repair: Kronecker scale {args.wave_scale}, "
+    phase(f"[17/26] lane-packed repair: Kronecker scale {args.wave_scale}, "
           f"{WAVE_SUSPECTS} rows in two {LANES}-lane waves")
     paths["repair wave"], profiles["repair wave"], wave_width = run_wave_repair(
         args.wave_scale, args.edge_factor, args.ranks, args.fanout, args.seed, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[18/23] mutation batches on a copy of the Kronecker partition, in place, "
+    phase(f"[18/26] mutation batches on a copy of the Kronecker partition, in place, "
           f"and single-row repair ({REPAIR_ROOTS} roots: BFS under "
           f"{', '.join(REPAIR_SYNCS)}, SSSP under butterfly)")
     from repro_torch.traversal import sssp
@@ -2256,19 +2648,19 @@ def main(argv=None) -> int:
     slice6["unchanged"] = unchanged_batch(mut, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[19/23] a batch of {OVERFLOW_FRACTION:g} of the edges: refused in place "
+    phase(f"[19/26] a batch of {OVERFLOW_FRACTION:g} of the edges: refused in place "
           f"atomically, then compaction and repartition")
     slice6["overflow"] = overflow_batch(mut, args.fanout, dev, args.ranks)
     torch.cuda.empty_cache()
 
-    phase("[20/23] query engine: BFS waves with duplicates, SSSP, CC, the program "
+    phase("[20/26] query engine: BFS waves with duplicates, SSSP, CC, the program "
           "cache, refresh after the patches")
     paths["engine"] = run_engine(kron, args.fanout, args.seed, dev, single, sssp_rows, mut)
     repair_width = sssp.dist_rows(mut["pg"]) // 32
     del mut
     torch.cuda.empty_cache()
 
-    phase("[21/23] bitmap_or_reduce at the repair's OR-sync shapes (exact, timed)")
+    phase("[21/26] bitmap_or_reduce at the repair's OR-sync shapes (exact, timed)")
     for case in slice_merge_cases(gen, dev, args.ranks, args.fanout, {
             "repair_or": ("repair butterfly", repair_width),
             "repair_wave_or": ("repair wave", wave_width)}):
@@ -2276,7 +2668,30 @@ def main(argv=None) -> int:
         del case["args"]
         torch.cuda.empty_cache()
 
-    phase("[22/23] profiles (one root each), then the torus roots timed again")
+    phase("[22/26] the query service at full size: a seeded request stream, then a "
+          "mutation batch through apply_updates")
+    del batch, rerun, case
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  released phases 17-21's state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated (the repair paths' profile runs keep theirs)")
+    slice7 = {"service": run_service(kron, args.fanout, args.seed, dev, single, sssp_rows,
+                                     ranks)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[23/26] the serving CLI: Kronecker scale {args.cli_scale}, 2 replicas, "
+          f"chaos {CLI_CHAOS!r}, mutations, events, SLOs")
+    slice7["cli"] = run_serving_cli(args.cli_scale, args.edge_factor, args.ranks,
+                                    args.fanout, args.seed, args.cli_out,
+                                    seconds=args.cli_seconds)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[24/26] the cost-model profiler: engine.profile on the kernel path")
+    slice7["profiler"] = run_profiler(kron, args.fanout, dev, kron_sum["first_root"], single)
+
+    phase("[25/26] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
     same_root = {}
@@ -2291,7 +2706,7 @@ def main(argv=None) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
 
-    phase("[23/23] result")
+    phase("[26/26] result")
     site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
     for label, path in paths.items():
         launches = path["traced_launches"] if "traced_launches" in path else path["launches"]
@@ -2312,7 +2727,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
-                           slice5=slice5, slice6=slice6,
+                           slice5=slice5, slice6=slice6, slice7=slice7,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

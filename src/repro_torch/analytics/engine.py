@@ -20,8 +20,7 @@ Four query families share the placed arrays and the cache:
 
 Where the reference takes a mesh, the port takes a device: the P ranks
 are simulated on it, and the cache key holds the device in place of the
-mesh's identity.  The reference's ``profile`` (the §20 cost-model
-profiler) is not ported yet.
+mesh's identity.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -214,6 +213,37 @@ class BFSQueryEngine:
     def query_one(self, root: int) -> np.ndarray:
         """Single-root convenience: ``int64[n]`` distances."""
         return self.query([root])[0]
+
+    def profile(self, root: int = 0, *, iters: int = 3, layout=None) -> Dict:
+        """§20 cost-model profile: a deep (timed, byte-reconciled) profile
+        of the single-source program from ``root``, plus the byte
+        reconciliation of every program cached for this graph and device
+        (:func:`repro_torch.core.profiler.cache_report`).  Returns
+        ``{"program": ProgramProfile, "cache": [CacheEntryReport, ...]}``.
+
+        The wave config cannot carry the kernels (MS-BFS refuses
+        ``use_kernels=True``), so on a CUDA device, or wherever a kernel
+        ``layout`` of the partition is given, the profiled program is the
+        engine's config with ``use_kernels=True``: the kernel path, over
+        the engine's placed arrays and the layout's planes (the layout is
+        built when not given).  On the CPU without a layout it is the
+        plain program of the engine's config."""
+        from repro_torch.core import bfs as bfs_mod
+        from repro_torch.core import profiler
+        from repro_torch.kernels import blocks
+
+        cfg, arrays = self.cfg, self._arrays
+        if layout is not None or self.device.type == "cuda":
+            cfg = dataclasses.replace(cfg, use_kernels=True)
+            if layout is None:
+                layout = blocks.build_bfs_layout(self.pg)
+            arrays = {**arrays, **bfs_mod.place_layout(layout, device=self.device)}
+        with device_lock(self.device):
+            prof = profiler.profile_bfs(self.pg, cfg, int(root), iters=iters,
+                                        arrays=arrays, layout=layout, device=self.device)
+            del arrays
+            cache = profiler.cache_report(self, root=int(root))
+        return {"program": prof, "cache": cache}
 
     # --- weighted traversals (DESIGN.md §14) ------------------------------
 

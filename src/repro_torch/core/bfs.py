@@ -200,6 +200,16 @@ def place_arrays(pg: PartitionedGraph, layout: Optional[blocks.BFSKernelLayout] 
     planes = dict(pg.arrays())
     if layout is not None:
         planes.update(layout.arrays)
+    return _place(planes, dev)
+
+
+def place_layout(layout: blocks.BFSKernelLayout, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """The layout planes alone on ``device``: merged into arrays placed
+    without a layout, they make the kernel path's arrays."""
+    return _place(layout.arrays, resolve_device(device))
+
+
+def _place(planes, dev: torch.device) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in planes.items():
         v = np.ascontiguousarray(v)

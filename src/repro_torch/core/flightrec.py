@@ -346,7 +346,8 @@ def trace_chrome_doc(trace: TraversalTrace) -> Dict:
             "otherData": {"schema": TRACE_SCHEMA, **trace.summary()}}
 
 
-def reconcile_bytes(trace: TraversalTrace, bytes_sent) -> Dict:
+def reconcile_bytes(trace: TraversalTrace, bytes_sent, *,
+                    forward_only: bool = False) -> Dict:
     """Check the trace's per-level byte attribution against what the
     ranks really shipped: the sum over the traced levels of the model's
     bytes per rank must equal every rank's
@@ -354,9 +355,11 @@ def reconcile_bytes(trace: TraversalTrace, bytes_sent) -> Dict:
     counterpart of the reference's check against the compiled HLO).
     Holds for the traces of BFS, MS-BFS, SSSP and the vertex programs,
     whose one sync a level is the traced one; a BC trace leaves its dense
-    ADD syncs out of the rows, so it is refused.
+    ADD syncs out of the rows, so it is refused unless ``forward_only``
+    says ``bytes_sent`` counts the forward OR syncs alone (a Communicator
+    of their own: ``build_bc_fn``'s ``or_comm``).
     Returns ``{"model": {...}, "measured": [...], "matches": bool}``."""
-    if trace.algo == "bc":
+    if trace.algo == "bc" and not forward_only:
         raise ValueError("a BC trace covers the forward OR sync only; its "
                          "dense ADD syncs are not in the rows")
     per_level = trace.level_bytes_per_node()

@@ -37,7 +37,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.graph.csr import Graph, GraphValidationError
+from repro_torch.graph.csr import Graph, GraphValidationError, unique_keys
 
 
 def _as_ids(a) -> np.ndarray:
@@ -132,16 +132,7 @@ def _sym_dedup(src, dst, w):
     if w is not None:
         w = np.concatenate([w, w])
     keep = src != dst
-    src, dst = src[keep], dst[keep]
-    key = (src << 32) | dst
-    if w is None:
-        return np.unique(key), None
-    w = w[keep]
-    order = np.argsort(key, kind="stable")
-    key_sorted, w_sorted = key[order], w[order]
-    key, starts = np.unique(key_sorted, return_index=True)
-    w = np.minimum.reduceat(w_sorted, starts) if key.size else w_sorted[:0]
-    return key, w
+    return unique_keys((src[keep] << 32) | dst[keep], None if w is None else w[keep])
 
 
 class DeltaOverlay:
@@ -469,14 +460,8 @@ def partition_edge_multiset(pg) -> Tuple[np.ndarray, Optional[np.ndarray]]:
             ws.append(pg.edge_weight[i, :act])
     key = np.concatenate(keys) if keys else np.zeros(0, np.int64)
     if pg.edge_weight is None:
-        return np.unique(key), None
-    w = np.concatenate(ws) if ws else np.zeros(0, np.uint32)
-    order = np.argsort(key, kind="stable")
-    key_sorted, w_sorted = key[order], w[order]
-    uniq, starts = np.unique(key_sorted, return_index=True)
-    return uniq, (
-        np.minimum.reduceat(w_sorted, starts) if uniq.size else w_sorted[:0]
-    )
+        return unique_keys(key)
+    return unique_keys(key, np.concatenate(ws) if ws else np.zeros(0, np.uint32))
 
 
 def graph_from_partition(pg, n_real: Optional[int] = None,

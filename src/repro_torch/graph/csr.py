@@ -126,6 +126,24 @@ class Graph:
         self._validated = True
 
 
+def unique_keys(key: np.ndarray, weights: Optional[np.ndarray] = None):
+    """Sorted distinct int64 edge keys, and with ``weights`` the minimum
+    weight over each key's repeats (shortest-path-preserving dedup).  Sort
+    and drop repeats: ``np.unique`` took 100 s at 34 M keys under numpy
+    2.3, against under 1 s to sort."""
+    if weights is None:
+        key = np.sort(key)
+    else:
+        order = np.argsort(key, kind="stable")
+        key, weights = key[order], weights[order]
+    first = np.ones(key.size, dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    if weights is not None:
+        starts = np.flatnonzero(first)
+        weights = np.minimum.reduceat(weights, starts) if key.size else weights[:0]
+    return key[first], weights
+
+
 def from_edges(
     src: np.ndarray, dst: np.ndarray, n: int, *, symmetrize: bool = True,
     weights: Optional[np.ndarray] = None,
@@ -151,22 +169,7 @@ def from_edges(
     if weights is not None:
         weights = weights[keep]
     n_pad = max(_pad32(n), WORD_BITS)
-    key = (src << 32) | dst
-    if weights is None:
-        # sort + drop repeats: np.unique's own path took 100 s at 34 M keys
-        # under numpy 2.3, against under 1 s to sort
-        key = np.sort(key)
-    else:
-        order = np.argsort(key, kind="stable")
-        key, weights = key[order], weights[order]
-    first = np.ones(key.size, dtype=bool)
-    first[1:] = key[1:] != key[:-1]
-    key = key[first]
-    if weights is not None:
-        # min over each duplicate run (shortest-path-preserving dedup)
-        starts = np.flatnonzero(first)
-        weights = (np.minimum.reduceat(weights, starts) if key.size
-                   else weights[:0])
+    key, weights = unique_keys((src << 32) | dst, weights)
     src = (key >> 32).astype(np.int32)
     dst = (key & 0xFFFFFFFF).astype(np.int32)
     row_offsets = np.zeros(n_pad + 1, dtype=np.int64)

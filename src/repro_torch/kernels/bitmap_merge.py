@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import bounds, build, ref
 
 
 def bitmap_or_reduce(stack: torch.Tensor) -> torch.Tensor:
@@ -21,6 +21,7 @@ def bitmap_or_reduce(stack: torch.Tensor) -> torch.Tensor:
     b, k, w = stack.shape
     if k < 1:
         raise ValueError("nothing to merge: K == 0")
+    bounds.tally("bitmap_or_reduce", lambda: bounds.or_reduce_bytes(stack))
     if build.route(stack) == "plain":
         return ref.bitmap_or_reduce(stack)
     out = torch.empty((b, w), dtype=torch.int32, device=dev)

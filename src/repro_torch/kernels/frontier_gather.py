@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import bounds, build, ref
 
 #: The widest window of the windowed gather (48 KB of words).
 MAX_WINDOW_WORDS = 48 * 1024 // 4
@@ -41,6 +41,7 @@ def frontier_gather_full(words: torch.Tensor, src: torch.Tensor, *,
     p, w = words.shape
     if src.shape[0] != p:
         raise ValueError(f"src has {src.shape[0]} ranks, words {p}")
+    bounds.tally("frontier_gather_full", lambda: bounds.gather_full_bytes(src))
     if build.route(words) == "plain":
         return ref.frontier_gather_full(words, src)
     out = torch.empty(src.shape, dtype=torch.bool, device=dev)
@@ -71,6 +72,7 @@ def frontier_gather(words: torch.Tensor, block_ws: torch.Tensor,
                          f"{tuple(src_local.shape)} disagree with P={p}")
     if not 0 < ww <= MAX_WINDOW_WORDS:
         raise ValueError(f"window of {ww} words is over {MAX_WINDOW_WORDS}")
+    bounds.tally("frontier_gather", lambda: bounds.gather_window_bytes(block_ws, src_local, ww))
     if build.route(words) == "plain":
         return ref.frontier_gather(words, block_ws, src_local, ww)
     out = torch.empty(src_local.shape, dtype=torch.bool, device=dev)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import bounds, build, ref
 
 #: The widest window: a warp's tile of ``ww`` words lives in shared memory,
 #: and a CTA may take 48 KB of it without opting in.
@@ -38,6 +38,8 @@ def frontier_scatter(active: torch.Tensor, block_win: torch.Tensor,
                          f"{tuple(dst_local.shape)} disagree")
     if not 0 < ww <= MAX_WINDOW_WORDS:
         raise ValueError(f"window of {ww} words does not fit shared memory")
+    bounds.tally("frontier_scatter", lambda: bounds.scatter_least_bytes(
+        active, block_win, dst_local, p * n_windows * ww))
     if build.route(active) == "plain":
         return ref.frontier_scatter(active, block_win, dst_local, n_windows, ww)
     n_out = n_windows * ww

@@ -27,6 +27,13 @@ repartitioning where a patch is refused or the overlay asks for it.
 FILE`` runs the first root once more with the flight recorder on and each
 level timed, and writes the Perfetto/Chrome ``trace_event`` document;
 ``--stats-json PATH`` writes the run's identity and timing as JSON.
+``--profile [FILE]`` runs the cost-model profiler
+(:mod:`repro_torch.core.profiler`) on the single-source BFS program of the
+first root, the kernel path with ``--kernels``: the byte model reconciled
+against what the ranks shipped, achieved against modeled GTEP/s and the
+per-level time × bytes table; FILE also receives the profile as JSON.
+With ``--num-sources`` it is the engine's profile, which adds the
+reconciliation of every program the engine cached.
 """
 
 from __future__ import annotations
@@ -134,7 +141,16 @@ def main(argv=None) -> int:
                          "trace_event JSON")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
                     help="write the run's identity and timing as JSON")
+    ap.add_argument("--profile", default=None, metavar="FILE", nargs="?", const="-",
+                    help="run the cost-model profiler on the single-source BFS "
+                         "program (the kernel path with --kernels): reconcile the "
+                         "model's sync bytes against what the ranks shipped, report "
+                         "achieved against modeled GTEP/s and the per-level "
+                         "time x bytes table; FILE (optional) also receives the "
+                         "profile as JSON")
     args = ap.parse_args(argv)
+    if args.profile and args.algo != "bfs":
+        ap.error("--profile profiles the single-source BFS program; use --algo bfs")
 
     from repro_torch import programs
     from repro_torch.analytics.engine import EngineStats
@@ -199,6 +215,11 @@ def main(argv=None) -> int:
         _, tr = flightrec.timed_bfs_levels(pg, cfg, roots[0], arrays=arrays,
                                            layout=layout, device=dev)
         trace_doc = write_trace(args.trace, tr)
+    if args.profile:
+        from repro_torch.core import profiler
+
+        emit_profile(args.profile, {"program": profiler.profile_bfs(
+            pg, cfg, roots[0], arrays=arrays, layout=layout, device=dev), "cache": []})
     if args.stats_json:
         write_stats_json(
             args.stats_json, algo="bfs", graph=graph_doc, devices=args.ranks,
@@ -281,6 +302,8 @@ def run_waves(args, g, pg, dev, name, graph_doc) -> int:
             out[-1], algo="msbfs", sync=cfg.sync, p=pg.p, fanout=cfg.fanout,
             n_words=n_flat, capacity=cfg.resolved_capacity(n_flat),
             density_threshold=cfg.density_threshold))
+    if args.profile:
+        emit_profile(args.profile, eng.profile(roots[0]))
     if args.stats_json:
         write_stats_json(
             args.stats_json, algo="bfs", graph=graph_doc, devices=args.ranks,
@@ -291,6 +314,25 @@ def run_waves(args, g, pg, dev, name, graph_doc) -> int:
             engine_stats=eng.stats, device=name,
             **({"trace": trace_doc} if trace_doc else {}))
     return 0
+
+
+def emit_profile(path: str, report: dict) -> None:
+    """Print the profile table (and the cached programs' reconciliation);
+    unless ``path`` is ``"-"``, also write the whole report there as JSON."""
+    prof = report["program"]
+    print()
+    print(prof.table())
+    for ent in report.get("cache", []):
+        verdict = ("reconciled" if ent.reconciled else
+                   "MISMATCH" if ent.supported else "unsupported")
+        print(f"cached {ent.algo} sync={ent.sync} lanes={ent.lanes} "
+              f"n_words={ent.n_words}: {verdict}")
+    if path != "-":
+        doc = {"schema": "bfs_profile/v1", "program": prof.to_dict(),
+               "cache": [e.to_dict() for e in report.get("cache", [])]}
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+        print(f"profile -> {path}")
 
 
 def write_trace(path, trace) -> dict:

@@ -131,8 +131,11 @@ def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="c
                 trace: bool = False, trace_levels: Optional[int] = None):
     """B-lane betweenness centrality over ``pg``'s P simulated ranks.
 
-    Returns ``run(arrays, roots, comm=None, *, level_ms=None, lanes=None)``
-    where ``roots`` is ``n_lanes`` vertex ids (``-1`` = inactive lane).
+    Returns ``run(arrays, roots, comm=None, *, or_comm=None, level_ms=None,
+    lanes=None)`` where ``roots`` is ``n_lanes`` vertex ids (``-1`` =
+    inactive lane).  ``comm`` counts every sync's bytes; ``or_comm``, when
+    given, takes the forward frontier OR syncs' bytes in its place (the
+    traced rows' syncs alone, which the byte model reconciles).
     Output: per-rank owned dependency sums ``float32[P, vmax]`` (the BC
     contribution of this wave's sources, root rows excluded per lane), wave
     depth, and edges examined (float32).  A dict ``lanes`` receives each
@@ -174,12 +177,15 @@ def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="c
         return torch.gather(buf, 1, own[..., None].expand(p, vmax, buf.shape[2]))
 
     def run(arrays, roots, comm: Optional[collectives.Communicator] = None, *,
+            or_comm: Optional[collectives.Communicator] = None,
             level_ms: Optional[list] = None, lanes: Optional[dict] = None):
         roots = np.asarray(roots, dtype=np.int64)
         if roots.shape != (n_lanes,):
             raise ValueError(f"expected {n_lanes} roots, got shape {roots.shape}")
         if comm is None:
             comm = collectives.Communicator(p, dev)
+        if or_comm is None:
+            or_comm = comm
         active = torch.as_tensor(roots >= 0, device=dev)
         seeds = torch.as_tensor(np.where(roots >= 0, roots, 0), device=dev)
         onehot = (torch.arange(bw * fr.WORD_BITS, device=dev)[None, :]
@@ -206,7 +212,7 @@ def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="c
             gq = _expand_push(arrays, frontier, n_rows, False, lanes=True)
             if trace:
                 stats = flightrec.or_sync_stats(gq.reshape(p, -1), cfg)
-            merged = _sync_frontier(gq.reshape(p, -1), cfg, comm,
+            merged = _sync_frontier(gq.reshape(p, -1), cfg, or_comm,
                                     use_kernels=True).reshape(p, n_rows, bw)
             new = merged & ~seen
             # sigma increments over OWNED in-edges u -> v (v newly reached,

@@ -5,6 +5,7 @@ edge-case inputs.  Tiny hand-made tensors; no card is touched."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -518,3 +519,122 @@ def test_certify_levels_holds_bfs_levels_to_the_unit_certificate(fault):
     else:
         with pytest.raises(AssertionError):
             chip_smoke.certify_levels(edges, row, 3, torch.device("cpu"))
+
+
+# --- the serving phases (22-24) rehearsed on the CPU --------------------------
+
+
+@pytest.fixture()
+def cpu_card(monkeypatch):
+    """The CUDA calls of chip_smoke's phases made no-ops, its event timer a
+    stub, and the kernel wrappers the phases reach counted into
+    ``build.LAUNCHES`` (their plain route counts nothing): a phase function
+    then runs whole on the CPU."""
+    from repro_torch.kernels import bitmap_merge, ops
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps: 0.0)
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            build.LAUNCHES[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(bitmap_merge, "bitmap_or_reduce",
+                        counting("bitmap_or_reduce", bitmap_merge.bitmap_or_reduce))
+    for name in ("frontier_gather_full", "frontier_gather", "frontier_scatter"):
+        monkeypatch.setattr(ops, name, counting(name, getattr(ops, name)))
+    build.reset_launches()
+    yield torch.device("cpu")
+    build.reset_launches()
+
+
+@pytest.fixture(scope="module")
+def kron10():
+    """The weighted Kronecker graph of the full-size phases at scale 10."""
+    import unittest.mock as mock
+
+    from repro_torch.graph import generators
+
+    with mock.patch.object(torch.cuda, "synchronize", lambda *a, **k: None):
+        return chip_smoke.etl("kronecker 10", lambda: generators.kronecker(
+            10, 8, seed=0, max_weight=chip_smoke.WEIGHT), 4, torch.device("cpu"),
+            "direction_optimizing")
+
+
+def _single(parts, dev):
+    from repro_torch.core import bfs
+
+    cfg = bfs.BFSConfig(fanout=4, mode="direction_optimizing", use_kernels=True)
+    return bfs.build_bfs_fn(parts["pg"], cfg, parts["layout"], device=dev)
+
+
+def test_service_phase_rehearsed_on_the_cpu(kron10, cpu_card):
+    from repro_torch.graph import csr
+    from repro_torch.traversal import sssp
+
+    dev = cpu_card
+    sfn = sssp.build_sssp_fn(kron10["pg"], sssp.SSSPConfig(fanout=4), device=dev)
+    roots = csr.largest_component_roots(kron10["g"], 2, np.random.default_rng(2))
+    sssp_rows = {int(r): sfn(kron10["arrays"], int(r))[0] for r in roots}
+    ranks = {}
+    chip_smoke.run_pagerank(kron10, 4, dev, keep=ranks)
+    out = chip_smoke.run_service(kron10, 4, 0, dev, _single(kron10, dev), sssp_rows, ranks)
+    n = (chip_smoke.SERVICE_ROOTS + chip_smoke.SERVICE_DUPLICATES
+         + chip_smoke.SERVICE_CLOSENESS + 4)
+    assert out["burst"] == n and out["repeats"] == chip_smoke.SERVICE_REPEATS
+    assert out["waves"] == 2  # 40 distinct roots in 32-lane waves
+    assert out["coalesced"] >= chip_smoke.SERVICE_DUPLICATES
+    assert out["launches"]["bitmap_or_reduce"] > 0
+    mut = out["mutation"]
+    assert mut["version"] == "0.1"
+    assert mut["stats"]["rows_before"] == out["cached_rows"]
+    assert mut["stats"]["repaired"] <= chip_smoke.SERVICE_REPAIR_BUDGET
+    assert sum(mut["checked"].values()) == mut["stats"]["kept"] + mut["stats"]["repaired"]
+
+
+def test_service_stream_is_seeded_and_holds_every_algo(kron10):
+    burst, repeats = chip_smoke.service_stream(kron10, 0, [5, 9])
+    again = chip_smoke.service_stream(kron10, 0, [5, 9])
+    assert (burst, repeats) == again
+    algos = [a for a, _ in burst]
+    assert algos.count("bfs") == chip_smoke.SERVICE_ROOTS + chip_smoke.SERVICE_DUPLICATES
+    assert len({r for a, r in burst if a == "bfs"}) == chip_smoke.SERVICE_ROOTS
+    assert {r for a, r in burst if a == "closeness"} <= {r for a, r in burst if a == "bfs"}
+    assert sorted(r for a, r in burst if a == "sssp") == [5, 9]
+    assert algos.count("cc") == algos.count("pagerank") == 1
+    assert set(repeats) <= {x for x in burst if x[0] in ("bfs", "closeness")}
+
+
+def test_serving_cli_phase_rehearsed_on_the_cpu(tmp_path, cpu_card):
+    out = chip_smoke.run_serving_cli(9, 8, 4, 4, 0, str(tmp_path), dev_name="cpu",
+                                     seconds=3.0)
+    assert out["failed"] == 0 and out["completed"] == out["submitted"] == 30
+    assert {k: v for k, v in out["faults"]["injected"].items() if v} == {"kill-replica": 1}
+    assert out["faults"]["recoveries"] == 1
+    assert out["events"] > 0
+    for name in ("stats.json", "events.jsonl", "slo_verdict.json"):
+        assert (tmp_path / name).exists()
+
+
+def test_profiler_phase_rehearsed_on_the_cpu(kron10, cpu_card):
+    from repro_torch.analytics.engine import BFSQueryEngine
+    from repro_torch.core import bfs
+
+    dev = cpu_card
+    # a cached wave and SSSP program of the graph, as phase 20 leaves them
+    eng = BFSQueryEngine(kron10["pg"], bfs.BFSConfig(fanout=4, mode="direction_optimizing"),
+                         lanes=chip_smoke.LANES, device=dev)
+    eng.query([1, 2])
+    eng.sssp([1])
+    root = int(np.flatnonzero(kron10["labels"] == np.bincount(kron10["labels"]).argmax())[0])
+    out = chip_smoke.run_profiler(kron10, 4, dev, root, _single(kron10, dev))
+    assert out["levels"] == len(out["directions"]) > 0
+    assert {c["algo"] for c in out["cache"] if c["supported"]} >= {"bfs", "sssp"}
+    assert all(c["reconciled"] for c in out["cache"] if c["supported"])
+    assert set(out["kernel_calls"]) >= {"frontier_gather_full", "frontier_scatter"}
+    assert out["launches"]["frontier_scatter"] > 0
