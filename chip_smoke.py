@@ -10,17 +10,29 @@ frontier syncs, the flight recorder, the multi-source BFS wave, SSSP,
 Brandes betweenness and the vertex programs PageRank, connected
 components, k-core and triangle counting, streaming mutations, the query
 engine, the query service, the replicated serving CLI and the cost-model
-profiler), and holds them to account:
+profiler, and the LM side's serving path), and holds them to account:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and numpy versions;
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
-3. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
+3. the LM serving path, before the graph phases (its state freed after):
+   qwen3-1.7b at its published size (28 layers, d 2048, 1,720,837,120
+   parameters) in bfloat16 with seeded weights, ``serve.engine.generate``
+   of 8 prompts of 512 tokens, 128 greedy new tokens, twice (identical, ids
+   in the vocabulary, the first token the forward's argmax), the same loop
+   timed step by step against the decode step's least time over HBM, a
+   sampled run (temperature 0.8, top-k 50) twice (repeatable); in float32
+   with TF32 off, prefill + teacher-forced decode against the full forward
+   at the reference's tolerance (qwen3-1.7b: 3072 + 64 tokens, mamba2-130m
+   at its published size: 1024 + 32); every arch's reduced config on the
+   card against the port on the CPU (same weights, 1e-4); none of the four
+   graph kernels launched;
+4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
    torus the same way; small Kronecker graphs for the host oracles (scale
    12 for Brandes, 14 for k-core peeling) and for the triangle count
    (scale 15, the largest the reference's int32 bit index allows);
-4. kernel checks at every call site: each kernel against its plain PyTorch
+5. kernel checks at every call site: each kernel against its plain PyTorch
    version on the card, at the shapes the layout gives that site, exactly
    (integer kernels), with its time (CUDA events, L2 flushed before each
    launch), the plain version's time and the memory bound; the scatter at
@@ -29,49 +41,49 @@ profiler), and holds them to account:
    of the Rabenseifner reduce-scatter rounds, the xla all-gather reduce
    (K = P), the multi-source wave's buffer, the BC wave's buffer, the
    k-core peel bitmap and the triangle adjacency;
-5. edge cases: the scatter and both gathers held exactly against their
+6. edge cases: the scatter and both gathers held exactly against their
    plain versions at the shapes and inputs a warp-per-block design can get
    wrong (one block, ragged grids, eb not a multiple of 16, misaligned
    views, the widest windows, hub blocks, bit 31, padding), the full gather
    at bitmaps of 64 to 600,000 words, in sorted and random order, on both
    routes;
-6. Kronecker BFS, direction-optimizing, butterfly fanout 4, through the
+7. Kronecker BFS, direction-optimizing, butterfly fanout 4, through the
    kernels: per-root time, trimmed GTEP/s, Graph500-style validation of
    every root, one root against the plain path bit for bit;
-7. torus BFS, top-down (the windowed-gather path), the same way;
-8. the launch count of every kernel over phases 6 and 7 (each must be > 0),
+8. torus BFS, top-down (the windowed-gather path), the same way;
+9. the launch count of every kernel over phases 7 and 8 (each must be > 0),
    and from the counts the launches per BFS of every call site;
-9. the other syncs: Kronecker under ``adaptive``, ``sparse``,
-   ``rabenseifner`` and ``xla``, torus under ``adaptive``; every root
-   validated, one root against the dense butterfly bit for bit, that root
-   traced (the same distances and kernel launches as untraced, the bytes
-   each rank sent equal to the byte model level by level, the merge
-   launches equal to what the trace's branches call for), the trace's
-   cost in wall time, the level table, and the adaptive decision's cost;
-10. multi-source BFS: one 32-lane Kronecker wave, direction-optimizing,
+10. the other syncs: Kronecker under ``adaptive``, ``sparse``,
+    ``rabenseifner`` and ``xla``, torus under ``adaptive``; every root
+    validated, one root against the dense butterfly bit for bit, that root
+    traced (the same distances and kernel launches as untraced, the bytes
+    each rank sent equal to the byte model level by level, the merge
+    launches equal to what the trace's branches call for), the trace's
+    cost in wall time, the level table, and the adaptive decision's cost;
+11. multi-source BFS: one 32-lane Kronecker wave, direction-optimizing,
     under ``butterfly`` and ``adaptive``, every lane against the
     single-source port's distances for its root; time, GTEP/s, memory;
-11. SSSP under ``butterfly`` (4 roots), ``adaptive`` and ``sparse`` (2
+12. SSSP under ``butterfly`` (4 roots), ``adaptive`` and ``sparse`` (2
     each) and the butterfly with delta-32 buckets (1): every root passes
     the Graph500 SSSP certificate on the card, the first root equals the
     butterfly's distances bit for bit under every sync, and, traced, each
     rank's bytes equal the byte model at every iteration;
-12. BC: one 4-lane Kronecker wave, top-down, butterfly: each lane's levels
+13. BC: one 4-lane Kronecker wave, top-down, butterfly: each lane's levels
     equal the single-source BFS, each lane satisfies Brandes' identity
     (sum of dependencies = sum of (d - 1)); scale 12, 8 sources, against
     host Brandes within 1e-4;
-13. PageRank under ``butterfly`` and ``sparse`` (delta mode), with
+14. PageRank under ``butterfly`` and ``sparse`` (delta mode), with
     PyTorch's deterministic algorithms on: the L1 residual of one more
     power step within ``2 tol d / (1 - d)``, sparse equal to dense bit for
     bit;
-14. connected components under ``butterfly`` and ``adaptive``: labels
+15. connected components under ``butterfly`` and ``adaptive``: labels
     equal the host's components;
-15. k-core: the h-index fixed point at every vertex, on the card; scale
+16. k-core: the h-index fixed point at every vertex, on the card; scale
     14 against host peeling;
-16. triangle counts at scale 15 against the host oracle;
-17. the lane-packed repair (``repair_rows``, two 32-lane waves) at
+17. triangle counts at scale 15 against the host oracle;
+18. the lane-packed repair (``repair_rows``, two 32-lane waves) at
     Kronecker scale 21, each row against the plain BFS from scratch;
-18. streaming mutations on a copy of the Kronecker partition (the phases
+19. streaming mutations on a copy of the Kronecker partition (the phases
     before and after keep the original): each rank's slack; an
     insert-only and a mixed (inserts and deletes) seeded batch, cut to the
     slack, patched in place; after each, cached BFS rows repaired under
@@ -80,50 +92,52 @@ profiler), and holds them to account:
     bit for bit to the from-scratch port traversal of the mutated
     partition and every SSSP row certified on the overlay's edges; then a
     root whose one-edge batch is proven unchanged with no launch;
-19. a batch of 0.1 % of the edges refused by the in-place patch with every
+20. a batch of 0.1 % of the edges refused by the in-place patch with every
     partition array byte-equal to before, then the compaction path
     (``overlay.compact()``, ``partition_1d``) whose fresh BFS and SSSP
     pass the certificates;
-20. the query engine: 40 queries (32 distinct) in one wave, each row equal
-    to the single-source BFS; ``sssp`` equal to phase 11; ``cc`` equal to
+21. the query engine: 40 queries (32 distinct) in one wave, each row equal
+    to the single-source BFS; ``sssp`` equal to phase 12; ``cc`` equal to
     the host components; a second engine on the same key builds nothing;
     the engine on the mutated copy, refreshed, answers for it;
-21. ``bitmap_or_reduce`` at the repair's OR-sync shapes, exact and timed;
-22. the query service (``GraphQueryService``) on a copy of the Kronecker
+22. ``bitmap_or_reduce`` at the repair's OR-sync shapes, exact and timed;
+23. the query service (``GraphQueryService``) on a copy of the Kronecker
     partition: a seeded stream of about 100 requests (``bfs`` on 40 roots
     with duplicates in flight, ``closeness``, ``sssp``, ``cc``,
     ``pagerank``, then repeats), each answer equal to the direct path
-    (the single-source kernel BFS, phases 11, 13 and 14), the duplicates
+    (the single-source kernel BFS, phases 12, 14 and 15), the duplicates
     folded, the repeats served from the cache with no wave; then a batch
     cut to the slack through ``apply_updates``, every cached row that
     survives or is repaired equal to the from-scratch traversal of the
     mutated copy;
-23. the serving CLI (``serve_graph.main``) at Kronecker scale 20: two
+24. the serving CLI (``serve_graph.main``) at Kronecker scale 20: two
     replicas, one killed by seeded chaos, mutation batches, the event log,
     SLOs and the stats: no future fails, one kill and one recovery, the
     reference's stats keys, every event valid, the SLO verdict written;
-24. the cost-model profiler (``BFSQueryEngine.profile``) on the kernel
+25. the cost-model profiler (``BFSQueryEngine.profile``) on the kernel
     path: the byte model equal to the Communicator's count, the per-level
-    directions equal to phase 6's for the root, every supported cached
+    directions equal to phase 7's for the root, every supported cached
     program reconciled, the three kernels of the path launched;
-25. one root of each cell of phases 6-7 under ``torch.profiler`` (device
+26. one root of each cell of phases 7-8 under ``torch.profiler`` (device
     time by kernel and by call site, the device's busy share), after every
     timed run, with its per-level directions and launch counts against the
-    same root run unprofiled; the Kronecker paths of phase 9 (and the
+    same root run unprofiled; the Kronecker paths of phase 10 (and the
     butterfly at the adaptive one's root), the waves, BC, k-core, the
     triangle count and the repairs in the same way;
     then the torus roots timed again, to show what a profiler session
     costs the runs after it;
-26. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
+27. the call-site tables, the kernel line, and ``{"ok": true, ...}`` last.
 
-Each path of phases 11-20 records its time, iterations, edges relaxed or
+Each path of phases 12-21 records its time, iterations, edges relaxed or
 examined and their rate, bytes a rank and peak memory.  Every path is
 driven with the launch counts set to 0 just before it and read just after;
 BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.
+JSON.  ``--lm-only`` runs phases 1 and 3 alone, with 4 decode steps under
+``torch.profiler`` after the timed runs (the full run profiles no LM step:
+a profiler session would precede the graph phases' timings).
 """
 
 from __future__ import annotations
@@ -542,7 +556,7 @@ def full_gather_inputs(case, gen, dev):
 
 
 def edge_cases(gen, dev):
-    """Phase 5: the scatter and both gathers exactly against their plain
+    """Phase 6: the scatter and both gathers exactly against their plain
     versions on the cases above, the full gather on each of its routes.  A
     hub block sends all its slots to bit 31 of its window's (or bitmap's)
     last word; windows no block covers stay zero."""
@@ -1253,7 +1267,7 @@ def merge_site_table(rows, paths):
 
 
 # ---------------------------------------------------------------------------
-# The weighted traversals and the vertex programs (phases 11-16)
+# The weighted traversals and the vertex programs (phases 12-17)
 # ---------------------------------------------------------------------------
 
 
@@ -1378,7 +1392,7 @@ def timed_run(fn, *args, **kwargs):
 
 
 def run_sssp(parts, fanout, seed, dev, syncs, delta, keep=None):
-    """Phase 11: SSSP on the weighted Kronecker graph under each sync of
+    """Phase 12: SSSP on the weighted Kronecker graph under each sync of
     ``syncs`` (sync -> roots) and the butterfly with ``delta`` buckets at
     the first root; every root passes the certificate on the card, the
     first root equals the butterfly's distances bit for bit under every
@@ -1452,7 +1466,7 @@ def run_sssp(parts, fanout, seed, dev, syncs, delta, keep=None):
 
 
 def run_bc(parts, fanout, seed, dev, single, n_lanes, small):
-    """Phase 12: one ``n_lanes``-lane Brandes wave, top-down, butterfly, on
+    """Phase 13: one ``n_lanes``-lane Brandes wave, top-down, butterfly, on
     the Kronecker graph: each lane's levels equal the single-source port's
     BFS at its root, each lane's dependencies satisfy Brandes' identity;
     then ``small`` (a small graph's parts) against host Brandes over 8
@@ -1528,7 +1542,7 @@ def run_program_path(label, parts, prog, cfg, dev, warmup=True):
 
 
 def run_pagerank(parts, fanout, dev, tol=1e-5, keep=None):
-    """Phase 13: PageRank under the butterfly and the sparse (delta) sync,
+    """Phase 14: PageRank under the butterfly and the sparse (delta) sync,
     both with PyTorch's deterministic algorithms on (the per-rank
     contribution sum is a ``scatter_add_``, whose CUDA atomics add in an
     order that changes from run to run): the L1 residual of one more power
@@ -1567,7 +1581,7 @@ def run_pagerank(parts, fanout, dev, tol=1e-5, keep=None):
 
 
 def run_cc(parts, fanout, dev):
-    """Phase 14: connected components under the butterfly and adaptive
+    """Phase 15: connected components under the butterfly and adaptive
     syncs, labels equal to the host's ``csr.connected_components``."""
     import numpy as np
 
@@ -1587,7 +1601,7 @@ def run_cc(parts, fanout, dev):
 
 
 def run_kcore(parts, fanout, dev, small):
-    """Phase 15: k-core on the Kronecker graph, the h-index fixed point
+    """Phase 16: k-core on the Kronecker graph, the h-index fixed point
     checked for every vertex on the card; ``small`` against the host
     peeling oracle.  Returns the summary and a function that runs it."""
     import numpy as np
@@ -1616,7 +1630,7 @@ def run_kcore(parts, fanout, dev, small):
 
 
 def run_triangles(parts, fanout, dev):
-    """Phase 16: triangle counts against the host oracle.  Returns the
+    """Phase 17: triangle counts against the host oracle.  Returns the
     summary and a function that runs the count."""
     import numpy as np
 
@@ -1636,7 +1650,7 @@ def run_triangles(parts, fanout, dev):
 
 
 # ---------------------------------------------------------------------------
-# Streaming mutations and the batched query engine (phases 17-21)
+# Streaming mutations and the batched query engine (phases 18-22)
 # ---------------------------------------------------------------------------
 
 
@@ -1726,7 +1740,7 @@ def scratch_fns(pg, fanout, dev):
 
 
 def mutation_setup(parts, fanout, seed, dev, n_roots):
-    """Phase 18's state: a copy of the weighted Kronecker partition (the
+    """Phase 19's state: a copy of the weighted Kronecker partition (the
     phases before keep the original), the delta overlay on its graph, an
     engine placed on the copy (its arrays are refreshed after every patch
     and the repairs read them), and cached BFS and SSSP rows of
@@ -1914,7 +1928,7 @@ def overflow_batch(mut, fanout, dev, ranks, fraction=OVERFLOW_FRACTION):
 
 
 def run_wave_repair(scale, edge_factor, ranks, fanout, seed, dev, n_rows_kept=WAVE_SUSPECTS):
-    """Phase 17: ``repair_rows`` over ``n_rows_kept`` cached BFS rows of a
+    """Phase 18: ``repair_rows`` over ``n_rows_kept`` cached BFS rows of a
     Kronecker graph of ``scale`` after a mixed batch (two 32-lane waves:
     32 suspects and the rest), each row against the from-scratch plain
     BFS of the mutated partition.  Returns the summary, a function that
@@ -1983,13 +1997,13 @@ def run_wave_repair(scale, edge_factor, ranks, fanout, seed, dev, n_rows_kept=WA
 
 
 def run_engine(parts, fanout, seed, dev, single, sssp_rows, mut):
-    """Phase 20: the query engine on the Kronecker graph: ``query`` of
-    ``LANES`` distinct roots (phase 10's) and 8 duplicates in one wave,
+    """Phase 21: the query engine on the Kronecker graph: ``query`` of
+    ``LANES`` distinct roots (phase 11's) and 8 duplicates in one wave,
     each row equal to the single-source kernel BFS and ``deduped_roots`` 8;
-    ``sssp`` of two roots equal to phase 11's distances; ``cc`` equal to
+    ``sssp`` of two roots equal to phase 12's distances; ``cc`` equal to
     the host components; a second engine on the same key builds nothing;
     the mutation engine, refreshed after the in-place patches, answers for
-    the mutated graph (phase 18's from-scratch rows)."""
+    the mutated graph (phase 19's from-scratch rows)."""
     import numpy as np
 
     from repro_torch.analytics import engine as engine_mod
@@ -2016,7 +2030,7 @@ def run_engine(parts, fanout, seed, dev, single, sssp_rows, mut):
     got, sssp_ms, _, _ = timed_run(eng.sssp, two)
     for r, row in zip(two, got):
         if not np.array_equal(row, sssp.assemble_distances(pg, sssp_rows[r])):
-            raise AssertionError(f"engine: sssp root {r} differs from phase 11")
+            raise AssertionError(f"engine: sssp root {r} differs from phase 12")
     labels, cc_ms, _, _ = timed_run(eng.vertex_program, "cc")
     if not np.array_equal(labels, min_id_labels(parts["labels"])):
         raise AssertionError("engine: cc labels differ from the host components")
@@ -2038,14 +2052,14 @@ def run_engine(parts, fanout, seed, dev, single, sssp_rows, mut):
                    levels=eng.stats.max_levels)
     log(f"  engine: {len(asked)} queries ({len(roots)} distinct) in one wave, {ms:.1f} ms, "
         f"== single-source BFS, 8 folded; launches {launches}; peak {peak / 1e9:.2f} GB; "
-        f"sssp {len(two)} roots {sssp_ms:.1f} ms == phase 11; cc {cc_ms:.1f} ms == host; "
+        f"sssp {len(two)} roots {sssp_ms:.1f} ms == phase 12; cc {cc_ms:.1f} ms == host; "
         f"a second engine built nothing (cache hit); the refreshed mutation engine's "
         f"{len(mroots)} rows == from scratch on the mutated graph ({refresh_ms:.1f} ms)")
     return summary
 
 
 # ---------------------------------------------------------------------------
-# The serving stack and the profiler (phases 22-24)
+# The serving stack and the profiler (phases 23-25)
 # ---------------------------------------------------------------------------
 
 # the service at full size: result-cache rows (an int64 row is 8 B a vertex,
@@ -2060,7 +2074,7 @@ SERVICE_CLOSENESS = 10
 SERVICE_REPEATS = 36
 SERVICE_REPAIR_BUDGET = 1
 # PageRank's agreement between two converged runs: 2 tol d / (1 - d) at
-# phase 13's tol 1e-5 and damping 0.85
+# phase 14's tol 1e-5 and damping 0.85
 PR_SLACK = 2 * 1e-5 * 0.85 / 0.15
 # the serving CLI: Kronecker scale, seconds and rate of open-loop load,
 # chaos, mutation batches a second and their undirected inserts
@@ -2080,10 +2094,10 @@ FAULT_KEYS = {"injected", "schedule", "retries", "hedges", "failovers", "recover
 
 
 def service_stream(parts, seed, sssp_roots):
-    """Phase 22's seeded request stream: ``bfs`` on ``SERVICE_ROOTS``
+    """Phase 23's seeded request stream: ``bfs`` on ``SERVICE_ROOTS``
     distinct largest-component roots and ``SERVICE_DUPLICATES`` duplicates,
     ``closeness`` on some of those roots, ``sssp`` on ``sssp_roots`` (phase
-    11's), one ``cc`` and one ``pagerank``, in a seeded order (the burst);
+    12's), one ``cc`` and one ``pagerank``, in a seeded order (the burst);
     then the repeats of answered roots.  Returns ``(burst, repeats)``, each
     ``[(algo, root)]``."""
     import numpy as np
@@ -2106,13 +2120,13 @@ def service_stream(parts, seed, sssp_roots):
 
 
 def run_service(parts, fanout, seed, dev, single, sssp_rows, ranks):
-    """Phase 22: ``GraphQueryService`` on a deep copy of the weighted
+    """Phase 23: ``GraphQueryService`` on a deep copy of the weighted
     Kronecker partition (the later phases keep the original), the burst of
     :func:`service_stream` queued before the scheduler starts, then its
     repeats.  Every answer equals the direct path: ``bfs`` the single-source
     kernel BFS (``single``), ``closeness`` ``measures.closeness_centrality``
-    of it, ``sssp`` phase 11's distances, ``cc`` the host components (phase
-    14's labels), ``pagerank`` phase 13's ranks within ``PR_SLACK``.
+    of it, ``sssp`` phase 12's distances, ``cc`` the host components (phase
+    15's labels), ``pagerank`` phase 14's ranks within ``PR_SLACK``.
     Duplicates fold, the repeats cost zero waves.  Then a batch cut to the
     slack (``fitting_batch``) through ``apply_updates``: every cached row
     that survives or is repaired equals the from-scratch traversal of the
@@ -2206,7 +2220,7 @@ def run_service(parts, fanout, seed, dev, single, sssp_rows, ranks):
 
 
 def service_mutation(svc, parts, fanout, seed, dev):
-    """The second half of phase 22: ``apply_updates`` of a seeded batch cut
+    """The second half of phase 23: ``apply_updates`` of a seeded batch cut
     to the copy's slack; every cached row under the new version (kept or
     repaired) equals the from-scratch traversal of the mutated copy: BFS
     and SSSP rows bit for bit, closeness from the scratch BFS row, PageRank
@@ -2287,7 +2301,7 @@ def service_mutation(svc, parts, fanout, seed, dev):
 
 def run_serving_cli(scale, edge_factor, ranks, fanout, seed, out_dir, dev_name="cuda",
                     seconds=CLI_SECONDS):
-    """Phase 23: ``repro_torch.launch.serve_graph.main`` in this process: two
+    """Phase 24: ``repro_torch.launch.serve_graph.main`` in this process: two
     replicas behind the router, ``CLI_CHAOS`` killing one, mutation batches
     through the replication log, the event log, the SLOs of
     ``examples/slo_chaos.json`` and the stats, all written to ``out_dir``.
@@ -2362,10 +2376,10 @@ def run_serving_cli(scale, edge_factor, ranks, fanout, seed, out_dir, dev_name="
 
 
 def run_profiler(parts, fanout, dev, root, single):
-    """Phase 24: ``BFSQueryEngine.profile`` on the Kronecker graph (the
-    engine of phase 20's config, its programs from the cache), on the
+    """Phase 25: ``BFSQueryEngine.profile`` on the Kronecker graph (the
+    engine of phase 21's config, its programs from the cache), on the
     kernel path with the ETL's layout: the byte model reconciles with the
-    Communicator exactly, the per-level directions equal phase 6's for the
+    Communicator exactly, the per-level directions equal phase 7's for the
     root, every supported cached program reconciles, and the three kernels
     of the path launch.  Returns the summary."""
     import torch
@@ -2384,7 +2398,7 @@ def run_profiler(parts, fanout, dev, root, single):
     if not prof.reconciled or prof.wire_efficiency != 1.0:
         raise AssertionError(f"profile: not reconciled ({prof.model_bytes} / {prof.hlo_bytes})")
     if dirs != seq:
-        raise AssertionError(f"profile: directions {dirs} != phase 6's {seq}")
+        raise AssertionError(f"profile: directions {dirs} != phase 7's {seq}")
     bad = [c.algo for c in cache if c.supported and not c.reconciled]
     if bad or not any(c.supported for c in cache):
         raise AssertionError(f"profile: cached programs not reconciled: {bad} of "
@@ -2401,7 +2415,7 @@ def run_profiler(parts, fanout, dev, root, single):
                    kernel_calls=rf["kernel_calls"], bytes_per_rank=prof.hlo_bytes["total"],
                    directions=dirs, launches=launches, peak_bytes=peak,
                    cache=[c.to_dict() for c in cache])
-    log(f"  profile root {root}: {prof.levels} levels ({run_lengths(dirs)} == phase 6), "
+    log(f"  profile root {root}: {prof.levels} levels ({run_lengths(dirs)} == phase 7), "
         f"wall {prof.wall_ms:.3f} ms min of 3; achieved {prof.achieved_gteps:.4f} GTEP/s "
         f"vs modeled {prof.modeled_gteps:.4f}, dominant {rf['dominant']} (memory "
         f"{rf['t_memory'] * 1e3:.3f} ms for {rf['bytes_per_device'] / 1e9:.3f} GB, network "
@@ -2412,6 +2426,361 @@ def run_profiler(parts, fanout, dev, root, single):
     torch.cuda.empty_cache()
     return summary
 
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path (phase 3)
+# ---------------------------------------------------------------------------
+
+# the served model at its published size, bfloat16: prompts, new tokens and
+# the sampled run's settings
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 128
+LM_TEMPERATURE, LM_TOP_K = 0.8, 50
+# float32 consistency: (arch, batch, prefill tokens, teacher-forced steps);
+# qwen3-1.7b's prefill runs 3 query chunks of 1024, its forward over 3136
+# tokens chunks of 64; mamba2-130m's prefill 4 SSD chunks of 256, its
+# forward over 1056 tokens chunks of 32
+LM_CHECKS = (("qwen3-1.7b", 2, 3072, 64), ("mamba2-130m", 2, 1024, 32))
+# tests/test_models.py:121-123, the reference's own prefill/decode tolerance
+LM_RTOL, LM_ATOL = 2e-2, 2e-3
+# every arch's reduced config on the card against the port on the CPU
+CARD_TOL, CARD_PROMPT, CARD_STEPS = 1e-4, 16, 4
+LM_PROFILE_STEPS = 4
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """float32 matmuls in float32 (TF32 off) inside the block."""
+    import torch
+
+    old = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old[0])
+        torch.backends.cudnn.allow_tf32 = old[1]
+
+
+def check_close(label, got, want, rtol, atol):
+    """``|got - want| <= atol + rtol |want|`` everywhere, or raise; returns the
+    largest absolute error and the largest share of the tolerance used."""
+    import torch
+
+    got, want = got.float(), want.float().to(got.device)
+    err = (got - want).abs()
+    share = float((err / (atol + rtol * want.abs())).max())
+    out = dict(max_abs_err=float(err.max()), tol_share=share, rtol=rtol, atol=atol)
+    if not torch.isfinite(got).all() or share > 1.0:
+        raise AssertionError(f"{label}: outside rtol {rtol} atol {atol}: {out}")
+    return out
+
+
+def kv_bytes_per_token(cfg) -> int:
+    """K and V of one token over every attention layer, in the cache's dtype."""
+    from repro_torch.dist.sharding import DTYPES
+
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    return (n_attn * 2 * cfg.n_kv_heads * cfg.resolved_head_dim
+            * DTYPES[cfg.param_dtype].itemsize)
+
+
+def timed_generate(cfg, model, prompts, n_new):
+    """``engine.generate``'s greedy loop step by step, each bracketed by CUDA
+    events: (tokens, prefill ms, decode ms of every step)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    prefill, decode = api.prefill_fn(cfg), api.decode_fn(cfg)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 1)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        marks[0].record()
+        logits, cache, pos = prefill(model, {"tokens": prompts})
+        cache = engine.prepare_decode_cache(cfg, cache, pos, pos + n_new)
+        tok = engine.sample(logits)
+        marks[1].record()
+        out = [tok]
+        for i in range(n_new - 1):
+            logits, cache = decode(model, cache, tok[:, None], pos + i)
+            tok = engine.sample(logits)
+            marks[i + 2].record()
+            out.append(tok)
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return torch.stack(out, dim=1).cpu().numpy(), ms[0], ms[1:]
+
+
+def lm_serve(dev, seed):
+    """qwen3-1.7b at its published size in bfloat16, weights from a seeded
+    generator on the card: ``serve.engine.generate`` of ``LM_BATCH`` seeded
+    prompts of ``LM_PROMPT`` tokens, ``LM_NEW`` greedy new tokens, twice
+    (identical), every id in the vocabulary, the first token equal to the
+    argmax of ``lm_logits`` on ``forward_hidden``'s last position; the same
+    loop timed step by step (the same tokens); a sampled run twice (valid,
+    repeatable). The decode step's least time: the weights (the tied head
+    read once) and the KV cache's valid entries over HBM."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api, lm
+    from repro_torch.serve import engine
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != api.param_counts(cfg)["total"]:
+        raise AssertionError(f"{LM_ARCH}: {n_params} parameters, the config has "
+                             f"{api.param_counts(cfg)['total']}")
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV) of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} padded to {cfg.padded_vocab}; {n_params:,} parameters, "
+        f"{weight_bytes / 1e9:.3f} GB in {cfg.param_dtype}, seeded in {init_s:.1f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev,
+                            dtype=torch.int32)
+    engine.generate(cfg, model, prompts, 4)  # warm-up
+    walls, runs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(engine.generate(cfg, model, prompts, LM_NEW).tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    greedy = runs[0]
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("greedy generate: two runs differ")
+    if greedy.shape != (LM_BATCH, LM_NEW) or greedy.min() < 0 or greedy.max() >= cfg.vocab:
+        raise AssertionError(f"greedy ids outside [0, {cfg.vocab}): {greedy.min()}.."
+                             f"{greedy.max()}, shape {greedy.shape}")
+    with torch.inference_mode():
+        h = lm.forward_hidden(cfg, model, prompts)
+        first = torch.argmax(lm.lm_logits(cfg, model, h[:, -1]), -1).cpu().numpy()
+        del h
+    if not np.array_equal(greedy[:, 0], first):
+        raise AssertionError(f"first token {greedy[:, 0]} != forward argmax {first}")
+    timed, prefill_ms, step_ms = timed_generate(cfg, model, prompts, LM_NEW)
+    if not np.array_equal(timed, greedy):
+        raise AssertionError("the step-timed loop's tokens differ from generate's")
+    sampled = [engine.generate(cfg, model, prompts, LM_NEW, temperature=LM_TEMPERATURE,
+                               top_k=LM_TOP_K, seed=seed + 1).tokens for _ in range(2)]
+    if not np.array_equal(sampled[0], sampled[1]):
+        raise AssertionError("sampled generate: two runs with one seed differ")
+    if sampled[0].min() < 0 or sampled[0].max() >= cfg.vocab:
+        raise AssertionError("sampled ids outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    kv_tok = kv_bytes_per_token(cfg)
+    # decode step i writes position LM_PROMPT + i and reads that many + 1
+    bound_ms = [(weight_bytes + LM_BATCH * (LM_PROMPT + i + 1) * kv_tok)
+                / HBM_BYTES_PER_S * 1e3 for i in range(LM_NEW - 1)]
+    med, med_bound = float(np.median(step_ms)), float(np.median(bound_ms))
+    toks = LM_BATCH * LM_NEW
+    out = dict(arch=cfg.name, params=n_params, weight_bytes=weight_bytes, init_s=init_s,
+               batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW, generate_s=walls,
+               tokens_per_s=[toks / w for w in walls], prefill_ms=prefill_ms,
+               decode_ms_median=med, decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+               decode_bound_ms_median=med_bound, kv_bytes_per_token=kv_tok,
+               decode_tokens_per_s=LM_BATCH / med * 1e3, peak_bytes=peak,
+               distinct_greedy=int(len(np.unique(greedy))),
+               distinct_sampled=int(len(np.unique(sampled[0]))),
+               sampled_differs=bool(not np.array_equal(sampled[0], greedy)))
+    log(f"  generate {LM_BATCH} x ({LM_PROMPT} + {LM_NEW} greedy): "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"{', '.join(f'{t:.1f}' for t in out['tokens_per_s'])} tokens/s; identical, ids in "
+        f"[0, {cfg.vocab}), first == forward argmax; {out['distinct_greedy']} distinct ids")
+    log(f"  step by step: prefill {prefill_ms:.2f} ms; decode median {med:.3f} ms a step "
+        f"({min(step_ms):.3f}-{max(step_ms):.3f}; {out['decode_tokens_per_s']:.1f} tokens/s) "
+        f"against a least {med_bound:.3f} ms over HBM ({weight_bytes / 1e9:.3f} GB of "
+        f"weights + KV {kv_tok:,} B a token x {LM_BATCH} x ~{LM_PROMPT + LM_NEW // 2}): "
+        f"{med_bound / med:.1%} of the bound")
+    log(f"  sampled (temperature {LM_TEMPERATURE}, top-k {LM_TOP_K}, seed {seed + 1}): "
+        f"repeatable, ids valid, {out['distinct_sampled']} distinct; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    return out, model, prompts
+
+
+def lm_consistency(arch, batch, n_prefill, n_steps, dev, seed):
+    """Prefill ``n_prefill`` tokens then ``n_steps`` teacher-forced decode
+    steps, float32 with TF32 off: the ``n_steps + 1`` logit rows against
+    ``lm_logits(forward_hidden(...))`` over the same tokens, at the
+    reference's own tolerance."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api, layers, lm, mamba2
+    from repro_torch.serve import engine
+
+    cfg = dc.replace(configs.get_config(arch), param_dtype="float32",
+                     compute_dtype="float32")
+    n = n_prefill + n_steps
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with exact_float32(), torch.inference_mode():
+        model = api.init_params(cfg, seed, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab, (batch, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        logits, cache, pos = api.prefill_fn(cfg)(model, {"tokens": toks[:, :n_prefill]})
+        cache = engine.prepare_decode_cache(cfg, cache, pos, n)
+        rows = [logits]
+        for i in range(n_steps):
+            logits, cache = api.decode_fn(cfg)(model, cache, toks[:, pos + i:pos + i + 1],
+                                               pos + i)
+            rows.append(logits)
+        got = torch.stack(rows, dim=1)
+        del cache, rows
+        h = lm.forward_hidden(cfg, model, toks)
+        want = lm.lm_logits(cfg, model, h[:, n_prefill - 1:])
+        del h, model
+    torch.cuda.synchronize()
+    if cfg.family == "ssm":
+        plan = [f"SSD chunk {mamba2.ssd_chunk(cfg.ssm_chunk, m)}" for m in (n_prefill, n)]
+    else:
+        plan = [f"query chunk {layers.attn_chunking(cfg, m)[0]}" for m in (n_prefill, n)]
+    out = dict(arch=arch, batch=batch, prefill=n_prefill, steps=n_steps, rows=got.shape[1],
+               plans=plan, seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               **check_close(f"{arch} prefill + decode against the forward", got, want,
+                             LM_RTOL, LM_ATOL))
+    log(f"  {arch} float32: prefill {n_prefill} ({plan[0]}) + {n_steps} decode steps == "
+        f"forward over {n} ({plan[1]}), {out['rows']} rows x {cfg.padded_vocab}: max abs "
+        f"err {out['max_abs_err']:.3e}, {out['tol_share']:.3f} of rtol {LM_RTOL} atol "
+        f"{LM_ATOL}; {out['seconds']:.1f} s, peak {out['peak_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def reduced_inputs(cfg, seed):
+    """Seeded prompts (and patches or frames) of a reduced config, on the CPU."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, CARD_PROMPT + CARD_STEPS)),
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = torch.as_tensor(rng.normal(size=(2, cfg.n_patches, cfg.patch_dim)),
+                                         dtype=torch.float32)
+    if cfg.family == "audio":
+        out["frames"] = torch.as_tensor(rng.normal(size=(2, cfg.n_frames, cfg.d_model)),
+                                        dtype=torch.float32)
+    return out
+
+
+def reduced_logits(cfg, model, inputs):
+    """Prefill ``CARD_PROMPT`` tokens and ``CARD_STEPS`` teacher-forced decode
+    steps on the model's device: the logit rows, (B, CARD_STEPS + 1, V)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    dev = model.embed.tok.device
+    inputs = {k: v.to(dev) for k, v in inputs.items()}
+    toks = inputs["tokens"]
+    with torch.inference_mode():
+        logits, cache, pos = api.prefill_fn(cfg)(model, dict(inputs,
+                                                            tokens=toks[:, :CARD_PROMPT]))
+        cache = engine.prepare_decode_cache(cfg, cache, pos, pos + CARD_STEPS)
+        rows = [logits]
+        for i in range(CARD_STEPS):
+            t = toks[:, CARD_PROMPT + i:CARD_PROMPT + i + 1]
+            logits, cache = api.decode_fn(cfg)(model, cache, t, pos + i)
+            rows.append(logits)
+    return torch.stack(rows, dim=1).cpu()
+
+
+def lm_card_vs_cpu(dev, seed):
+    """Every arch at its reduced config, float32, TF32 off: prefill and
+    ``CARD_STEPS`` decode steps on the card against the same port on the
+    CPU with the same weights (MoE for qwen3-moe, kimi-k2 and jamba, the
+    hybrid for jamba, patches for the VLM, frames for whisper)."""
+    import copy
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    rows = {}
+    with exact_float32():
+        for arch in configs.ARCH_NAMES:
+            cfg = configs.reduced(configs.get_config(arch))
+            cpu = api.init_params(cfg, seed, device="cpu")
+            card = copy.deepcopy(cpu).to(dev)
+            inputs = reduced_inputs(cfg, seed)
+            want = reduced_logits(cfg, cpu, inputs)
+            got = reduced_logits(cfg, card, inputs)
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            rows[arch] = dict(greedy_agreement=agree, **check_close(
+                f"{arch} card against CPU", got, want, CARD_TOL, CARD_TOL))
+            log(f"  {arch:22s} max abs err {rows[arch]['max_abs_err']:.2e} "
+                f"({rows[arch]['tol_share']:.3f} of the tolerance), greedy tokens agree "
+                f"{agree:.0%}")
+    return rows
+
+
+def run_lm(dev, seed, profile_decode):
+    """Phase 3: the LM serving path (module docstring, item 3). The graph
+    kernels are not on this path: their counts stay 0. With
+    ``profile_decode``, ``LM_PROFILE_STEPS`` decode steps run under
+    ``torch.profiler`` afterwards (device busy time and top kernels)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    build.reset_launches()
+    out = {}
+    out["serve"], model, prompts = lm_serve(dev, seed)
+    if profile_decode:
+        from repro_torch import configs
+
+        cfg = configs.get_config(LM_ARCH)
+        with torch.inference_mode():
+            logits, cache, pos = api.prefill_fn(cfg)(model, {"tokens": prompts})
+            cache = engine.prepare_decode_cache(cfg, cache, pos, pos + LM_PROFILE_STEPS)
+            tok = engine.sample(logits)
+
+            def steps():
+                t = tok
+                for i in range(LM_PROFILE_STEPS):
+                    lg, _ = api.decode_fn(cfg)(model, cache, t[:, None], pos + i)
+                    t = engine.sample(lg)
+
+            out["decode_profile"] = merge_profile(f"{LM_PROFILE_STEPS} decode steps", steps)
+            del cache
+    del model, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["consistency"] = [lm_consistency(*check, dev, seed) for check in LM_CHECKS]
+    torch.cuda.empty_cache()
+    out["reduced"] = lm_card_vs_cpu(dev, seed)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the LM path launched graph kernels: {launched}")
+    log("  the LM path launched none of the four graph kernels")
+    gc.collect()
+    if dev.type == "cuda":
+        # the allocator holds cuBLAS's workspace (32 MiB on Hopper) for the
+        # process: give it back, so the graph phases' peak is theirs alone
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -2440,6 +2809,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-out", default=os.path.join(ROOT, "build", "serve_cli"),
                     help="where the serving CLI writes its stats, events and verdict")
     ap.add_argument("--out", default=None, help="also write the results here")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run the card line and the LM phase alone (with a profile of "
+                         "decode steps), for iterating on the LM path")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2461,13 +2833,28 @@ def main(argv=None) -> int:
         log(f"{msg} (at {time.perf_counter() - t_start:.0f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
-    phase("[1/26] card")
+    phase("[1/27] card")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    phase("[2/26] build")
+    if args.lm_only:
+        phase("[3/27] the LM serving path (alone)")
+        lm_out = run_lm(dev, args.seed, profile_decode=True)
+        log(f"  total {time.perf_counter() - t_start:.0f} s")
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                               lm=lm_out, total_s=time.perf_counter() - t_start,
+                               args=vars(args)), f, indent=1, default=float)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    phase("[2/27] build")
     t0 = time.perf_counter()
     lib = build.build()
     build_s = time.perf_counter() - t0
@@ -2477,7 +2864,13 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack frame" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    phase("[3/26] ETL")
+    phase(f"[3/27] the LM serving path: {LM_ARCH} at its published size (bfloat16), "
+          f"float32 consistency, every arch's reduced config against the CPU")
+    lm_out = run_lm(dev, args.seed, profile_decode=False)
+    log(f"  released the LM state: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.reset_peak_memory_stats()
+
+    phase("[4/27] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
@@ -2510,7 +2903,7 @@ def main(argv=None) -> int:
                                                         programs.by_name("tri"))),
     }
 
-    phase("[4/26] kernel checks at every call site (exact, at the paths' shapes)")
+    phase("[5/27] kernel checks at every call site (exact, at the paths' shapes)")
     floor_ms = event_floor_ms()
     log(f"  timing floor (a 4-byte fill, timed the same way): {floor_ms:.4f} ms")
     gen = torch.Generator(device=dev)
@@ -2529,20 +2922,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
-    phase("[5/26] edge cases of the scatter and both gathers (exact, every route)")
+    phase("[6/27] edge cases of the scatter and both gathers (exact, every route)")
     n_edge = edge_cases(gen, dev)
 
-    phase(f"[6/26] Kronecker BFS: direction_optimizing, butterfly fanout "
+    phase(f"[7/27] Kronecker BFS: direction_optimizing, butterfly fanout "
         f"{args.fanout}, kernels, {args.roots} roots")
     kron_sum, kron_launch, kron_profile, _ = run_bfs(
         "kronecker", kron, kcfg, args.roots, args.seed, dev)
 
-    phase(f"[7/26] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
+    phase(f"[8/27] torus BFS: top_down, butterfly fanout {args.fanout}, kernels, "
         f"{args.torus_roots} roots")
     torus_sum, torus_launch, torus_profile, torus_again = run_bfs(
         "torus", torus, tcfg, args.torus_roots, args.seed, dev)
 
-    phase("[8/26] kernel launches on the main path (phases 6 and 7)")
+    phase("[9/27] kernel launches on the main path (phases 7 and 8)")
     records = []
     for name, (cell, plane, act) in MAIN_SITE.items():
         rec = next(dict(r) for r in rows if r["name"] == name and r["cell"] == cell
@@ -2559,7 +2952,7 @@ def main(argv=None) -> int:
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
 
-    phase(f"[9/26] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
+    phase(f"[10/27] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
         f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
     paths, profiles = {}, {}
     cells = [("kronecker", kron, kcfg, "adaptive", 4 * SYNC_ROOTS)]
@@ -2585,7 +2978,7 @@ def main(argv=None) -> int:
             f"read) {paths[label]['decision_ms']:.4f} ms host, against "
             f"{per_level:.4f} ms a level of the trimmed BFS")
 
-    phase(f"[10/26] multi-source BFS: one {LANES}-lane Kronecker wave, "
+    phase(f"[11/27] multi-source BFS: one {LANES}-lane Kronecker wave, "
           f"direction_optimizing")
     single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
     for sync in ("butterfly", "adaptive"):
@@ -2596,43 +2989,43 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     slice5, sssp_rows = {}, {}
-    phase(f"[11/26] SSSP: weighted Kronecker, "
+    phase(f"[12/27] SSSP: weighted Kronecker, "
           f"{', '.join(f'{k} {v} roots' for k, v in SSSP_ROOTS.items())}, butterfly "
           f"delta {SSSP_DELTA} 1 root")
     slice5.update(run_sssp(kron, args.fanout, args.seed, dev, SSSP_ROOTS, SSSP_DELTA,
                            keep=sssp_rows))
     torch.cuda.empty_cache()
 
-    phase(f"[12/26] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
+    phase(f"[13/27] betweenness centrality: one {BC_LANES}-lane Kronecker wave, top_down, "
           f"butterfly; scale {args.bc_scale} against host Brandes")
     paths["bc"], profiles["bc"] = run_bc(kron, args.fanout, args.seed, dev, single,
                                          BC_LANES, small["bc"])
     torch.cuda.empty_cache()
 
-    phase("[13/26] PageRank: butterfly and sparse (delta)")
+    phase("[14/27] PageRank: butterfly and sparse (delta)")
     ranks = {}
     slice5.update(run_pagerank(kron, args.fanout, dev, keep=ranks))
     torch.cuda.empty_cache()
 
-    phase("[14/26] connected components: butterfly and adaptive")
+    phase("[15/27] connected components: butterfly and adaptive")
     slice5.update(run_cc(kron, args.fanout, dev))
     torch.cuda.empty_cache()
 
-    phase(f"[15/26] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
+    phase(f"[16/27] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
     paths["kcore"], profiles["kcore"] = run_kcore(kron, args.fanout, dev, small["kcore"])
     torch.cuda.empty_cache()
 
-    phase(f"[16/26] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
+    phase(f"[17/27] triangles: Kronecker scale {args.tri_scale}, butterfly, against the host")
     paths["tri"], profiles["tri"] = run_triangles(small["tri"], args.fanout, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[17/26] lane-packed repair: Kronecker scale {args.wave_scale}, "
+    phase(f"[18/27] lane-packed repair: Kronecker scale {args.wave_scale}, "
           f"{WAVE_SUSPECTS} rows in two {LANES}-lane waves")
     paths["repair wave"], profiles["repair wave"], wave_width = run_wave_repair(
         args.wave_scale, args.edge_factor, args.ranks, args.fanout, args.seed, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[18/26] mutation batches on a copy of the Kronecker partition, in place, "
+    phase(f"[19/27] mutation batches on a copy of the Kronecker partition, in place, "
           f"and single-row repair ({REPAIR_ROOTS} roots: BFS under "
           f"{', '.join(REPAIR_SYNCS)}, SSSP under butterfly)")
     from repro_torch.traversal import sssp
@@ -2648,19 +3041,19 @@ def main(argv=None) -> int:
     slice6["unchanged"] = unchanged_batch(mut, dev)
     torch.cuda.empty_cache()
 
-    phase(f"[19/26] a batch of {OVERFLOW_FRACTION:g} of the edges: refused in place "
+    phase(f"[20/27] a batch of {OVERFLOW_FRACTION:g} of the edges: refused in place "
           f"atomically, then compaction and repartition")
     slice6["overflow"] = overflow_batch(mut, args.fanout, dev, args.ranks)
     torch.cuda.empty_cache()
 
-    phase("[20/26] query engine: BFS waves with duplicates, SSSP, CC, the program "
+    phase("[21/27] query engine: BFS waves with duplicates, SSSP, CC, the program "
           "cache, refresh after the patches")
     paths["engine"] = run_engine(kron, args.fanout, args.seed, dev, single, sssp_rows, mut)
     repair_width = sssp.dist_rows(mut["pg"]) // 32
     del mut
     torch.cuda.empty_cache()
 
-    phase("[21/26] bitmap_or_reduce at the repair's OR-sync shapes (exact, timed)")
+    phase("[22/27] bitmap_or_reduce at the repair's OR-sync shapes (exact, timed)")
     for case in slice_merge_cases(gen, dev, args.ranks, args.fanout, {
             "repair_or": ("repair butterfly", repair_width),
             "repair_wave_or": ("repair wave", wave_width)}):
@@ -2668,19 +3061,19 @@ def main(argv=None) -> int:
         del case["args"]
         torch.cuda.empty_cache()
 
-    phase("[22/26] the query service at full size: a seeded request stream, then a "
+    phase("[23/27] the query service at full size: a seeded request stream, then a "
           "mutation batch through apply_updates")
     del batch, rerun, case
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  released phases 17-21's state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+    log(f"  released phases 18-22's state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated (the repair paths' profile runs keep theirs)")
     slice7 = {"service": run_service(kron, args.fanout, args.seed, dev, single, sssp_rows,
                                      ranks)}
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase(f"[23/26] the serving CLI: Kronecker scale {args.cli_scale}, 2 replicas, "
+    phase(f"[24/27] the serving CLI: Kronecker scale {args.cli_scale}, 2 replicas, "
           f"chaos {CLI_CHAOS!r}, mutations, events, SLOs")
     slice7["cli"] = run_serving_cli(args.cli_scale, args.edge_factor, args.ranks,
                                     args.fanout, args.seed, args.cli_out,
@@ -2688,10 +3081,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("[24/26] the cost-model profiler: engine.profile on the kernel path")
+    phase("[25/27] the cost-model profiler: engine.profile on the kernel path")
     slice7["profiler"] = run_profiler(kron, args.fanout, dev, kron_sum["first_root"], single)
 
-    phase("[25/26] profiles (one root each), then the torus roots timed again")
+    phase("[26/27] profiles (one root each), then the torus roots timed again")
     kron_sum["profile"] = kron_profile()
     torus_sum["profile"] = torus_profile()
     same_root = {}
@@ -2706,7 +3099,7 @@ def main(argv=None) -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"total {time.perf_counter() - t_start:.0f} s")
 
-    phase("[26/26] result")
+    phase("[27/27] result")
     site_table(rows, {"kronecker": kron_sum, "torus": torus_sum})
     for label, path in paths.items():
         launches = path["traced_launches"] if "traced_launches" in path else path["launches"]
@@ -2727,7 +3120,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
-                           slice5=slice5, slice6=slice6, slice7=slice7,
+                           slice5=slice5, slice6=slice6, slice7=slice7, lm=lm_out,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

@@ -1,0 +1,16 @@
+"""DeepSeek-LLM-7B [arXiv:2401.02954; hf]: llama-arch dense MHA."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    n_layers=30,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=11008,
+    vocab=102400,
+    head_dim=128,
+    fsdp=True,  # AdamW moments replicated over data blow 16GB otherwise
+    train_microbatches=4,
+)

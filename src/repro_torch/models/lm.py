@@ -1,0 +1,573 @@
+"""Decoder-only LM stack: dense / MoE / SSM / hybrid / VLM families.
+
+The port of ``repro.models.lm``. The reference stacks each homogeneous
+group of layers on a leading axis and scans it; here each group is a
+``ModuleList`` in ``layer_groups`` order, run by a Python loop:
+
+  dense / vlm : [("blocks", L)] or gemma3's [("periods", L/6), ("tail", r)]
+  moe         : [("dense_blocks", k), ("moe_blocks", L-k)]   (kimi: k=1)
+  ssm         : [("blocks", L)]                  mamba mixers, no MLP
+  hybrid      : [("periods", L/period)]          jamba: attn at
+                attn_offset, mamba elsewhere, MoE on odd sublayers
+
+A parameter's name is the reference's path with the stacked axes as
+``ModuleList`` indices (``groups.blocks.3.attn.wq`` is the reference's
+``groups/blocks/attn/wq[3]``), which is how ``api.from_reference`` carries
+weights across. The decode cache keeps the reference's layout (stacked
+``[n, B, S, Hk, D]`` per group; ``state``/``conv_*`` dicts for SSMs) and
+decode writes into it in place, so ``decode_inplace`` changes no result.
+
+Three entry points share the per-layer bodies: ``forward_hidden`` (train),
+``prefill`` (returns the KV/SSM cache), ``decode_step`` (one token).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import DTYPES, PD, resolve_dtype, tree_map
+from repro_torch.models import layers, mamba2, moe as moe_mod
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+
+def _stack(defs, n: int):
+    """Add a leading stacked-layer axis to every PD in a def tree."""
+    return tree_map(lambda pd: PD((n,) + pd.shape, ("layers",) + pd.logical, pd.init,
+                                  pd.dtype), defs)
+
+
+def _attn_block_defs(cfg: ModelConfig, use_moe: bool) -> Dict:
+    d = {
+        "ln1": layers.norm_defs(cfg),
+        "attn": layers.attn_defs(cfg),
+        "ln2": layers.norm_defs(cfg),
+    }
+    d["moe" if use_moe else "mlp"] = (
+        moe_mod.moe_defs(cfg) if use_moe else layers.mlp_defs(cfg)
+    )
+    return d
+
+
+def _ssm_block_defs(cfg: ModelConfig) -> Dict:
+    return {"ln1": layers.norm_defs(cfg), "ssm": mamba2.ssm_defs(cfg)}
+
+
+def _jamba_counts(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(mamba, dense-MLP, MoE) sublayers of one jamba period."""
+    per = cfg.attn_period
+    n_moe = sum(1 for j in range(per) if cfg.is_moe_layer(j))
+    return per - 1, per - n_moe, n_moe
+
+
+def _jamba_period_defs(cfg: ModelConfig) -> Dict:
+    n_mamba, n_dense, n_moe = _jamba_counts(cfg)
+    return {
+        "attn": {"ln": layers.norm_defs(cfg), "p": layers.attn_defs(cfg)},
+        "mamba": _stack({"ln": layers.norm_defs(cfg), "p": mamba2.ssm_defs(cfg)}, n_mamba),
+        "mlp": _stack({"ln": layers.norm_defs(cfg), "p": layers.mlp_defs(cfg)}, n_dense),
+        "moe": _stack({"ln": layers.norm_defs(cfg), "p": moe_mod.moe_defs(cfg)}, n_moe),
+    }
+
+
+def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
+    """(group name, stack length, kind) in execution order.
+
+    Sliding-window architectures (gemma3) run PERIODS of
+    ``locals_per_global + 1`` layers so each in-period position has a
+    fixed window (local layers take the sliced attention path; the global
+    layer takes the full path)."""
+    if cfg.family in ("dense", "vlm"):
+        if cfg.locals_per_global:
+            per = cfg.locals_per_global + 1
+            full, rem = divmod(cfg.n_layers, per)
+            g: List[Tuple[str, int, str]] = [("periods", full, "attn_period")]
+            if rem:  # trailing layers continue the pattern (all local)
+                g.append(("tail", rem, "attn_local"))
+            return g
+        return [("blocks", cfg.n_layers, "attn")]
+    if cfg.family == "moe":
+        g = []
+        if cfg.first_dense_layers:
+            g.append(("dense_blocks", cfg.first_dense_layers, "attn"))
+        g.append(("moe_blocks", cfg.n_layers - cfg.first_dense_layers, "attn_moe"))
+        return g
+    if cfg.family == "ssm":
+        return [("blocks", cfg.n_layers, "ssm")]
+    if cfg.family == "hybrid":
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a whole "
+                             f"number of {cfg.attn_period}-layer periods")
+        return [("periods", cfg.n_layers // cfg.attn_period, "jamba")]
+    raise ValueError(cfg.family)
+
+
+_GROUP_DEFS = {
+    "attn": lambda cfg: _attn_block_defs(cfg, use_moe=False),
+    "attn_local": lambda cfg: _attn_block_defs(cfg, use_moe=False),
+    "attn_moe": lambda cfg: _attn_block_defs(cfg, use_moe=True),
+    "attn_period": lambda cfg: _stack(
+        _attn_block_defs(cfg, use_moe=False), cfg.locals_per_global + 1
+    ),
+    "ssm": _ssm_block_defs,
+    "jamba": _jamba_period_defs,
+}
+
+
+def _period_window(cfg: ModelConfig, j: int) -> Optional[int]:
+    """Window for in-period position j (LLLLLG: global last)."""
+    return None if j == cfg.locals_per_global else cfg.local_window
+
+
+def param_defs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    tree: Dict[str, Any] = {
+        "embed": {"tok": PD((cfg.padded_vocab, d), ("vocab", "embed"), "normal")},
+        "final_norm": layers.norm_defs(cfg),
+    }
+    if cfg.family == "vlm":
+        tree["embed"]["vit_proj"] = PD((cfg.patch_dim, d), (None, "embed"), "scaled")
+    if not cfg.tie_embeddings:
+        tree["head"] = PD((d, cfg.padded_vocab), ("embed", "vocab"), "scaled")
+    tree["groups"] = {
+        name: _stack(_GROUP_DEFS[kind](cfg), n) for name, n, kind in layer_groups(cfg)
+    }
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention + MLP (or MoE) block."""
+
+    def __init__(self, cfg: ModelConfig, device, use_moe: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = layers.Norm(cfg, device)
+        self.attn = layers.Attention(cfg, device)
+        self.ln2 = layers.Norm(cfg, device)
+        if use_moe:
+            self.moe = moe_mod.MoE(cfg, device)
+        else:
+            self.mlp = layers.MLP(cfg, device)
+
+    def _ffn(self, x):
+        cfg = self.cfg
+        if hasattr(self, "moe"):
+            return x + moe_mod.moe_block(cfg, self.moe, layers.apply_norm(cfg, self.ln2, x))
+        return x + layers.mlp(cfg, self.mlp, layers.apply_norm(cfg, self.ln2, x))
+
+    def forward(self, x, window: Optional[int] = None, causal: bool = True):
+        """-> (x, (k, v))."""
+        h, kv = layers.self_attention(self.cfg, self.attn,
+                                      layers.apply_norm(self.cfg, self.ln1, x),
+                                      window=window, causal=causal)
+        return self._ffn(x + h), kv
+
+    def decode(self, x, ck, cv, pos: int, window: Optional[int] = None,
+               ring: bool = False):
+        """One token against the layer's cache (written in place)."""
+        ln = layers.apply_norm(self.cfg, self.ln1, x)
+        if ring:
+            h, ck, cv = layers.decode_attention_ring(self.cfg, self.attn, ln, ck, cv, pos)
+        else:
+            h, ck, cv = layers.decode_attention(self.cfg, self.attn, ln, ck, cv, pos,
+                                                window=window)
+        return self._ffn(x + h), ck, cv
+
+
+class SSMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = layers.Norm(cfg, device)
+        self.ssm = mamba2.SSM(cfg, device)
+
+    def forward(self, x, want_cache: bool = False):
+        h, cache = mamba2.ssm_block(self.cfg, self.ssm,
+                                    layers.apply_norm(self.cfg, self.ln1, x),
+                                    want_cache=want_cache)
+        return x + h, cache
+
+    def decode(self, x, st: Dict):
+        ln = layers.apply_norm(self.cfg, self.ln1, x)
+        h, st = mamba2.ssm_decode_step(self.cfg, self.ssm, ln, st)
+        return x + h, st
+
+
+class Sub(nn.Module):
+    """One jamba sublayer: a norm ``ln`` and its mixer or MLP ``p``."""
+
+    def __init__(self, cfg: ModelConfig, device, p: nn.Module):
+        super().__init__()
+        self.ln = layers.Norm(cfg, device)
+        self.p = p
+
+
+class JambaPeriod(nn.Module):
+    """attn at ``attn_offset``, mamba elsewhere; MoE on the MoE sublayers."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        n_mamba, n_dense, n_moe = _jamba_counts(cfg)
+        self.attn = Sub(cfg, device, layers.Attention(cfg, device))
+        self.mamba = nn.ModuleList(Sub(cfg, device, mamba2.SSM(cfg, device))
+                                   for _ in range(n_mamba))
+        self.mlp = nn.ModuleList(Sub(cfg, device, layers.MLP(cfg, device))
+                                 for _ in range(n_dense))
+        self.moe = nn.ModuleList(Sub(cfg, device, moe_mod.MoE(cfg, device))
+                                 for _ in range(n_moe))
+
+    def _run(self, x, mixer):
+        """The period's sublayers; ``mixer(j, sub, ln_x)`` runs mixer j."""
+        cfg = self.cfg
+        jm = jd = jmo = 0
+        for j in range(cfg.attn_period):
+            if j == cfg.attn_offset:
+                sub = self.attn
+            else:
+                sub = self.mamba[jm]
+                jm += 1
+            x = x + mixer(j, sub, layers.apply_norm(cfg, sub.ln, x))
+            if cfg.is_moe_layer(j):
+                sp = self.moe[jmo]
+                x = x + moe_mod.moe_block(cfg, sp.p, layers.apply_norm(cfg, sp.ln, x))
+                jmo += 1
+            else:
+                sp = self.mlp[jd]
+                x = x + layers.mlp(cfg, sp.p, layers.apply_norm(cfg, sp.ln, x))
+                jd += 1
+        return x
+
+    def forward(self, x, want_cache: bool = False):
+        """-> (x, (kv, stacked mamba states)) or (x, None)."""
+        cfg = self.cfg
+        kv, states = [None], []
+
+        def mixer(j, sub, ln):
+            if j == cfg.attn_offset:
+                h, kv[0] = layers.self_attention(cfg, sub.p, ln, window=None)
+                return h
+            h, s = mamba2.ssm_block(cfg, sub.p, ln, want_cache=want_cache)
+            states.append(s)
+            return h
+
+        x = self._run(x, mixer)
+        if want_cache:
+            return x, (kv[0], {k: torch.stack([s[k] for s in states]) for k in states[0]})
+        return x, None
+
+    def decode(self, x, ck, cv, cm: Dict, pos: int):
+        """cm: this period's mamba states, stacked ``[per-1, ...]`` (in place)."""
+        cfg = self.cfg
+        jm = [0]
+
+        def mixer(j, sub, ln):
+            if j == cfg.attn_offset:
+                h, _, _ = layers.decode_attention(cfg, sub.p, ln, ck, cv, pos)
+                return h
+            i = jm[0]
+            h, st = mamba2.ssm_decode_step(cfg, sub.p, ln, {k: v[i] for k, v in cm.items()})
+            for k, v in st.items():
+                cm[k][i] = v
+            jm[0] += 1
+            return h
+
+        return self._run(x, mixer)
+
+
+def _group_module(cfg: ModelConfig, kind: str, device) -> nn.Module:
+    if kind in ("attn", "attn_local"):
+        return AttnBlock(cfg, device)
+    if kind == "attn_moe":
+        return AttnBlock(cfg, device, use_moe=True)
+    if kind == "attn_period":
+        return nn.ModuleList(AttnBlock(cfg, device)
+                             for _ in range(cfg.locals_per_global + 1))
+    if kind == "ssm":
+        return SSMBlock(cfg, device)
+    if kind == "jamba":
+        return JambaPeriod(cfg, device)
+    raise ValueError(kind)
+
+
+class LM(nn.Module):
+    """The decoder-only model: ``embed``, ``groups`` (a ``ModuleDict`` of
+    ``ModuleList``s in ``layer_groups`` order), ``final_norm``, ``head``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        defs = param_defs(cfg)
+        self.embed = layers.ParamModule(cfg, defs["embed"], device)
+        self.final_norm = layers.Norm(cfg, device)
+        if not cfg.tie_embeddings:
+            pd = defs["head"]
+            self.head = nn.Parameter(torch.empty(pd.shape, dtype=resolve_dtype(
+                pd, cfg.param_dtype), device=device), requires_grad=False)
+        self.groups = nn.ModuleDict({
+            name: nn.ModuleList(_group_module(cfg, kind, device) for _ in range(n))
+            for name, n, kind in layer_groups(cfg)})
+
+
+# ---------------------------------------------------------------------------
+# Decode-cache definitions
+# ---------------------------------------------------------------------------
+
+
+def _kv_defs(cfg: ModelConfig, batch: int, s: int, n: int, long_ctx: bool,
+             inner: int = 0) -> Dict:
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    seq_l = "long_seq" if long_ctx else "seq"
+    lead = (n, inner) if inner else (n,)
+    lead_l = ("layers", None) if inner else ("layers",)
+    return {
+        "k": PD(lead + (batch, s, hk, hd),
+                lead_l + ("batch", seq_l, None, None), "zeros"),
+        "v": PD(lead + (batch, s, hk, hd),
+                lead_l + ("batch", seq_l, None, None), "zeros"),
+    }
+
+
+def decode_cache_defs(cfg: ModelConfig, batch: int, s: int, long_ctx: bool = False) -> Dict:
+    ring_w = min(s, cfg.local_window) if cfg.ring_local_cache else 0
+    groups = {}
+    for name, n, kind in layer_groups(cfg):
+        if kind == "attn_local" and ring_w:
+            groups[name] = _kv_defs(cfg, batch, ring_w, n, False)
+        elif kind in ("attn", "attn_moe", "attn_local"):
+            groups[name] = _kv_defs(cfg, batch, s, n, long_ctx)
+        elif kind == "attn_period":
+            per = cfg.locals_per_global + 1
+            if ring_w:
+                groups[name] = {
+                    "local": _kv_defs(cfg, batch, ring_w, n, False, inner=per - 1),
+                    "global": _kv_defs(cfg, batch, s, n, long_ctx, inner=1),
+                }
+            else:
+                groups[name] = _kv_defs(cfg, batch, s, n, long_ctx, inner=per)
+        elif kind == "ssm":
+            groups[name] = _stack(mamba2.ssm_cache_defs(cfg, batch), n)
+        elif kind == "jamba":
+            groups[name] = {
+                "attn": _kv_defs(cfg, batch, s, n, long_ctx),
+                "mamba": _stack(
+                    _stack(mamba2.ssm_cache_defs(cfg, batch), cfg.attn_period - 1), n
+                ),
+            }
+    # vlm: prefix patch tokens live in the cache; s already includes them
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head / loss
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    x = model.embed.tok[tokens.long()]
+    if cfg.family == "audio":
+        return x
+    # sqrt(d_model) is cast to the activation dtype BEFORE the multiply, as
+    # the reference does (bfloat16: sqrt(2048) -> 45.25)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+
+
+def _head(cfg: ModelConfig, model: nn.Module) -> torch.Tensor:
+    return model.embed.tok.T if cfg.tie_embeddings else model.head
+
+
+def lm_logits(cfg: ModelConfig, model: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    logits = torch.matmul(h, _head(cfg, model))
+    if cfg.padded_vocab != cfg.vocab:  # mask dead pad rows, in the logits' dtype
+        pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def chunked_xent(
+    cfg: ModelConfig,
+    model: nn.Module,
+    h: torch.Tensor,  # (B, L, d) final hidden
+    labels: torch.Tensor,  # (B, L) int; -1 = ignore
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Cross-entropy without materializing full (B, L, V) logits."""
+    b, l, d = h.shape
+    chunk = min(chunk, l)
+    while l % chunk:
+        chunk //= 2
+    head = _head(cfg, model)
+    pad_mask = None
+    if cfg.padded_vocab != cfg.vocab:
+        pad_mask = torch.zeros(cfg.padded_vocab, dtype=torch.float32, device=h.device)
+        pad_mask[cfg.vocab:] = -1e30
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for ci in range(l // chunk):
+        hc = h[:, ci * chunk:(ci + 1) * chunk]
+        yc = labels[:, ci * chunk:(ci + 1) * chunk].long()
+        logits = torch.matmul(hc, head).float()
+        if pad_mask is not None:
+            logits = logits + pad_mask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp_min(yc, 0)[..., None])[..., 0]
+        valid = (yc >= 0).float()
+        tot = tot + ((lse - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Full-model passes
+# ---------------------------------------------------------------------------
+
+
+def _stack_kv(kvs):
+    return {"k": torch.stack([kv[0] for kv in kvs]), "v": torch.stack([kv[1] for kv in kvs])}
+
+
+def forward_hidden(
+    cfg: ModelConfig,
+    model: LM,
+    tokens: torch.Tensor,  # (B, L_text)
+    *,
+    patches: Optional[torch.Tensor] = None,  # vlm: (B, n_patches, patch_dim)
+    want_cache: bool = False,
+):
+    """Full-sequence pass -> final hidden (B, L, d) (+ cache when asked)."""
+    x = embed_tokens(cfg, model, tokens)
+    if cfg.family == "vlm":
+        pe = torch.matmul(patches.to(x.dtype), model.embed.vit_proj)
+        x = torch.cat([pe, x], dim=1)
+    x = x.to(DTYPES[cfg.compute_dtype])
+    caches = {}
+
+    for name, n, kind in layer_groups(cfg):
+        blocks = model.groups[name]
+        if kind in ("attn", "attn_moe", "attn_local"):
+            window = cfg.local_window if kind == "attn_local" else None
+            kvs = []
+            for blk in blocks:
+                x, kv = blk(x, window)
+                if want_cache:
+                    kvs.append(kv)
+            if want_cache:
+                caches[name] = _stack_kv(kvs)
+        elif kind == "attn_period":
+            kvs = []
+            for period in blocks:
+                inner = []
+                for j, blk in enumerate(period):
+                    x, kv = blk(x, _period_window(cfg, j))
+                    if want_cache:
+                        inner.append(kv)
+                if want_cache:
+                    kvs.append(_stack_kv(inner))
+            if want_cache:
+                caches[name] = {c: torch.stack([kv[c] for kv in kvs]) for c in ("k", "v")}
+        elif kind == "ssm":
+            states = []
+            for blk in blocks:
+                x, s = blk(x, want_cache)
+                states.append(s)
+            if want_cache:
+                caches[name] = {k: torch.stack([s[k] for s in states]) for k in states[0]}
+        elif kind == "jamba":
+            kvs, mambas = [], []
+            for period in blocks:
+                x, c = period(x, want_cache)
+                if want_cache:
+                    kvs.append(c[0])
+                    mambas.append(c[1])
+            if want_cache:
+                caches[name] = {
+                    "attn": _stack_kv(kvs),
+                    "mamba": {k: torch.stack([m[k] for m in mambas]) for k in mambas[0]},
+                }
+    x = layers.apply_norm(cfg, model.final_norm, x)
+    return (x, caches) if want_cache else x
+
+
+def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The loss's value (the training slice adds its gradients)."""
+    h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"))
+    labels = batch["labels"]
+    if cfg.family == "vlm":  # prefix patch positions carry no labels
+        pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_xent(cfg, model, h, labels)
+
+
+# --- prefill -----------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, patches=None):
+    """Process the prompt; return (last-token logits, cache, pos)."""
+    h, caches = forward_hidden(cfg, model, tokens, patches=patches, want_cache=True)
+    logits = lm_logits(cfg, model, h[:, -1])
+    return logits, caches, h.shape[1]
+
+
+# --- decode ------------------------------------------------------------------
+
+
+def decode_step(
+    cfg: ModelConfig,
+    model: LM,
+    cache: Dict,
+    token: torch.Tensor,  # (B, 1) int
+    pos: int,  # current cache length (includes any vlm prefix)
+):
+    """One decode step; returns (logits (B, V), cache). The cache's tensors
+    are written in place and returned in the same dict."""
+    x = embed_tokens(cfg, model, token).to(DTYPES[cfg.compute_dtype])
+    for name, n, kind in layer_groups(cfg):
+        blocks = model.groups[name]
+        gc = cache[name]
+        if kind in ("attn", "attn_moe", "attn_local"):
+            window = cfg.local_window if kind == "attn_local" else None
+            ring = cfg.ring_local_cache and kind == "attn_local"
+            for i, blk in enumerate(blocks):
+                x, _, _ = blk.decode(x, gc["k"][i], gc["v"][i], pos, window, ring)
+        elif kind == "attn_period":
+            per = cfg.locals_per_global + 1
+            for i, period in enumerate(blocks):
+                jl = 0
+                for j in range(per):
+                    w = _period_window(cfg, j)
+                    if not cfg.ring_local_cache:
+                        x, _, _ = period[j].decode(x, gc["k"][i, j], gc["v"][i, j], pos, w)
+                    elif w is None:
+                        loc = gc["global"]
+                        x, _, _ = period[j].decode(x, loc["k"][i, 0], loc["v"][i, 0], pos)
+                    else:
+                        loc = gc["local"]
+                        x, _, _ = period[j].decode(x, loc["k"][i, jl], loc["v"][i, jl],
+                                                   pos, ring=True)
+                        jl += 1
+        elif kind == "ssm":
+            for i, blk in enumerate(blocks):
+                x, st = blk.decode(x, {k: v[i] for k, v in gc.items()})
+                for k, v in st.items():
+                    gc[k][i] = v
+        elif kind == "jamba":
+            cm = gc["mamba"]
+            for i, period in enumerate(blocks):
+                x = period.decode(x, gc["attn"]["k"][i], gc["attn"]["v"][i],
+                                  {k: v[i] for k, v in cm.items()}, pos)
+    x = layers.apply_norm(cfg, model.final_norm, x)
+    logits = lm_logits(cfg, model, x[:, 0])
+    return logits, cache
