@@ -10,7 +10,8 @@ frontier syncs, the flight recorder, the multi-source BFS wave, SSSP,
 Brandes betweenness and the vertex programs PageRank, connected
 components, k-core and triangle counting, streaming mutations, the query
 engine, the query service, the replicated serving CLI and the cost-model
-profiler, and the LM side's serving path), and holds them to account:
+profiler, and the LM side's serving and training paths), and holds them to
+account:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and numpy versions;
 2. build: the four CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
@@ -26,6 +27,24 @@ profiler, and the LM side's serving path), and holds them to account:
    at its published size: 1024 + 32); every arch's reduced config on the
    card against the port on the CPU (same weights, 1e-4); none of the four
    graph kernels launched;
+3b. the LM training path, after phase 3 (its state freed after): (a)
+   qwen3-1.7b at its published size trained 8 steps by
+   ``train.loop.train`` (bfloat16, remat, AdamW, 16 x 1024 tokens in the
+   config's 4 microbatches): every loss finite, the last below the first;
+   step time, tokens a second, model FLOPs against the bfloat16 peak, peak
+   memory; (b) its gradient synced over 4 simulated ranks (4 rows each, one
+   a microbatch) by ``xla_psum``, the butterfly at fanout 2 and 4,
+   Rabenseifner and all-to-all, each within 1e-5 (relative to each leaf's
+   largest) of the one-device gradient of the same 16 rows, the ranks'
+   copies bit-identical at fanout 2, each rank's bytes equal to the byte
+   model; the int8 wire within ``depth max|g| / 127`` at about a quarter of
+   the bytes; one full butterfly step with AdamW; (c) its widths cut to 2
+   layers: 6 steps uninterrupted equal bit for bit to a run failed at step
+   4 and restarted from its step-3 checkpoint (deterministic algorithms),
+   an async save's blocking copy against its write; (d) every arch's
+   reduced config, 2 train steps on the card against the port on the CPU
+   (float32, TF32 off, 1e-5), and ``launch.train --smoke`` on the card;
+   none of the four graph kernels launched;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -135,9 +154,11 @@ BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.  ``--lm-only`` runs phases 1 and 3 alone, with 4 decode steps under
-``torch.profiler`` after the timed runs (the full run profiles no LM step:
-a profiler session would precede the graph phases' timings).
+JSON.  ``--lm-only`` runs phases 1, 3 and 3b alone, with 4 decode steps and
+one train step under ``torch.profiler`` after the timed runs (the full run
+profiles no LM step: a profiler session would precede the graph phases'
+timings); ``--train-only`` runs phases 1 and 3b alone, the train step
+profiled.
 """
 
 from __future__ import annotations
@@ -153,6 +174,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 3b runs with PyTorch's deterministic algorithms, for which cuBLAS
+# needs a fixed workspace: it is read when cuBLAS first starts, before any
+# phase runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -2783,6 +2808,448 @@ def run_lm(dev, seed, profile_decode):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM training path (phase 3b)
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b at its published size trained by train.loop.train: bfloat16,
+# remat, AdamW, the whole batch on the card, the config's 4 microbatches
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
+TRAIN_LR = {"peak": 3e-4, "warmup": 2, "total": 8}
+H100_BF16_FLOPS = 989e12  # dense bfloat16 peak (data sheet, SXM, 700 W)
+# the butterfly gradient sync at full width: P ranks of 4 rows, one row a
+# microbatch, against the one-device gradient of 16 one-row microbatches
+TRAIN_RANKS, SYNC_REL_TOL = 4, 1e-5
+SYNC_CASES = (("xla_psum", 2), ("butterfly", 2), ("butterfly", 4), ("rabenseifner", 2),
+              ("all_to_all", 2))
+# restart: qwen3-1.7b's widths cut to 2 layers, failed at step 4, checkpoints
+# every 3 steps, against an uninterrupted run of 6
+RESTART_LAYERS, RESTART_STEPS, RESTART_FAIL, RESTART_EVERY = 2, 6, 4, 3
+# every arch's reduced config: steps 1-2 on the card against the CPU
+CARD_TRAIN_LR = {"peak": 1e-3, "warmup": 1, "total": 10}
+CARD_TRAIN_TOL, CARD_TRAIN_BATCH, CARD_TRAIN_SEQ = 1e-5, 4, 32
+# an update g / (|g| + eps) is ill-conditioned where a nonzero |g| is within
+# 100x of AdamW's eps: a float32 rounding of g moves it by a share of a step
+ADAM_ILL_CONDITIONED = 1e-6
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms inside the block (cuBLAS's
+    workspace is fixed by ``CUBLAS_WORKSPACE_CONFIG``, set at import)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def device_batch(data, step, dev):
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+
+
+def train_published(dev, seed, profile):
+    """(a) qwen3-1.7b at its published size trained ``TRAIN_STEPS`` steps by
+    ``train.loop.train``: every loss finite, the last below the first; the
+    step time (median of steps 2 on), tokens a second, the step's model
+    FLOPs (6 N D, N the non-embedding parameters) and remat's recompute (2
+    N D) against the bfloat16 peak, the peak memory; with ``profile`` one
+    more step under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train import loop, step as step_mod
+
+    cfg = configs.get_config(LM_ARCH)
+    if not (cfg.remat and cfg.param_dtype == "bfloat16" and cfg.optimizer == "adamw"):
+        raise AssertionError(f"{cfg.name}: expected remat, bfloat16 and AdamW")
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    t0 = time.perf_counter()
+    out = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                     loop.LoopConfig(n_steps=TRAIN_STEPS, microbatches=cfg.train_microbatches,
+                                     lr_kw=TRAIN_LR, log_every=1),
+                     seed=seed, on_metrics=lambda s, m: rows.append(m), device=dev)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    step_s = [r["step_time"] for r in rows]
+    med = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shape = configs.ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = api.model_flops(cfg, shape)
+    n_active = api.param_counts(cfg)["active"]
+    remat_flops = 2.0 * n_active * tokens
+    res = dict(arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               microbatches=cfg.train_microbatches, lr_kw=TRAIN_LR, losses=losses,
+               grad_norms=[r["grad_norm"] for r in rows], lrs=[r["lr"] for r in rows],
+               step_s=step_s, step_s_median=med, tokens_per_s=tokens / med,
+               model_flops=flops, remat_flops=remat_flops,
+               peak_share=flops / med / H100_BF16_FLOPS,
+               executed_share=(flops + remat_flops) / med / H100_BF16_FLOPS,
+               peak_bytes=peak, wall_s=wall_s)
+    log(f"  {cfg.name} {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"({cfg.train_microbatches} microbatches, remat, bfloat16, AdamW): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; grad norm "
+        f"{rows[0]['grad_norm']:.3f} -> {rows[-1]['grad_norm']:.3f}")
+    log(f"  step {med * 1e3:.1f} ms median of steps 2-{TRAIN_STEPS} (first "
+        f"{step_s[0] * 1e3:.1f} ms), {tokens / med:,.0f} tokens/s; model FLOPs 6ND "
+        f"{flops:.4g} a step = {res['peak_share']:.1%} of {H100_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16; with remat's recompute 2ND ({remat_flops:.4g}) "
+        f"{res['executed_share']:.1%}; peak device memory {peak / 1e9:.2f} GB; "
+        f"{wall_s:.1f} s in all")
+    if profile:
+        fn = step_mod.build_train_step(cfg, microbatches=cfg.train_microbatches,
+                                       lr_kw=TRAIN_LR)
+        batch = device_batch(SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ), TRAIN_STEPS, dev)
+        model, state = out["params"], out["opt_state"]
+        prof = merge_profile("one train step", lambda: fn(model, state, batch, TRAIN_STEPS),
+                             top_n=12)
+        prof["busy_share"] = prof["busy_ms"] / (med * 1e3)
+        log(f"  the profiled step's device time is {prof['busy_share']:.1%} of the "
+            f"unprofiled step's {med * 1e3:.1f} ms")
+        res["profile"] = prof
+    return res, out["params"]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def sync_compare(model, batch, dev):
+    """(b), the comparison: each rank's 4 rows in 4 one-row microbatches
+    against ``_grads_of`` over the 16 rows in 16 microbatches (the same
+    per-row bfloat16 gradients, summed in float32 in another order),
+    deterministic algorithms on. Every method gives every rank the
+    one-device gradient within ``SYNC_REL_TOL`` per leaf, the loss agrees,
+    fanout 2's ranks are bit-identical, each rank's bytes equal the byte
+    model; the int8 wire within its bound at about a quarter of the bytes.
+    Its buffers are this function's locals, freed when it returns."""
+    import torch
+
+    from repro_torch.core import butterfly, collectives
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.train import step as step_mod
+
+    p, rows = TRAIN_RANKS, TRAIN_BATCH // TRAIN_RANKS
+    loss_fn = api.train_loss_fn(model.cfg)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"ranks": p, "rows_per_rank": rows}
+    with deterministic():
+        t0 = time.perf_counter()
+        stacks = step_mod.grad_buffers(model, rows, torch.float32, lead=(p,))
+        losses = [step_mod._grads_of(loss_fn, model, shard, rows, torch.float32,
+                                     out=shd.tree_map(lambda s, r=r: s[r], stacks))[0]
+                  for r, shard in enumerate(step_mod._split_batch(batch, p))]
+        rank_loss = torch.stack(losses).sum() / p
+        one_loss, one = step_mod._grads_of(loss_fn, model, batch, TRAIN_BATCH, torch.float32)
+        torch.cuda.synchronize()
+        res["grads_s"] = time.perf_counter() - t0
+    leaves = list(shd.sorted_leaves(stacks))
+    res["loss_rel_err"] = abs(float(rank_loss) - float(one_loss)) / abs(float(one_loss))
+    if not res["loss_rel_err"] <= SYNC_REL_TOL:
+        raise AssertionError(f"sync: rank loss {float(rank_loss)} != one-device "
+                             f"{float(one_loss)}")
+    n_elems = [g[0].numel() for _, g in leaves]
+    res["n_elems"] = n_elems
+    res["grad_bytes_per_rank"] = 4 * sum(n_elems)
+    log(f"  {p} ranks x {rows} rows ({rows} one-row microbatches each) and the one-device "
+        f"gradient ({TRAIN_BATCH} one-row microbatches) in {res['grads_s']:.1f} s; loss "
+        f"{float(rank_loss):.6f} vs {float(one_loss):.6f} (rel {res['loss_rel_err']:.2e}); "
+        f"{len(leaves)} leaves, {res['grad_bytes_per_rank'] / 1e9:.3f} GB float32 a rank")
+    for method, fanout in SYNC_CASES + (("int8", 2),):
+        comm = collectives.Communicator(p, dev)
+        worst, spread, excess = 0.0, 0.0, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for path, g in leaves:
+            want = shd.tree_get(one, path)
+            if method == "int8":
+                synced = collectives.sync_leaf_int8(g, comm, fanout=fanout)
+                depth = len(comm.schedule(fanout).rounds)
+                bound = depth * g.abs().sum(0).max() / 127
+                excess = max(excess, float((synced * p - g.sum(0)).abs().max() / bound))
+            else:
+                synced = collectives.sync_leaf(g, comm, method=method, fanout=fanout)
+            for r in range(p):
+                worst = max(worst, rel_err(synced[r], want))
+                if r:
+                    spread = max(spread, float((synced[r] - synced[0]).abs().max()))
+            del synced
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        label = f"{method} fanout {fanout}"
+        model_bytes = sum(collectives.grad_sync_bytes(
+            "butterfly" if method == "int8" else method, p, fanout, n, 4,
+            "int8" if method == "int8" else None) for n in n_elems)
+        if not (comm.bytes_sent == model_bytes).all():
+            raise AssertionError(f"sync {label}: bytes {comm.bytes_sent} != model {model_bytes}")
+        rec = dict(rel_err=worst, rank_spread=spread, bytes_per_rank=model_bytes, s=sync_s)
+        if method == "int8":
+            f32 = sum(butterfly.bytes_per_node_allreduce(p, fanout, 4 * n) for n in n_elems)
+            rec.update(bound_share=excess, f32_bytes=f32, byte_ratio=model_bytes / f32)
+            if not excess <= 1.0:
+                raise AssertionError(f"sync int8: error {excess:.3f} of depth x max|g|/127")
+            log(f"  int8 wire (butterfly fanout 2): error {excess:.3f} of its bound depth x "
+                f"max|g|/127, rel {worst:.2e} of the one-device gradient; "
+                f"{model_bytes / 1e9:.3f} GB a rank = the model, {rec['byte_ratio']:.4f} of "
+                f"float32's; {sync_s:.2f} s")
+        else:
+            if not worst <= SYNC_REL_TOL:
+                raise AssertionError(f"sync {label}: rel err {worst:.3e} > {SYNC_REL_TOL}")
+            if method in ("butterfly", "rabenseifner") and fanout == 2 and spread != 0.0:
+                raise AssertionError(f"sync {label}: ranks differ by {spread}")
+            log(f"  {label:22s} rel err {worst:.2e} <= {SYNC_REL_TOL:g}; ranks differ by "
+                f"{spread:.3e}; {model_bytes / 1e9:.3f} GB a rank = the byte model; "
+                f"{sync_s:.2f} s")
+        res[label] = rec
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def sync_full_width(model, dev):
+    """(b) The gradient sync at full width on ``TRAIN_RANKS`` simulated ranks
+    (:func:`sync_compare`), then one full butterfly step with AdamW from
+    fresh moments, after the comparison's buffers are freed."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import optim, step as step_mod
+
+    p, rows = TRAIN_RANKS, TRAIN_BATCH // TRAIN_RANKS
+    batch = device_batch(SyntheticLM(model.cfg, TRAIN_BATCH, TRAIN_SEQ), TRAIN_STEPS + 1, dev)
+    res = sync_compare(model, batch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = shd.SimMesh(p)
+    fn = step_mod.build_train_step_butterfly(model.cfg, mesh, shd.rules_for_mesh(mesh),
+                                             method="butterfly", fanout=2,
+                                             microbatches=rows, lr_kw=TRAIN_LR)
+    state = optim.ADAMW.init(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with deterministic():
+        model, state, m = fn(model, state, batch, TRAIN_STEPS + 1)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    want_bytes = sum(collectives.grad_sync_bytes("butterfly", p, 2, n, 4)
+                     for n in res["n_elems"])
+    loss = float(m["loss"])
+    if not (loss == loss and abs(loss) < 1e4 and float(m["rank_spread"]) == 0.0
+            and m["bytes_per_rank"] == want_bytes):
+        raise AssertionError(f"butterfly step: {m}")
+    res["step"] = dict(loss=loss, grad_norm=float(m["grad_norm"]), s=step_s,
+                       bytes_per_rank=m["bytes_per_rank"],
+                       peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  one butterfly step (P {p}, fanout 2, AdamW): loss {loss:.4f}, ranks identical, "
+        f"{m['bytes_per_rank'] / 1e9:.3f} GB a rank = the model; {step_s:.2f} s; peak "
+        f"{res['step']['peak_bytes'] / 1e9:.2f} GB (the comparison's "
+        f"{res['peak_bytes'] / 1e9:.2f} GB)")
+    return res
+
+
+def restart_check(dev, seed):
+    """(c) qwen3-1.7b's widths cut to ``RESTART_LAYERS`` layers, deterministic
+    algorithms on: ``RESTART_STEPS`` steps uninterrupted against a run that
+    fails at ``RESTART_FAIL`` (checkpoints every ``RESTART_EVERY``, written
+    synchronously) and restarts; the final parameters and moments equal bit
+    for bit. Then the blocking host copy of an async save against its
+    write. The checkpoints live in a temporary directory, removed after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
+    kw = dict(n_steps=RESTART_STEPS, microbatches=cfg.train_microbatches, lr_kw=TRAIN_LR,
+              log_every=100)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_restart_")
+    ck = os.path.join(tmp, "ck")
+    res = {"layers": RESTART_LAYERS, "params": api.param_counts(cfg)["total"]}
+    try:
+        with deterministic():
+            ref = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ, loop.LoopConfig(**kw), seed=seed,
+                             device=dev)
+            want_p = api.to_reference(ref["params"])
+            want_o = {k: api.to_numpy(v) for k, v in shd.sorted_leaves(ref["opt_state"])}
+            want_losses = ref["losses"]
+            del ref
+            try:
+                loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           loop.LoopConfig(ckpt_dir=ck, ckpt_every=RESTART_EVERY,
+                                           fail_at_step=RESTART_FAIL, async_ckpt=False, **kw),
+                           seed=seed, device=dev)
+                raise AssertionError("restart: the run did not fail")
+            except loop.SimulatedFailure:
+                pass
+            if ckpt.latest_step(ck) != RESTART_EVERY:
+                raise AssertionError(f"restart: latest checkpoint {ckpt.latest_step(ck)}")
+            t0 = time.perf_counter()
+            out = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                             loop.LoopConfig(ckpt_dir=ck, ckpt_every=RESTART_EVERY,
+                                             async_ckpt=False, **kw), seed=seed, device=dev)
+            res["resumed_run_s"] = time.perf_counter() - t0
+        got_p = api.to_reference(out["params"])
+        same = all(np.array_equal(a.view(np.int16) if a.dtype.kind == "V" else a,
+                                  b.view(np.int16) if b.dtype.kind == "V" else b)
+                   for (_, a), (_, b) in zip(shd.sorted_leaves(got_p),
+                                             shd.sorted_leaves(want_p)))
+        same_o = all(np.array_equal(api.to_numpy(v), want_o[k])
+                     for k, v in shd.sorted_leaves(out["opt_state"]))
+        if not (same and same_o and out["losses"] == want_losses[RESTART_EVERY:]):
+            raise AssertionError(f"restart: params equal {same}, moments equal {same_o}, "
+                                 f"losses {out['losses']} vs {want_losses}")
+        # an async save: the blocking copy to the host, then the writer thread
+        t0 = time.perf_counter()
+        writer = ckpt.save(ck, RESTART_STEPS, {"params": out["params"],
+                                               "opt_state": out["opt_state"]}, async_=True)
+        copy_s = time.perf_counter() - t0
+        writer.join()
+        write_s = time.perf_counter() - t0 - copy_s
+        size = os.path.getsize(os.path.join(ck, "arrays.npz"))
+        res.update(losses=want_losses, copy_s=copy_s, write_s=write_s, ckpt_bytes=size)
+        log(f"  {cfg.name} cut to {RESTART_LAYERS} layers ({res['params']:,} parameters): "
+            f"{RESTART_STEPS} steps == failed at {RESTART_FAIL}, restarted from step "
+            f"{RESTART_EVERY}: parameters, moments and losses equal bit for bit")
+        log(f"  async save of {size / 1e9:.3f} GB: blocking copy {copy_s:.2f} s, then the "
+            f"write {write_s:.2f} s on its thread")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def adam_close(label, got, want, grads, lr_sum, tol):
+    """Parameters after AdamW steps (reference trees of float32 arrays)
+    within ``tol`` (rtol = atol), except where a step's gradient (``grads``:
+    one tree a step) was nonzero and under ``ADAM_ILL_CONDITIONED`` in
+    magnitude: there within ``2 lr_sum``, the most an update bounded by 1
+    moves a parameter (those elements must be under 1 % of the model; a
+    zero gradient, a row no token of the batch reaches, moves alike
+    anywhere)."""
+    import numpy as np
+
+    from repro_torch.dist.sharding import sorted_leaves
+
+    ill = {}
+    for tree in grads:
+        for path, g in sorted_leaves(tree):
+            g = g.abs().cpu().numpy()
+            small = (g < ADAM_ILL_CONDITIONED) & (g > 0)
+            ill[path] = small if path not in ill else ill[path] | small
+    worst, n_ill, n = 0.0, 0, 0
+    for (path, a), (_, b) in zip(sorted_leaves(got), sorted_leaves(want)):
+        err, m = np.abs(a - b), ill[path]
+        if (err[m] > 2 * lr_sum).any():
+            raise AssertionError(f"{label} {'/'.join(path)}: {int(m.sum())} ill-conditioned "
+                                 f"elements, worst {err[m].max()}")
+        share = float((err[~m] / (tol + tol * np.abs(b[~m]))).max()) if (~m).any() else 0.0
+        if share > 1.0:
+            raise AssertionError(f"{label} {'/'.join(path)}: outside {tol} ({share:.2f})")
+        worst, n_ill, n = max(worst, share), n_ill + int(m.sum()), n + m.size
+    if n_ill >= 0.01 * n:
+        raise AssertionError(f"{label}: {n_ill} of {n} elements ill-conditioned")
+    return dict(tol_share=worst, ill_conditioned=n_ill)
+
+
+def train_card_vs_cpu(dev, seed):
+    """(d) Every arch's reduced config, float32 with TF32 off: 2 steps of
+    ``build_train_step`` (AdamW or the config's Adafactor) on the card
+    against the port on the CPU from the same weights: the losses and the
+    parameters within ``CARD_TRAIN_TOL``."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train import optim, step as step_mod
+
+    rows = {}
+    with exact_float32():
+        for arch in configs.ARCH_NAMES:
+            cfg = configs.reduced(configs.get_config(arch))
+            data = SyntheticLM(cfg, CARD_TRAIN_BATCH, CARD_TRAIN_SEQ)
+            fn = step_mod.build_train_step(cfg, lr_kw=CARD_TRAIN_LR)
+            opt = optim.get(cfg.optimizer)
+            cpu = api.init_params(cfg, seed, device="cpu")
+            card = copy.deepcopy(cpu).to(dev)
+            cpu_state, card_state = opt.init(cpu), opt.init(card)
+            grads, lr_sum, loss_err = [], 0.0, 0.0
+            for s in (1, 2):
+                cb, gb = device_batch(data, s, "cpu"), device_batch(data, s, dev)
+                grads.append(step_mod._grads_of(api.train_loss_fn(cfg), cpu, cb, 1)[1])
+                cpu, cpu_state, mc = fn(cpu, cpu_state, cb, s)
+                card, card_state, mg = fn(card, card_state, gb, s)
+                lr_sum += mc["lr"]
+                loss_err = max(loss_err, abs(float(mg["loss"]) / float(mc["loss"]) - 1))
+            if loss_err > CARD_TRAIN_TOL:
+                raise AssertionError(f"{arch} train on the card: loss rel err {loss_err}")
+            rows[arch] = dict(loss_rel_err=loss_err, optimizer=cfg.optimizer, **adam_close(
+                f"{arch} train card against CPU", api.to_reference(card),
+                api.to_reference(cpu), grads, lr_sum, CARD_TRAIN_TOL))
+            log(f"  {arch:22s} {cfg.optimizer:9s} loss rel err {loss_err:.2e}; params "
+                f"{rows[arch]['tol_share']:.3f} of {CARD_TRAIN_TOL:g} "
+                f"({rows[arch]['ill_conditioned']} elements with a near-zero gradient held "
+                f"to the update's bound)")
+    return rows
+
+
+def run_train(dev, seed, profile):
+    """Phase 3b: the LM training path (module docstring, item 3b). The graph
+    kernels are not on this path: their counts stay 0."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+
+    build.reset_launches()
+    out = {}
+    out["published"], model = train_published(dev, seed, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sync"] = sync_full_width(model, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["restart"] = restart_check(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced"] = train_card_vs_cpu(dev, seed)
+    t0 = time.perf_counter()
+    if train_cli.main(["--arch", LM_ARCH, "--smoke", "--steps", "3", "--device", dev.type]):
+        raise AssertionError("launch.train --smoke failed")
+    out["cli_s"] = time.perf_counter() - t0
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the training path launched graph kernels: {launched}")
+    log(f"  launch.train --smoke on the card in {out['cli_s']:.1f} s; the training path "
+        f"launched none of the four graph kernels")
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=23)
@@ -2810,8 +3277,11 @@ def main(argv=None) -> int:
                     help="where the serving CLI writes its stats, events and verdict")
     ap.add_argument("--out", default=None, help="also write the results here")
     ap.add_argument("--lm-only", action="store_true",
-                    help="run the card line and the LM phase alone (with a profile of "
-                         "decode steps), for iterating on the LM path")
+                    help="run the card line and the LM phases alone (with a profile of "
+                         "decode steps and of a train step), for iterating on the LM path")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run the card line and the LM training phase alone (with a "
+                         "profile of a train step)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2839,10 +3309,15 @@ def main(argv=None) -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    if args.lm_only:
-        phase("[3/27] the LM serving path (alone)")
-        lm_out = run_lm(dev, args.seed, profile_decode=True)
-        log(f"  total {time.perf_counter() - t_start:.0f} s")
+    if args.lm_only or args.train_only:
+        lm_out = {}
+        if args.lm_only:
+            phase("[3/27] the LM serving path (alone)")
+            lm_out = run_lm(dev, args.seed, profile_decode=True)
+        phase("[3b/27] the LM training path (alone)")
+        lm_out["train"] = run_train(dev, args.seed, profile=True)
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
+            f"{time.perf_counter() - t_start:.0f} s")
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -2868,6 +3343,13 @@ def main(argv=None) -> int:
           f"float32 consistency, every arch's reduced config against the CPU")
     lm_out = run_lm(dev, args.seed, profile_decode=False)
     log(f"  released the LM state: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    phase(f"[3b/27] the LM training path: {LM_ARCH} at its published size (bfloat16, "
+          f"remat, AdamW), the butterfly gradient sync on {TRAIN_RANKS} ranks, restart, every "
+          f"arch's reduced config against the CPU")
+    lm_out["train"] = run_train(dev, args.seed, profile=False)
+    log(f"  released the training state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
 
     phase("[4/27] ETL")

@@ -21,6 +21,9 @@ rank's buffer to its partner, and it counts the bytes each rank sends.
 * :func:`xla_allreduce` — the compiler-scheduled reference point of the JAX
   package; on simulated ranks an all-gather (``P - 1`` shifts) and a
   ``P``-way reduce.
+* :func:`tree_sync` / :func:`tree_sync_int8` — the train step's gradient
+  sync: each ``[P, ...]`` leaf summed by one of the dense methods above
+  (or by the butterfly with int8 on the wire) and divided by P.
 
 Every sync takes the reference's merge op or monoid.  ``"min"`` and
 ``"max"`` order int32 words as the uint32 values they hold
@@ -406,3 +409,106 @@ def xla_allreduce(x: torch.Tensor, comm: Communicator, *, op: str = "add",
     if op == "add":
         return stack.sum(1, dtype=x.dtype)
     return _merge_stack(stack, op, use_kernels)
+
+
+# ---------------------------------------------------------------------------
+# Gradient synchronization (DESIGN.md Sec. 7)
+# ---------------------------------------------------------------------------
+
+GRAD_SYNCS = ("xla_psum", "butterfly", "rabenseifner", "all_to_all")
+
+
+def sync_leaf(g: torch.Tensor, comm: Communicator, *, method: str = "xla_psum",
+              fanout: int = 2, mean: bool = True) -> torch.Tensor:
+    """Sum ``g[P, ...]`` over the ranks with ``method`` (then divide by P
+    when ``mean``): every rank's row of the result holds the sum."""
+    if method == "xla_psum":
+        out = xla_allreduce(g, comm, op="add")
+    elif method == "butterfly":
+        out = butterfly_allreduce(g, comm, fanout=fanout)
+    elif method == "rabenseifner":
+        out = butterfly_allreduce_rabenseifner(g, comm, fanout=fanout)
+    elif method == "all_to_all":
+        out = all_to_all_merge(g, comm, op="add")
+    else:
+        raise ValueError(f"unknown grad-sync method {method!r}")
+    return out / comm.p if mean else out
+
+
+def tree_sync(tree, comm: Communicator, *, method: str = "xla_psum", fanout: int = 2,
+              mean: bool = True):
+    """Synchronize a gradient tree (nested dicts of ``[P, ...]`` leaves)
+    across the ranks, leaf by leaf.
+
+    method: ``xla_psum`` | ``butterfly`` (paper) | ``rabenseifner``
+    (beyond-paper) | ``all_to_all`` (paper's baseline)."""
+    if isinstance(tree, dict):
+        return {k: tree_sync(v, comm, method=method, fanout=fanout, mean=mean)
+                for k, v in tree.items()}
+    return sync_leaf(tree, comm, method=method, fanout=fanout, mean=mean)
+
+
+def quantize_int8(acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each rank's float32 ``acc[r]`` as int8 codes and its scale
+    ``max(max|acc[r]| / 127, 1e-30)``: ``clip(round(acc / scale), -127, 127)``,
+    rounding half to even as ``jnp.round`` does."""
+    amax = acc.abs().reshape(acc.shape[0], -1).amax(dim=1)
+    scale = torch.clamp(amax / 127.0, min=1e-30)
+    shape = (-1,) + (1,) * (acc.dim() - 1)
+    q = torch.clamp(torch.round(acc / scale.reshape(shape)), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def butterfly_allreduce_int8(x: torch.Tensor, comm: Communicator, *,
+                             fanout: int = 2) -> torch.Tensor:
+    """Butterfly sum all-reduce with **int8 on the wire every round**.
+
+    Each round every rank quantizes its float32 accumulator with its own
+    scale (:func:`quantize_int8`) and ships the codes and the float32 scale
+    to each partner (``|buf| + 4`` bytes a message); a receiver dequantizes
+    and adds what it receives in the round's perm order. The error
+    compounds over the rounds, bounded by ``depth * max|g| / 127`` per
+    element."""
+    acc = x.float()
+    shape = (-1,) + (1,) * (x.dim() - 1)
+    for rnd in comm.schedule(fanout).rounds:
+        q, scale = quantize_int8(acc)
+        for perm in rnd.perms:
+            rq = comm.ppermute(q, perm)
+            rs = comm.ppermute(scale, perm)
+            acc = acc + rq.float() * rs.reshape(shape)
+    return acc
+
+
+def sync_leaf_int8(g: torch.Tensor, comm: Communicator, *, fanout: int = 2,
+                   mean: bool = True) -> torch.Tensor:
+    """:func:`butterfly_allreduce_int8` of ``g[P, ...]``, divided by P when
+    ``mean``, in ``g``'s dtype."""
+    out = butterfly_allreduce_int8(g, comm, fanout=fanout)
+    return ((out / comm.p) if mean else out).to(g.dtype)
+
+
+def tree_sync_int8(tree, comm: Communicator, *, fanout: int = 2, mean: bool = True):
+    """Gradient sync with int8 wire compression (DESIGN.md §7): every leaf
+    by :func:`butterfly_allreduce_int8` (the reference's ``method`` is
+    ignored there too)."""
+    if isinstance(tree, dict):
+        return {k: tree_sync_int8(v, comm, fanout=fanout, mean=mean) for k, v in tree.items()}
+    return sync_leaf_int8(tree, comm, fanout=fanout, mean=mean)
+
+
+def grad_sync_bytes(method: str, p: int, fanout: int, n: int, itemsize: int,
+                    compress: Optional[str] = None) -> int:
+    """The bytes one rank sends to sync a leaf of ``n`` elements of
+    ``itemsize`` bytes: the byte model of each method (the Rabenseifner
+    schedule's buffer padded to a multiple of P; int8: one byte an element
+    and a 4-byte scale a message)."""
+    if compress == "int8":
+        return butterfly.messages_per_node(p, fanout) * (n + 4)
+    if method == "butterfly":
+        return butterfly.bytes_per_node_allreduce(p, fanout, n * itemsize)
+    if method == "rabenseifner":
+        return butterfly.bytes_per_node_rabenseifner(p, fanout, (n + (-n) % p) * itemsize)
+    if method in ("all_to_all", "xla_psum"):
+        return (p - 1) * n * itemsize
+    raise ValueError(f"unknown grad-sync method {method!r}")

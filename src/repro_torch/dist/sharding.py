@@ -1,22 +1,30 @@
-"""Parameter descriptors and their initialization (the descriptor half of
-``repro.dist.sharding``).
+"""Parameter descriptors, their initialization, and the mesh rules of the
+simulated ranks (the port of ``repro.dist.sharding``).
 
 Parameters, inputs and caches are declared as nested dicts of :class:`PD`:
 shape, *logical* axis names ("embed", "heads", "ff", "vocab", "batch",
 ...), init law and an optional dtype override. The logical names are kept
-so the trees equal the reference's; they map onto a device mesh only in the
-reference (``MeshRules``, ``spec_for``, ``tree_pspecs``, ``tree_structs``),
-whose counterparts come with the port's training slice.
+so the trees equal the reference's.
+
+The port's mesh is :class:`SimMesh`: one ``"data"`` axis of P simulated
+ranks on one device (the reference's ``launch.mesh.make_host_mesh``), and
+:func:`rules_for_mesh` derives :class:`MeshRules` from it as the
+reference does: ``rules.batch`` names the axis a train step syncs its
+gradients over, and ``fsdp`` is carried so that the butterfly step can
+refuse it. The placement half (``spec_for``, ``tree_pspecs``,
+``tree_structs``) needs more than one card and is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.bfs import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
 
@@ -37,6 +45,34 @@ class PD:
     dtype: Optional[str] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class SimMesh:
+    """``ranks`` simulated ranks on one device, on one axis named ``"data"``."""
+
+    ranks: int
+    axis_names = ("data",)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: self.ranks}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Physical axes for each logical role (empty tuple = replicated)."""
+
+    batch: Tuple[str, ...] = ()
+    fsdp: Tuple[str, ...] = ()
+
+
+def rules_for_mesh(mesh: SimMesh, fsdp: bool = False) -> MeshRules:
+    """The mesh's axis carries the batch; with ``fsdp`` the embed dimension
+    is additionally sharded over it (ZeRO-3), which the butterfly step
+    refuses. The reference's ``model`` axis has no simulated counterpart."""
+    batch = tuple(mesh.axis_names)
+    return MeshRules(batch=batch, fsdp=batch if fsdp else ())
+
+
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a nested dict."""
     if isinstance(tree, dict):
@@ -49,6 +85,27 @@ def tree_leaves_with_path(tree, path: Tuple[str, ...] = ()) -> Iterator:
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from tree_leaves_with_path(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def tree_get(tree: dict, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_set(tree: dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def sorted_leaves(tree: dict, path: Tuple[str, ...] = ()) -> Iterator:
+    """(path, leaf) in the reference's leaf order: sorted keys at every level."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k], path + (k,))
     else:
         yield path, tree
 
@@ -93,18 +150,18 @@ def leaf_generator(seed: int, path: Tuple[str, ...], device) -> torch.Generator:
     return gen
 
 
-def iter_init(defs, seed: int, default_dtype="float32", device="cpu") -> Iterator:
-    """(path, tensor) for every leaf of a PD tree, one leaf at a time."""
+def iter_init(defs, seed: int, default_dtype="float32", device="cuda") -> Iterator:
+    """(path, tensor) for every leaf of a PD tree, one leaf at a time, on
+    ``device`` (the card by default; raises when there is none)."""
+    device = resolve_device(device)
     for path, pd in tree_leaves_with_path(defs):
         yield path, init_leaf(pd, leaf_generator(seed, path, device), default_dtype)
 
 
-def tree_init(defs, seed: int, default_dtype="float32", device="cpu"):
-    """Deterministic init of a PD tree: the same nested dict, of tensors."""
+def tree_init(defs, seed: int, default_dtype="float32", device="cuda"):
+    """Deterministic init of a PD tree: the same nested dict, of tensors, on
+    ``device`` (the card by default; raises when there is none)."""
     out: dict = {}
     for path, leaf in iter_init(defs, seed, default_dtype, device):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
+        tree_set(out, path, leaf)
     return out

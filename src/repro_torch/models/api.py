@@ -15,11 +15,19 @@ explicit device: ``init_params(cfg, seed, device=...)`` draws its weights
 from seeded ``torch.Generator``s, and ``from_reference(cfg, params,
 device=...)`` carries the JAX package's parameter tree (as numpy arrays)
 into it. Both default to the card and raise when there is none.
+``to_reference(model)`` is the way back: the reference's tree, its layer
+axes stacked again. ``param_leaves`` lists the reference's leaves in its
+leaf order (sorted keys), each with the model's parameters it stacks; the
+optimizers, the gradient trees and the checkpoints work on those leaves.
+
+numpy has no bfloat16: a bfloat16 leaf crosses to numpy as its 16-bit
+pattern in a ``|V2`` array, the dtype the reference's own ``np.savez`` of
+an ``ml_dtypes.bfloat16`` leaf loads back as (``to_numpy``/``from_numpy``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +62,56 @@ def _param_index(model: nn.Module) -> Dict[Tuple[str, ...], list]:
     return index
 
 
+Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], List[nn.Parameter]]
+
+
+def param_leaves(model: nn.Module) -> List[Leaf]:
+    """(reference path, stacked lead shape, parameters in row-major order of
+    their stacked index) of every leaf of the reference's parameter tree, in
+    its leaf order: sorted keys, as ``jax.tree.leaves`` orders a dict."""
+    out = []
+    for path, parts in sorted(_param_index(model).items()):
+        parts = sorted(parts, key=lambda t: t[0])
+        lead = tuple(1 + max(i[a] for i, _ in parts) for a in range(len(parts[0][0])))
+        out.append((path, lead, [prm for _, prm in parts]))
+    return out
+
+
+def stack_leaf(lead: Tuple[int, ...], prms: List[torch.Tensor]) -> torch.Tensor:
+    """The reference's leaf of ``prms``: stacked on the lead axes (a copy),
+    or the one parameter itself when the leaf has no layer axis."""
+    if not lead:
+        return prms[0]
+    return torch.stack(list(prms)).reshape(lead + tuple(prms[0].shape))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bfloat16 as its bits in ``|V2``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(a) -> torch.Tensor:
+    """The inverse of :func:`to_numpy`, a copy: a ``|V2`` array (or an
+    ``ml_dtypes.bfloat16`` one) is bfloat16 bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def to_reference(model: nn.Module) -> Dict:
+    """The reference's parameter tree of ``model``: nested dicts of numpy
+    arrays keyed by its paths, the layer axes stacked again (the inverse of
+    :func:`from_reference`)."""
+    tree: Dict = {}
+    for path, lead, prms in param_leaves(model):
+        shd.tree_set(tree, path, to_numpy(stack_leaf(lead, prms)))
+    return tree
+
+
 def _load(model: nn.Module, leaves) -> nn.Module:
     """Fill every parameter from ``leaves``, (path, full stacked array)
     pairs; refuse a tree that does not match the model leaf for leaf."""
@@ -65,7 +123,8 @@ def _load(model: nn.Module, leaves) -> nn.Module:
         if path not in index:
             raise ValueError(f"parameter tree has leaf {key!r}, which the "
                              f"{name} model does not")
-        full = torch.as_tensor(full)
+        if not isinstance(full, torch.Tensor):
+            full = from_numpy(full)
         targets = index[path]
         n_lead = len(targets[0][0])
         want = tuple(full.shape[n_lead:])
@@ -76,8 +135,9 @@ def _load(model: nn.Module, leaves) -> nn.Module:
             raise ValueError(f"leaf {key!r} has shape {tuple(full.shape)}; the "
                              f"{name} model wants {len(targets)} x "
                              f"{tuple(targets[0][1].shape)}")
-        for idx, prm in targets:
-            prm.data.copy_(full[idx] if idx else full)
+        with torch.no_grad():
+            for idx, prm in targets:
+                prm.copy_(full[idx] if idx else full)
         seen.add(path)
     missing = sorted("/".join(p) for p in index if p not in seen)
     if missing:

@@ -4,7 +4,8 @@ The port of ``repro.models.encdec``. Inputs are precomputed frame
 embeddings (B, n_frames, d_model). The encoder is bidirectional; the
 decoder has causal self-attention + cross-attention to the encoder output
 and no embedding scale. Decode caches: per-layer self-attn KV (written in
-place) + precomputed cross KV.
+place) + precomputed cross KV. With ``cfg.remat``, a pass that records
+gradients checkpoints each encoder and decoder layer.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import DTYPES, PD
 from repro_torch.models import layers
-from repro_torch.models.lm import AttnBlock, _stack, chunked_xent, lm_logits
+from repro_torch.models.lm import AttnBlock, _stack, chunked_xent, lm_logits, remat
 
 
 def _enc_block_defs(cfg: ModelConfig) -> Dict:
@@ -116,7 +117,7 @@ def encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor) -> torch.Tenso
     """frames: (B, n_frames, d_model) stub embeddings -> encoder states."""
     x = frames.to(DTYPES[cfg.compute_dtype])
     for blk in model.enc:
-        x, _ = blk(x, causal=False)
+        x, _ = remat(cfg, blk, x, None, False)
     return layers.apply_norm(cfg, model.enc_norm, x)
 
 
@@ -125,7 +126,7 @@ def _decoder(cfg, model: EncDec, tokens, enc, *, want_cache=False):
     x = model.embed.tok[tokens.long()].to(DTYPES[cfg.compute_dtype])
     kvs, xkvs = [], []
     for blk in model.groups["dec"]:
-        x, (kv, xkv) = blk(x, enc)
+        x, (kv, xkv) = remat(cfg, blk, x, enc)
         if want_cache:
             kvs.append(kv)
             xkvs.append(xkv)

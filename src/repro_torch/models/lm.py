@@ -18,7 +18,9 @@ weights across. The decode cache keeps the reference's layout (stacked
 decode writes into it in place, so ``decode_inplace`` changes no result.
 
 Three entry points share the per-layer bodies: ``forward_hidden`` (train),
-``prefill`` (returns the KV/SSM cache), ``decode_step`` (one token).
+``prefill`` (returns the KV/SSM cache), ``decode_step`` (one token). With
+``cfg.remat``, a pass that records gradients checkpoints each layer (each
+period of a periodic group) as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import DTYPES, PD, resolve_dtype, tree_map
@@ -438,6 +441,25 @@ def _stack_kv(kvs):
     return {"k": torch.stack([kv[0] for kv in kvs]), "v": torch.stack([kv[1] for kv in kvs])}
 
 
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` and
+    autograd is recording: the reference's ``jax.checkpoint`` of each scan
+    body, so the unit is one layer (one period for ``attn_period`` and
+    jamba), whose activations the backward pass recomputes."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _period_fwd(cfg: ModelConfig, period: nn.ModuleList, x):
+    """One ``attn_period`` period: -> (x, [(k, v) of each layer])."""
+    kvs = []
+    for j, blk in enumerate(period):
+        x, kv = blk(x, _period_window(cfg, j))
+        kvs.append(kv)
+    return x, kvs
+
+
 def forward_hidden(
     cfg: ModelConfig,
     model: LM,
@@ -460,7 +482,7 @@ def forward_hidden(
             window = cfg.local_window if kind == "attn_local" else None
             kvs = []
             for blk in blocks:
-                x, kv = blk(x, window)
+                x, kv = remat(cfg, blk, x, window)
                 if want_cache:
                     kvs.append(kv)
             if want_cache:
@@ -468,11 +490,7 @@ def forward_hidden(
         elif kind == "attn_period":
             kvs = []
             for period in blocks:
-                inner = []
-                for j, blk in enumerate(period):
-                    x, kv = blk(x, _period_window(cfg, j))
-                    if want_cache:
-                        inner.append(kv)
+                x, inner = remat(cfg, _period_fwd, cfg, period, x)
                 if want_cache:
                     kvs.append(_stack_kv(inner))
             if want_cache:
@@ -480,14 +498,14 @@ def forward_hidden(
         elif kind == "ssm":
             states = []
             for blk in blocks:
-                x, s = blk(x, want_cache)
+                x, s = remat(cfg, blk, x, want_cache)
                 states.append(s)
             if want_cache:
                 caches[name] = {k: torch.stack([s[k] for s in states]) for k in states[0]}
         elif kind == "jamba":
             kvs, mambas = [], []
             for period in blocks:
-                x, c = period(x, want_cache)
+                x, c = remat(cfg, period, x, want_cache)
                 if want_cache:
                     kvs.append(c[0])
                     mambas.append(c[1])
@@ -501,7 +519,8 @@ def forward_hidden(
 
 
 def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The loss's value (the training slice adds its gradients)."""
+    """The mean next-token cross-entropy; differentiable in the model's
+    parameters (``train.step`` takes its gradients)."""
     h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"))
     labels = batch["labels"]
     if cfg.family == "vlm":  # prefix patch positions carry no labels

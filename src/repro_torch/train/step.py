@@ -1,0 +1,195 @@
+"""Train-step builders (the port of ``repro.train.step``).
+
+Two distribution paths:
+
+* ``build_train_step`` — the whole batch on one device: the reference's
+  GSPMD step, whose compiler-scheduled all-reduce has no second device to
+  sync with here.
+* ``build_train_step_butterfly`` — the paper's communication pattern as
+  the gradient sync over P simulated ranks (the ``rules.batch`` axis of a
+  :class:`~repro_torch.dist.sharding.SimMesh`). The global batch splits
+  into P contiguous row shards, as ``P("data")`` shards rows; each rank's
+  backward runs in turn into its row of ``[P, ...]`` gradient buffers;
+  :func:`~repro_torch.core.collectives.sync_leaf` (``method`` ∈ butterfly |
+  rabenseifner | all_to_all | xla_psum, ``fanout``; or the int8 wire)
+  merges them leaf by leaf through a ``Communicator``, which counts each
+  rank's bytes, and frees each stack. Clip and optimizer then apply to
+  rank 0's copy, as the reference's ``out_specs=P()`` takes every rank to
+  hold the same value: at fanout 2 the ranks' copies are bit-identical
+  (``a + b == b + a``); where the fold order differs by rank (fanout 4,
+  ``all_to_all``, ``xla_psum``) the metric ``rank_spread`` is the largest
+  difference between ranks. Requires non-FSDP rules (refused).
+
+Gradients are trees keyed by the reference's parameter paths, in its
+stacked shapes (``api.param_leaves``). With ``microbatches == 1`` they are
+in the parameter dtype; with more, each microbatch's gradient is one
+``torch.autograd.grad``, cast to ``cfg.grad_accum_dtype`` and added in
+order (never ``.grad`` accumulation, which would sum in the parameter
+dtype), then scaled by ``1 / microbatches``. A step is
+``(model, opt_state, batch, step_idx) -> (model, opt_state, metrics)``;
+the model and the state are updated in place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import DTYPES, MeshRules, SimMesh, sorted_leaves, tree_get, tree_set
+from repro_torch.models import api
+from repro_torch.train import optim
+
+
+def _split_batch(batch: Dict, n: int):
+    """``n`` microbatches of contiguous rows."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split into {n} microbatches")
+    m = rows // n
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(n)]
+
+
+@contextlib.contextmanager
+def _recording(prms):
+    """Autograd records the parameters inside the block only: the model is
+    built with gradients off, so serving builds no graph."""
+    for p in prms:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for p in prms:
+            p.requires_grad_(False)
+
+
+def grad_buffers(model, microbatches: int, accum_dtype, lead=()) -> Dict:
+    """Zeroed gradient trees in the reference's stacked shapes (with extra
+    ``lead`` axes): the accumulation dtype when microbatching, else each
+    parameter's dtype."""
+    out: Dict = {}
+    for path, stack, prms in api.param_leaves(model):
+        dtype = accum_dtype if microbatches > 1 else prms[0].dtype
+        tree_set(out, path, torch.zeros(tuple(lead) + stack + tuple(prms[0].shape),
+                                        dtype=dtype, device=prms[0].device))
+    return out
+
+
+def _grads_of(loss_fn, model, batch: Dict, microbatches: int, accum_dtype=torch.float32,
+              out: Optional[Dict] = None):
+    """-> (loss, grads): the loss's value and its gradient tree, averaged
+    over ``microbatches``. ``out`` (zeroed buffers of :func:`grad_buffers`,
+    e.g. one rank's row of the butterfly step's stacks) takes the result."""
+    leaves = api.param_leaves(model)
+    prms = [p for _, _, ps in leaves for p in ps]
+    n = max(microbatches, 1)
+    if out is None:
+        out = grad_buffers(model, n, accum_dtype)
+    loss = None
+    with _recording(prms):
+        for mb in _split_batch(batch, n):
+            value = loss_fn(model, mb)
+            grads = iter(torch.autograd.grad(value, prms))
+            loss = value.detach() if loss is None else loss + value.detach()
+            for path, _, ps in leaves:
+                buf = tree_get(out, path).view((-1,) + tuple(ps[0].shape))
+                for k in range(len(ps)):
+                    g = next(grads)
+                    if n == 1:
+                        buf[k].copy_(g)
+                    else:
+                        buf[k].add_(g.to(buf.dtype))
+            del grads, value
+    if n > 1:
+        inv = 1.0 / n
+        loss = loss * inv
+        for _, buf in sorted_leaves(out):
+            buf.copy_(buf.float() * inv)
+    return loss, out
+
+
+def build_train_step(cfg: ModelConfig, *, microbatches: int = 1, clip_norm: float = 1.0,
+                     lr_kw: Optional[Dict] = None):
+    """One-device train step: (model, opt_state, batch, step_idx) -> ..."""
+    loss_fn = api.train_loss_fn(cfg)
+    opt = optim.get(cfg.optimizer)
+    lr_kw = lr_kw or {}
+    accum = DTYPES[cfg.grad_accum_dtype]
+
+    def step(model, opt_state, batch, step_idx):
+        loss, grads = _grads_of(loss_fn, model, batch, microbatches, accum)
+        grads, gnorm = optim.clip_by_global_norm(grads, clip_norm)
+        lr = optim.cosine_lr(step_idx, **lr_kw)
+        model, opt_state = opt.apply(model, grads, opt_state, lr)
+        return model, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return step
+
+
+def build_train_step_butterfly(
+    cfg: ModelConfig,
+    mesh: SimMesh,
+    rules: MeshRules,
+    *,
+    method: str = "butterfly",
+    fanout: int = 2,
+    microbatches: int = 1,
+    clip_norm: float = 1.0,
+    compress: Optional[str] = None,  # None | "int8"
+    lr_kw: Optional[Dict] = None,
+):
+    """Paper-pattern gradient sync over the simulated ranks (DESIGN.md §7).
+
+    Metrics add ``rank_spread`` (the largest absolute difference between a
+    rank's synced gradient and rank 0's) and ``bytes_per_rank`` (what each
+    rank sent this step; every rank sends the same)."""
+    if rules.fsdp:
+        raise ValueError("the butterfly grad-sync path requires non-FSDP params")
+    if compress not in (None, "int8"):
+        raise ValueError(f"unknown compression {compress!r}")
+    p = math.prod(mesh.shape[a] for a in rules.batch)
+    loss_fn = api.train_loss_fn(cfg)
+    opt = optim.get(cfg.optimizer)
+    lr_kw = lr_kw or {}
+    accum = DTYPES[cfg.grad_accum_dtype]
+
+    def sync(g, comm):
+        if compress == "int8":
+            return collectives.sync_leaf_int8(g, comm, fanout=fanout)
+        return collectives.sync_leaf(g, comm, method=method, fanout=fanout)
+
+    def step(model, opt_state, batch, step_idx):
+        comm = collectives.Communicator(p, next(model.parameters()).device)
+        stacks = grad_buffers(model, microbatches, accum, lead=(p,))
+        losses = []
+        for r, shard in enumerate(_split_batch(batch, p)):
+            rank_out = shd.tree_map(lambda s: s[r], stacks)
+            losses.append(_grads_of(loss_fn, model, shard, microbatches, accum,
+                                    out=rank_out)[0])
+            del rank_out
+        loss = torch.stack(losses).sum() / p  # lax.pmean
+        grads: Dict = {}
+        spread = torch.zeros((), dtype=torch.float32, device=comm.device)
+        for path, _ in list(sorted_leaves(stacks)):
+            g = tree_get(stacks, path)
+            tree_set(stacks, path, None)
+            synced = sync(g, comm)
+            del g
+            for r in range(1, p):
+                spread = torch.maximum(spread, (synced[r] - synced[0]).abs().max().float())
+            tree_set(grads, path, synced[0].clone())
+            del synced
+        grads, gnorm = optim.clip_by_global_norm(grads, clip_norm)
+        lr = optim.cosine_lr(step_idx, **lr_kw)
+        model, opt_state = opt.apply(model, grads, opt_state, lr)
+        return model, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                                  "rank_spread": spread,
+                                  "bytes_per_rank": int(comm.bytes_sent[0])}
+
+    return step

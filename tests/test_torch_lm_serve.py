@@ -161,9 +161,10 @@ def test_init_params_laws_and_determinism():
     wx = torch.stack([g.ssm.wx for g in a.groups["blocks"]])
     assert abs(float(wx.std()) * (cfg.n_layers * cfg.d_model) ** 0.5 - 1.0) < 0.05
     # a leaf's values do not depend on the other leaves: its path seeds it
-    tree = sharding.tree_init({"x": {"w": sharding.PD((4, 4), (None, None), "normal")}}, 0)
+    tree = sharding.tree_init({"x": {"w": sharding.PD((4, 4), (None, None), "normal")}}, 0,
+                              device="cpu")
     alone = sharding.tree_init({"x": {"w": sharding.PD((4, 4), (None, None), "normal")},
-                                "y": sharding.PD((3,), (None,), "normal")}, 0)
+                                "y": sharding.PD((3,), (None,), "normal")}, 0, device="cpu")
     assert torch.equal(tree["x"]["w"], alone["x"]["w"])
 
 
