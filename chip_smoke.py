@@ -45,6 +45,26 @@ account:
    reduced config, 2 train steps on the card against the port on the CPU
    (float32, TF32 off, 1e-5), and ``launch.train --smoke`` on the card;
    none of the four graph kernels launched;
+3c. the LM side's multi-device half, after phase 3b (its state freed
+   after): (a) qwen3-1.7b's parameter, optimizer-state and input specs at
+   its published size on both production meshes (descriptors: the split
+   share of the bytes, a device's bytes), its seeded parameters placed on
+   a (data 2, model 4) mesh on the card, every shard its block and the
+   gathered tree equal bit for bit; (b) phase 3b(c)'s 2-layer checkpoint
+   restored by ``ckpt.restore(mesh=, pspecs=)`` onto (data 2, model 4) and
+   data 8 with fsdp, every shard its block of the saved array bit for bit,
+   seconds and peak memory; (c) GPipe of ``tanh(x @ W)`` at qwen3-1.7b's
+   depth and width (``[28, 2048, 2048]`` float32, TF32 off) in 4 stages, 8
+   microbatches of (1024, 2048): forward and weight gradient against the
+   sequential stack at the reference test's tolerances, 11 handoff ticks of
+   8 MiB from each stage but the last, pipelined against sequential time;
+   (d) 4 gloo processes on the card (pinned host staging), each with 4 of
+   the 16 rows of phase 3b's batch on the 2-layer cut: every sync method
+   equal to the simulated ``Communicator`` on the same per-rank gradients
+   (bit for bit by checksums, else within 1e-5), bytes equal to the model,
+   seconds with the staging's share, one butterfly step a process equal
+   to the simulated-rank step; a failing or hanging process fails the
+   phase; none of the four graph kernels launched;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -154,11 +174,14 @@ BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.  ``--lm-only`` runs phases 1, 3 and 3b alone, with 4 decode steps and
-one train step under ``torch.profiler`` after the timed runs (the full run
-profiles no LM step: a profiler session would precede the graph phases'
-timings); ``--train-only`` runs phases 1 and 3b alone, the train step
-profiled.
+JSON.  ``--lm-only`` runs phases 1, 3, 3b and 3c alone, with 4 decode steps
+and one train step under ``torch.profiler`` after the timed runs (the full
+run profiles no LM step: a profiler session would precede the graph phases'
+timings); ``--train-only`` runs phases 1, 3b and 3c alone, the train step
+profiled.  ``--multi-card``, on a machine with several cards, runs phase
+3c(d) over nccl with one rank on each card, then ``launch.train`` under
+``torchrun`` with nccl, alone (NCCL refuses two ranks on one card, so the
+one-card run syncs over gloo).
 """
 
 from __future__ import annotations
@@ -169,8 +192,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -216,6 +241,10 @@ WEIGHT = 64
 SSSP_ROOTS = {"butterfly": 4, "adaptive": 2, "sparse": 2}
 SSSP_DELTA = 32
 BC_LANES = 4
+# k-core's profile runs its first rounds only: the whole run (about 1550
+# rounds, 160,000 device operations) costs a minute or more of trace
+# processing, and every round launches the same peel waves
+KCORE_PROFILE_ROUNDS = 200
 # the mutation phases: undirected inserts and deletes sampled for each
 # in-place batch (the inserts cut to the ranks' slack), cached roots per
 # row kind, the syncs of the BFS repairs, the share of the edges inserted
@@ -1260,14 +1289,15 @@ def merge_profile(label, run, top_n=5):
     kernels = sum(e.count for e in cuda)
     top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in
            sorted(cuda, key=lambda e: -e.self_device_time_total)[:top_n]]
+    spent_s = time.perf_counter() - t0
     log(f"  {label}: bitmap_or_reduce {launches} launches, profiler saw {seen}, "
         f"{ms:.3f} ms ({'not measured' if per is None else f'{per:.4f} ms a launch'}); "
         f"device busy {busy:.3f} ms of {wall:.3f} ms profiled wall in {kernels} device "
-        f"operations; by kernel:")
+        f"operations ({spent_s:.1f} s with the trace's processing); by kernel:")
     for name, t, n in top:
         log(f"    {t:9.3f} ms  {n:6d}x  {name}")
     return dict(launches=launches, seen=seen, ms=ms, ms_per_launch=per, busy_ms=busy,
-                profiled_wall_ms=wall, device_ops=kernels, top=top)
+                profiled_wall_ms=wall, device_ops=kernels, top=top, spent_s=spent_s)
 
 
 def merge_site_table(rows, paths):
@@ -1628,7 +1658,8 @@ def run_cc(parts, fanout, dev):
 def run_kcore(parts, fanout, dev, small):
     """Phase 16: k-core on the Kronecker graph, the h-index fixed point
     checked for every vertex on the card; ``small`` against the host
-    peeling oracle.  Returns the summary and a function that runs it."""
+    peeling oracle.  Returns the summary and a function that runs its first
+    ``KCORE_PROFILE_ROUNDS`` rounds (the profile's run)."""
     import numpy as np
     import torch
 
@@ -1650,7 +1681,8 @@ def run_kcore(parts, fanout, dev, small):
     summary["max_core"] = int(res.max())
     log(f"  kcore: h-index fixed point holds at every vertex (max core "
         f"{summary['max_core']}); scale {small['scale']} == host peeling")
-    fn = programs.build_program_fn(parts["pg"], prog, cfg, device=dev)
+    fn = programs.build_program_fn(parts["pg"], prog, dataclasses.replace(
+        cfg, max_iters=KCORE_PROFILE_ROUNDS), device=dev)
     return summary, lambda: fn(parts["arrays"])
 
 
@@ -3062,16 +3094,15 @@ def sync_full_width(model, dev):
     return res
 
 
-def restart_check(dev, seed):
+def restart_check(dev, seed, tmp=None):
     """(c) qwen3-1.7b's widths cut to ``RESTART_LAYERS`` layers, deterministic
     algorithms on: ``RESTART_STEPS`` steps uninterrupted against a run that
     fails at ``RESTART_FAIL`` (checkpoints every ``RESTART_EVERY``, written
     synchronously) and restarts; the final parameters and moments equal bit
     for bit. Then the blocking host copy of an async save against its
-    write. The checkpoints live in a temporary directory, removed after."""
-    import shutil
-    import tempfile
-
+    write. The checkpoints live in ``tmp/ck`` (the async save's, of the
+    final step, is phase 3c's to restore); without ``tmp``, in a temporary
+    directory removed after."""
     import numpy as np
 
     from repro_torch import configs
@@ -3083,7 +3114,8 @@ def restart_check(dev, seed):
     cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
     kw = dict(n_steps=RESTART_STEPS, microbatches=cfg.train_microbatches, lr_kw=TRAIN_LR,
               log_every=100)
-    tmp = tempfile.mkdtemp(prefix="repro_torch_restart_")
+    own = tmp is None
+    tmp = tempfile.mkdtemp(prefix="repro_torch_restart_") if own else tmp
     ck = os.path.join(tmp, "ck")
     res = {"layers": RESTART_LAYERS, "params": api.param_counts(cfg)["total"]}
     try:
@@ -3134,7 +3166,8 @@ def restart_check(dev, seed):
         log(f"  async save of {size / 1e9:.3f} GB: blocking copy {copy_s:.2f} s, then the "
             f"write {write_s:.2f} s on its thread")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if own:
+            shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -3213,9 +3246,11 @@ def train_card_vs_cpu(dev, seed):
     return rows
 
 
-def run_train(dev, seed, profile):
+def run_train(dev, seed, profile, tmp=None):
     """Phase 3b: the LM training path (module docstring, item 3b). The graph
-    kernels are not on this path: their counts stay 0."""
+    kernels are not on this path: their counts stay 0. The restart's
+    checkpoints are written under ``tmp`` (a temporary directory by
+    default)."""
     import torch
 
     from repro_torch.kernels import build
@@ -3230,7 +3265,7 @@ def run_train(dev, seed, profile):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    out["restart"] = restart_check(dev, seed)
+    out["restart"] = restart_check(dev, seed, tmp)
     gc.collect()
     torch.cuda.empty_cache()
     out["reduced"] = train_card_vs_cpu(dev, seed)
@@ -3248,6 +3283,639 @@ def run_train(dev, seed, profile):
         torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The LM side's multi-device half (phase 3c)
+# ---------------------------------------------------------------------------
+
+# (a) the parameters placed on a (data 2, model 4) mesh of simulated devices
+PLACE_MESH = ((2, 4), ("data", "model"))
+# (b) phase 3b(c)'s checkpoint restored onto (data 2, model 4), and onto data
+# 8 with fsdp (ZeRO-3: the embed dimension split 8 ways; without it data 8
+# replicates every leaf)
+RESTORE_MESHES = (("data 2 x model 4", (2, 4), ("data", "model"), False),
+                  ("data 8, fsdp", (8,), ("data",), True))
+# (c) GPipe of tests/test_pipeline.py's layer tanh(x @ W) at qwen3-1.7b's
+# depth and width, float32 with TF32 off, on a (stage 4, data 1) mesh; the
+# reference test's tolerances
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_ROWS, GPIPE_REPS = 4, 8, 1024, 3
+GPIPE_FWD_TOL, GPIPE_GRAD_TOL = (2e-5, 2e-6), (5e-4, 5e-6)
+# (d) the gradient sync over torch.distributed: gloo processes on the card,
+# each with TRAIN_BATCH / DIST_WORLD rows of phase 3b's batch
+DIST_WORLD, DIST_TIMEOUT_S = 4, 300
+DIST_CASES = SYNC_CASES + (("int8", 2),)
+CHECKSUM_CHUNK = 1 << 25
+
+
+def block_slices(shape, spec, sizes, names, i):
+    """Device ``i``'s block of a ``shape`` tensor under ``spec`` on the mesh
+    ``sizes``/``names`` (row-major devices; a dimension split over axes
+    ``(a, b)`` takes block ``coord_a * |b| + coord_b``): the JAX layout,
+    written apart from the port's ``sharding.place``."""
+    coords, rest = {}, i
+    for name, n in reversed(list(zip(names, sizes))):
+        coords[name], rest = rest % n, rest // n
+    size = dict(zip(names, sizes))
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        k, parts = 0, 1
+        for a in axes:
+            k, parts = k * size[a] + coords[a], parts * size[a]
+        out.append(slice(k * (n // parts), (k + 1) * (n // parts)))
+    return tuple(out)
+
+
+def bits(t):
+    """``t``'s bit patterns as integers (bit-exact comparisons)."""
+    import torch
+
+    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}[
+        t.element_size()])
+
+
+def check_shards(label, full, shards, spec, sizes, names):
+    """Every device's shard equal bit for bit to its block of ``full``."""
+    for i in range(shards.shape[0]):
+        if not torch_equal(bits(shards[i]), bits(full[block_slices(full.shape, spec, sizes,
+                                                                     names, i)])):
+            raise AssertionError(f"{label}: device {i}'s shard is not its block ({spec})")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def spec_bytes(structs):
+    """(total bytes, bytes of leaves split on some axis, one device's bytes)
+    of a tree of ``ShardStruct``."""
+    import math
+
+    from repro_torch.dist.sharding import sorted_leaves
+
+    total = split = device = 0
+    for _, st in sorted_leaves(structs):
+        n = math.prod(st.shape) * st.dtype.itemsize
+        total += n
+        split += n if any(e is not None for e in st.spec) else 0
+        device += math.prod(st.shard_shape) * st.dtype.itemsize
+    return total, split, device
+
+
+def placement(dev, seed):
+    """(a) qwen3-1.7b's parameter, optimizer-state and input specs at its
+    published size on both production meshes (descriptors only), then its
+    seeded bfloat16 parameters placed on a (data 2, model 4) mesh on the
+    card: every shard its block, the gathered tree the parameters bit for
+    bit."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import api
+    from repro_torch.train import optim
+
+    cfg = configs.get_config(LM_ARCH)
+    pdefs = api.param_defs(cfg)
+    res = {}
+    for label, mesh in (("production", mesh_mod.make_production_mesh()),
+                        ("multi_pod", mesh_mod.make_production_mesh(multi_pod=True))):
+        rules = shd.rules_for_mesh(mesh, cfg.fsdp)
+        rec = {}
+        for what, defs, dtype in (
+                ("params", pdefs, cfg.param_dtype),
+                ("opt_state", optim.get(cfg.optimizer).state_defs(pdefs), "float32"),
+                ("inputs", api.input_defs(cfg, SHAPES["train_4k"]), cfg.compute_dtype)):
+            total, split, device = spec_bytes(shd.tree_structs(defs, dtype, rules, mesh))
+            rec[what] = dict(bytes=total, split_bytes=split, device_bytes=device,
+                             split_share=split / total)
+        res[label] = rec
+        p = rec["params"]
+        log(f"  {label} mesh {mesh.shape}: {p['split_share']:.1%} of the parameter bytes "
+            f"({p['split_bytes'] / 1e9:.3f} of {p['bytes'] / 1e9:.3f} GB) split, "
+            f"{p['device_bytes'] / 1e9:.3f} GB a device; optimizer state "
+            f"{rec['opt_state']['split_share']:.1%} split, "
+            f"{rec['opt_state']['device_bytes'] / 1e9:.3f} GB a device; train_4k inputs "
+            f"{rec['inputs']['device_bytes'] / 1e6:.1f} MB a device")
+    sizes, names = PLACE_MESH
+    mesh = shd.SimMesh(sizes, names)
+    rules = shd.rules_for_mesh(mesh, cfg.fsdp)
+    model = api.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    place_s, placed, n_split = 0.0, 0, 0
+    for path, lead, prms in api.param_leaves(model):
+        full = api.stack_leaf(lead, prms)
+        spec = shd.spec_for(shd.tree_get(pdefs, path), rules, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = shd.place(full, spec, mesh)
+        torch.cuda.synchronize()
+        place_s += time.perf_counter() - t0
+        check_shards(f"place {'/'.join(path)}", full, shards, spec, sizes, names)
+        if not torch_equal(bits(shd.gather(shards, spec, mesh)), bits(full)):
+            raise AssertionError(f"place {'/'.join(path)}: gathered != the parameter")
+        placed += shards.numel() * shards.element_size()
+        n_split += any(e is not None for e in spec)
+        del full, shards
+    res["placed"] = dict(mesh=dict(zip(names, sizes)), leaves=len(api.param_leaves(model)),
+                         split_leaves=n_split, shard_bytes=placed, place_s=place_s,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  {cfg.name} ({api.param_counts(cfg)['total']:,} parameters, bfloat16) placed on "
+        f"data 2 x model 4: {n_split} of {res['placed']['leaves']} leaves split, "
+        f"{placed / 1e9:.3f} GB of shards in {place_s:.2f} s; every shard its block, the "
+        f"gathered tree the parameters bit for bit; peak {res['placed']['peak_bytes'] / 1e9:.2f} GB")
+    del model
+    return res
+
+
+def elastic_restore(dev, ck):
+    """(b) phase 3b(c)'s checkpoint (2 layers, the final step's parameters
+    and AdamW moments) restored onto each of ``RESTORE_MESHES`` by
+    ``ckpt.restore(mesh=, pspecs=)``: every shard equal bit for bit to its
+    block of the saved array (read from the file apart from the restore),
+    the model template filled with the saved parameters; the restore's
+    seconds and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.train import optim
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
+    opt = optim.get(cfg.optimizer)
+    pdefs = api.param_defs(cfg)
+    sdefs = opt.state_defs(pdefs)
+    with np.load(os.path.join(ck, "arrays.npz")) as data:
+        saved = {k: data[k] for k in data.files}
+    res = {"ckpt_bytes": os.path.getsize(os.path.join(ck, "arrays.npz")),
+           "step": ckpt.latest_step(ck)}
+    for label, sizes, names, fsdp in RESTORE_MESHES:
+        mesh = shd.SimMesh(sizes, names)
+        rules = shd.rules_for_mesh(mesh, fsdp)
+        pspecs = {"params": shd.tree_pspecs(pdefs, rules, mesh),
+                  "opt_state": shd.tree_pspecs(sdefs, rules, mesh)}
+        template = api.build_model(cfg, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step, trees = ckpt.restore(ck, {"params": template, "opt_state": sdefs}, mesh=mesh,
+                                   pspecs=pspecs, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        shard_bytes, n_split = 0, 0
+        for name in ("params", "opt_state"):
+            for path, shards in shd.sorted_leaves(trees[name]):
+                full = api.from_numpy(saved["/".join((name,) + path)]).to(dev)
+                spec = shd.tree_get(pspecs[name], path)
+                check_shards(f"restore {label} {name}/{'/'.join(path)}", full, shards, spec,
+                             sizes, names)
+                shard_bytes += shards.numel() * shards.element_size()
+                n_split += any(e is not None for e in spec)
+        for path, lead, prms in api.param_leaves(template):
+            want = api.from_numpy(saved["/".join(("params",) + path)]).to(dev)
+            if not torch_equal(bits(api.stack_leaf(lead, prms)), bits(want)):
+                raise AssertionError(f"restore {label}: the model's {'/'.join(path)} differs")
+        res[label] = dict(step=step, restore_s=restore_s, peak_bytes=peak,
+                          shard_bytes=shard_bytes, split_leaves=n_split)
+        log(f"  restored the {res['ckpt_bytes'] / 1e9:.3f} GB checkpoint (step {step}) onto "
+            f"{label}: {shard_bytes / 1e9:.3f} GB of shards, {n_split} leaves split, every "
+            f"shard its block of the saved array bit for bit, the model filled; "
+            f"{restore_s:.2f} s, peak {peak / 1e9:.2f} GB over what was held")
+        del trees, template
+    return res
+
+
+def gpipe_stage(w, x):
+    import torch
+
+    for layer in w:
+        x = torch.tanh(x @ layer)
+    return x
+
+
+def gpipe_sequential(stacked, mbs):
+    import torch
+
+    return torch.stack([gpipe_stage(stacked, x) for x in mbs])
+
+
+def wall_ms(fn, reps):
+    """Median host ms of ``fn()`` ending in a synchronize, after a warm-up."""
+    import numpy as np
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def gpipe(dev, seed):
+    """(c) GPipe on a (stage 4, data 1) mesh: ``[28, 2048, 2048]`` float32
+    layers ``tanh(x @ W)`` in 4 stages of 7, 8 microbatches of (1024,
+    2048), TF32 off: the forward against the sequential stack, the weight
+    gradient of ``sum(out ** 2)`` against the sequential one (the reference
+    test's tolerances), ``M + S - 1`` handoffs from each stage but the
+    last of one block each, and both timed."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.collectives import Communicator
+    from repro_torch.dist import pipeline
+    from repro_torch.dist.sharding import SimMesh
+
+    cfg = configs.get_config(LM_ARCH)
+    n_layers, d = cfg.n_layers, cfg.d_model
+    s, m, rows = GPIPE_STAGES, GPIPE_MICRO, GPIPE_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    stacked = torch.randn((n_layers, d, d), generator=gen, device=dev) * d ** -0.5
+    mbs = torch.randn((m, rows, d), generator=gen, device=dev)
+    mesh = SimMesh((s, 1), ("stage", "data"))
+    apply = pipeline.build_pipelined_apply(mesh, gpipe_stage)
+    res = dict(layers=n_layers, d=d, stages=s, microbatches=m, rows=rows)
+    torch.cuda.reset_peak_memory_stats()
+    with exact_float32():
+        with torch.no_grad():
+            comm = Communicator(mesh, dev)
+            got = apply(stacked, mbs, comm)
+            want = gpipe_sequential(stacked, mbs)
+            res["forward"] = check_close("gpipe forward", got, want, *GPIPE_FWD_TOL)
+            res["forward"]["bit_equal"] = torch_equal(bits(got), bits(want))
+            del got, want
+            ticks = m + s - 1
+            want_bytes = [ticks * rows * d * 4] * (s - 1) + [0]
+            if comm.sends.tolist() != [ticks] * (s - 1) + [0] or \
+                    comm.bytes_sent.tolist() != want_bytes:
+                raise AssertionError(f"gpipe: sends {comm.sends}, bytes {comm.bytes_sent}, "
+                                     f"expected {ticks} ticks of {want_bytes}")
+            res.update(ticks=ticks, stage_bytes=comm.bytes_sent.tolist())
+            res["pipelined_ms"] = wall_ms(lambda: apply(stacked, mbs), GPIPE_REPS)
+            res["sequential_ms"] = wall_ms(lambda: gpipe_sequential(stacked, mbs), GPIPE_REPS)
+        w = stacked.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (g_pipe,) = torch.autograd.grad((apply(w, mbs) ** 2).sum(), w)
+        torch.cuda.synchronize()
+        res["pipelined_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        (g_seq,) = torch.autograd.grad((gpipe_sequential(w, mbs) ** 2).sum(), w)
+        torch.cuda.synchronize()
+        res["sequential_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        res["grad"] = check_close("gpipe weight gradient", g_pipe, g_seq, *GPIPE_GRAD_TOL)
+        res["grad"]["bit_equal"] = torch_equal(bits(g_pipe), bits(g_seq))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["bubble_ratio"] = res["pipelined_ms"] / res["sequential_ms"]
+    log(f"  GPipe [{n_layers}, {d}, {d}] float32 in {s} stages of {n_layers // s}, {m} "
+        f"microbatches of ({rows}, {d}): forward max abs err {res['forward']['max_abs_err']:.3e} "
+        f"({res['forward']['tol_share']:.3f} of rtol 2e-5 atol 2e-6; bit-equal "
+        f"{res['forward']['bit_equal']}); weight gradient max abs err "
+        f"{res['grad']['max_abs_err']:.3e} ({res['grad']['tol_share']:.3f} of rtol 5e-4 atol "
+        f"5e-6; bit-equal {res['grad']['bit_equal']})")
+    log(f"  {ticks} handoff ticks, {want_bytes[0]:,} bytes from each of stages 0-{s - 2}, none "
+        f"from the last; forward pipelined {res['pipelined_ms']:.1f} ms against sequential "
+        f"{res['sequential_ms']:.1f} ms ({res['bubble_ratio']:.3f}x; (M + S - 1) / M = "
+        f"{ticks / m:.3f}); with the gradient {res['pipelined_grad_ms']:.1f} against "
+        f"{res['sequential_grad_ms']:.1f} ms; peak {res['peak_bytes'] / 1e9:.2f} GB")
+    return res
+
+
+def bits_checksum(t) -> int:
+    """A position-weighted sum of ``t``'s bit patterns modulo 2^64, on its
+    device in chunks: equal tensors give equal sums, and a tensor that
+    differs in any bit almost surely does not."""
+    import torch
+
+    flat = bits(t.detach().contiguous()).reshape(-1)
+    total = 0
+    for lo in range(0, flat.numel(), CHECKSUM_CHUNK):
+        part = flat[lo:lo + CHECKSUM_CHUNK].to(torch.int64)
+        w = torch.arange(lo + 1, lo + 1 + part.numel(), device=t.device, dtype=torch.int64)
+        total += int((part * w.mul_(0x7F4A7C15)).sum())
+    return total % (1 << 64)
+
+
+def dist_sync_leaf(g, comm, method, fanout):
+    from repro_torch.core import collectives
+
+    if method == "int8":
+        return collectives.sync_leaf_int8(g, comm, fanout=fanout)
+    return collectives.sync_leaf(g, comm, method=method, fanout=fanout)
+
+
+def dist_child(rank, world, out_dir, job):
+    """One process of (d), on ``job["device"]`` with ``world - 1`` others in
+    a ``job["backend"]`` group (nccl: on card ``rank``). Each builds
+    ``job["cfg"]`` (the 2-layer qwen3-1.7b cut) from ``job["seed"]``,
+    computes the gradient of its rows of phase 3b's batch (one-row
+    microbatches, deterministic algorithms) and syncs it by every method of
+    ``DIST_CASES`` through a ``DistCommunicator``, timed. Rank 0 also
+    computes every rank's gradient and syncs them on the simulated
+    ``Communicator``; each rank's result is held to the simulated rank's
+    bit for bit by checksums, and where a checksum differs the rank sends
+    the leaf to rank 0, which holds it within ``SYNC_REL_TOL``. Then one
+    butterfly train step a process against rank 0's simulated-rank step,
+    parameters and moments by checksums. Writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.process import DistCommunicator
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.train import optim, step as step_mod
+
+    t_start = time.perf_counter()
+    nccl = job["backend"] == "nccl"
+    dev = torch.device("cuda", rank) if nccl else torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+
+    def synchronize():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    build.reset_launches()
+    cfg, seed, step_idx = job["cfg"], job["seed"], job["step"]
+    model = api.init_params(cfg, seed, device=dev)
+    batch = device_batch(SyntheticLM(cfg, job["batch"], job["seq"]), step_idx, dev)
+    rows = job["batch"] // world
+    shards = step_mod._split_batch(batch, world)
+    loss_fn = api.train_loss_fn(cfg)
+    res = {"rank": rank, "methods": {}}
+    with deterministic():
+        mine = step_mod.grad_buffers(model, rows, torch.float32, lead=(1,))
+        step_mod._grads_of(loss_fn, model, shards[rank], rows, torch.float32,
+                           out=shd.tree_map(lambda s: s[0], mine))
+        stacks = None
+        if rank == 0:  # every rank's gradient, as each computes its own
+            stacks = step_mod.grad_buffers(model, rows, torch.float32, lead=(world,))
+            for path, g in shd.sorted_leaves(mine):
+                shd.tree_get(stacks, path)[0].copy_(g[0])
+            for r in range(1, world):
+                step_mod._grads_of(loss_fn, model, shards[r], rows, torch.float32,
+                                   out=shd.tree_map(lambda s, r=r: s[r], stacks))
+    synchronize()
+    res["setup_s"] = time.perf_counter() - t_start
+    leaves = list(shd.sorted_leaves(mine))
+    res["n_elems"] = [g[0].numel() for _, g in leaves]
+    # one small all-gather first: a backend opens each pair's connection at
+    # its first message, which would otherwise fall in the first method's time
+    dist_sync_leaf(torch.zeros((1, 8), device=dev), DistCommunicator(dev), "xla_psum", 2)
+    for method, fanout in DIST_CASES:
+        label = f"{method} fanout {fanout}"
+        comm = DistCommunicator(dev)
+        dist.barrier()
+        synchronize()
+        t0 = time.perf_counter()
+        synced = [dist_sync_leaf(g, comm, method, fanout) for _, g in leaves]
+        synchronize()
+        sync_s = time.perf_counter() - t0
+        sums = [bits_checksum(x[0]) for x in synced]
+        if cuda:  # give the sync's buffers back while rank 0 runs the simulated one
+            torch.cuda.empty_cache()
+        rec = dict(s=sync_s, stage_s=comm.stage_s, wire_s=comm.wire_s,
+                   bytes=int(comm.bytes_sent[0]), sends=int(comm.sends[0]))
+        gathered = [None] * world
+        dist.all_gather_object(gathered, (sums, rec["bytes"]))
+        mismatched = []
+        if rank == 0:
+            sim = collectives.Communicator(world, dev)
+            for i, (path, _) in enumerate(leaves):
+                out = dist_sync_leaf(shd.tree_get(stacks, path), sim, method, fanout)
+                for r in range(world):
+                    if gathered[r][0][i] != bits_checksum(out[r]):
+                        mismatched.append((i, r))
+                del out
+            model_bytes = sum(collectives.grad_sync_bytes(
+                "butterfly" if method == "int8" else method, world, fanout, n, 4,
+                "int8" if method == "int8" else None) for n in res["n_elems"])
+            if any(b != model_bytes or b != sim.bytes_sent[r]
+                   for r, (_, b) in enumerate(gathered)):
+                raise AssertionError(f"dist {label}: bytes {[b for _, b in gathered]}, "
+                                     f"simulated {sim.bytes_sent}, model {model_bytes}")
+            rec["model_bytes"] = model_bytes
+        box = [mismatched]
+        dist.broadcast_object_list(box, src=0)
+        worst = 0.0
+        wire = dev if nccl else torch.device("cpu")  # what the backend carries
+        for i, r in box[0]:
+            path = leaves[i][0]
+            if rank == r and r != 0:
+                dist.send(synced[i][0].to(wire), dst=0)
+            if rank == 0:
+                got = synced[i][0].to(wire) if r == 0 else torch.empty(
+                    synced[i][0].shape, dtype=synced[i][0].dtype, device=wire)
+                if r != 0:
+                    dist.recv(got, src=r)
+                want = dist_sync_leaf(shd.tree_get(stacks, path),
+                                      collectives.Communicator(world, dev), method, fanout)[r]
+                worst = max(worst, rel_err(got.to(dev), want))
+        if rank == 0:
+            rec.update(bit_equal=not box[0], mismatched=len(box[0]), rel_err=worst)
+            if worst > SYNC_REL_TOL:
+                raise AssertionError(f"dist {label}: rel err {worst:.3e} > {SYNC_REL_TOL}")
+        res["methods"][label] = rec
+        del synced
+        if cuda:
+            torch.cuda.empty_cache()
+    del stacks
+    if cuda:
+        torch.cuda.empty_cache()
+    # one butterfly train step a process, against rank 0's simulated-rank step
+    mesh = shd.SimMesh(world)
+    rules = shd.rules_for_mesh(mesh)
+    kw = dict(method="butterfly", fanout=2, microbatches=rows, lr_kw=job["lr_kw"])
+    comm = DistCommunicator(dev)
+    fn = step_mod.build_train_step_butterfly(cfg, mesh, rules, comm=comm, **kw)
+    state = optim.ADAMW.init(model)
+    dist.barrier()
+    synchronize()
+    t0 = time.perf_counter()
+    with deterministic():
+        model, state, m = fn(model, state, batch, step_idx)
+    synchronize()
+    res["step"] = dict(s=time.perf_counter() - t0, loss=float(m["loss"]),
+                       grad_norm=float(m["grad_norm"]), bytes=m["bytes_per_rank"],
+                       stage_s=comm.stage_s)
+
+    def tree_sums(mdl, st):
+        return ([bits_checksum(api.stack_leaf(lead, prms)) for _, lead, prms in
+                 api.param_leaves(mdl)] + [bits_checksum(v) for _, v in shd.sorted_leaves(st)])
+
+    sums = tree_sums(model, state)
+    del model, state
+    if cuda:
+        torch.cuda.empty_cache()
+    gathered = [None] * world
+    if rank == 0:
+        sim_model = api.init_params(cfg, seed, device=dev)
+        sim_state = optim.ADAMW.init(sim_model)
+        sim_fn = step_mod.build_train_step_butterfly(cfg, mesh, rules, **kw)
+        with deterministic():
+            sim_model, sim_state, sm = sim_fn(sim_model, sim_state, batch, step_idx)
+        want = tree_sums(sim_model, sim_state)
+        res["step"].update(sim_loss=float(sm["loss"]), sim_bytes=sm["bytes_per_rank"],
+                           sim_spread=float(sm["rank_spread"]))
+        del sim_model, sim_state
+    dist.all_gather_object(gathered, sums)
+    if rank == 0:
+        differ = [r for r in range(world) if gathered[r] != want]
+        if differ or res["step"]["bytes"] != res["step"]["sim_bytes"]:
+            raise AssertionError(f"dist step: ranks {differ} differ from the simulated step "
+                                 f"{res['step']}")
+    res["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    res["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=float)
+
+
+def dist_sync(dev, seed, child=None, backend="gloo", world=DIST_WORLD):
+    """(d) ``child`` (``dist_child``) in ``world`` processes of a ``backend``
+    group (gloo: all on the card ``dev``; nccl: one card each), joined with
+    a deadline (a child that fails or hangs fails the phase, every process
+    killed); then each method's seconds (the slowest rank's) with the host
+    staging's share."""
+    from repro_torch import configs
+    from repro_torch.dist import process
+
+    job = dict(cfg=dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, step=TRAIN_STEPS + 1, lr_kw=TRAIN_LR,
+               seed=seed, device=str(dev), backend=backend)
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_dist_")
+    try:
+        t0 = time.perf_counter()
+        codes = process.run_group(child or dist_child, world, (out_dir, job),
+                                  timeout_s=DIST_TIMEOUT_S, backend=backend)
+        wall_s = time.perf_counter() - t0
+        if any(codes):
+            raise AssertionError(f"dist: the processes exited with {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launched = [rk["launches"] for rk in ranks if rk["launches"]]
+    if launched:
+        raise AssertionError(f"dist: the processes launched graph kernels: {launched}")
+    res = {"world": world, "backend": backend, "wall_s": wall_s,
+           "setup_s": max(rk["setup_s"] for rk in ranks),
+           "peak_bytes": [rk["peak_bytes"] for rk in ranks], "methods": {}}
+    log(f"  {world} {backend} processes ({res['wall_s']:.1f} s in all; each "
+        f"built the {RESTART_LAYERS}-layer cut and took its gradient in up to "
+        f"{res['setup_s']:.1f} s; peaks {[round(p / 1e9, 2) for p in res['peak_bytes']]} GB)")
+    for label, rec in ranks[0]["methods"].items():
+        s = max(rk["methods"][label]["s"] for rk in ranks)
+        stage = max(rk["methods"][label]["stage_s"] for rk in ranks)
+        res["methods"][label] = dict(rec, s_max=s, stage_share=stage / s)
+        how = ("bit for bit" if rec["bit_equal"] else
+               f"within {rec['rel_err']:.2e} ({rec['mismatched']} leaf-ranks not bit-equal)")
+        log(f"  {label:22s} == the simulated Communicator {how}; {rec['bytes'] / 1e9:.3f} GB a "
+            f"rank == the model; {s:.2f} s (staging {stage:.2f} s, {stage / s:.0%}; wire "
+            f"{rec['wire_s']:.2f} s)")
+    step = ranks[0]["step"]
+    res["step"] = dict(step, s_max=max(rk["step"]["s"] for rk in ranks))
+    log(f"  one butterfly step a process: parameters and moments == the simulated-rank step "
+        f"bit for bit on every rank; loss {step['loss']:.4f} (simulated "
+        f"{step['sim_loss']:.4f}); {step['bytes'] / 1e9:.3f} GB a rank; "
+        f"{res['step']['s_max']:.2f} s")
+    return res
+
+
+def run_multi(dev, seed, ck):
+    """Phase 3c: the LM side's multi-device half (module docstring, item
+    3c). The graph kernels are not on this path: their counts stay 0, in
+    this process and in the gloo processes."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = {"placement": placement(dev, seed)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["restore"] = elastic_restore(dev, ck)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gpipe"] = gpipe(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dist"] = dist_sync(dev, seed)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the multi-device path launched graph kernels: {launched}")
+    log("  the multi-device path launched none of the four graph kernels")
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_multi_card(args, dev, card, phase, t_start) -> int:
+    """``--multi-card``: phase 3c(d) over nccl, one rank on each card, then
+    ``launch.train`` under ``torchrun`` with nccl on as many processes."""
+    import torch
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--multi-card needs several cards, found {world}")
+    out = {"cards": subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()}
+    for line in out["cards"]:
+        log(f"  card {line}")
+    phase(f"[3c(d)/27] the gradient sync over nccl, one rank on each of {world} cards")
+    out["dist"] = dist_sync(dev, args.seed, backend="nccl", world=world)
+    phase(f"[3c(d)/27] launch.train under torchrun, {world} processes, nccl")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("WORLD_SIZE", None)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         str(world), "-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--smoke",
+         "--steps", "3", "--grad-sync", "butterfly", "--backend", "nccl"],
+        env=env, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+    out["cli_s"] = time.perf_counter() - t0
+    done = [ln for ln in run.stdout.splitlines() if ln.startswith("done:")]
+    if run.returncode or len(done) != 1:
+        raise AssertionError(f"torchrun launch.train: rc {run.returncode}, {done}, "
+                             f"{run.stderr[-3000:]}")
+    log(f"  {done[0]} ({out['cli_s']:.1f} s)")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                           multi_card=out, total_s=time.perf_counter() - t_start,
+                           args=vars(args)), f, indent=1, default=float)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -3280,8 +3948,12 @@ def main(argv=None) -> int:
                     help="run the card line and the LM phases alone (with a profile of "
                          "decode steps and of a train step), for iterating on the LM path")
     ap.add_argument("--train-only", action="store_true",
-                    help="run the card line and the LM training phase alone (with a "
-                         "profile of a train step)")
+                    help="run the card line, the LM training phase (with a profile of a "
+                         "train step) and the multi-device phase alone")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="on a machine with several cards: run the card line, phase "
+                         "3c(d) over nccl with one rank on each card, and launch.train "
+                         "under torchrun with nccl, alone")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3290,11 +3962,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from repro_torch import programs
-    from repro_torch.analytics import msbfs
-    from repro_torch.core import bfs
-    from repro_torch.graph import generators
-    from repro_torch.kernels import build
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3309,13 +3977,37 @@ def main(argv=None) -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
+    ck_tmp = tempfile.mkdtemp(prefix="repro_torch_restart_")
+    try:
+        return run_phases(args, dev, card, phase, t_start, ck_tmp)
+    finally:
+        shutil.rmtree(ck_tmp, ignore_errors=True)
+
+
+def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
+    """Phases 2 to 27 (or 3, 3b and 3c alone); the restart's checkpoints
+    under ``ck_tmp``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import programs
+    from repro_torch.analytics import msbfs
+    from repro_torch.core import bfs
+    from repro_torch.graph import generators
+    from repro_torch.kernels import build
+
+    ck = os.path.join(ck_tmp, "ck")
+    if args.multi_card:
+        return run_multi_card(args, dev, card, phase, t_start)
     if args.lm_only or args.train_only:
         lm_out = {}
         if args.lm_only:
             phase("[3/27] the LM serving path (alone)")
             lm_out = run_lm(dev, args.seed, profile_decode=True)
         phase("[3b/27] the LM training path (alone)")
-        lm_out["train"] = run_train(dev, args.seed, profile=True)
+        lm_out["train"] = run_train(dev, args.seed, profile=True, tmp=ck_tmp)
+        phase("[3c/27] the LM multi-device half (alone)")
+        lm_out["multi"] = run_multi(dev, args.seed, ck)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
             f"{time.perf_counter() - t_start:.0f} s")
         if args.out:
@@ -3347,8 +4039,16 @@ def main(argv=None) -> int:
     phase(f"[3b/27] the LM training path: {LM_ARCH} at its published size (bfloat16, "
           f"remat, AdamW), the butterfly gradient sync on {TRAIN_RANKS} ranks, restart, every "
           f"arch's reduced config against the CPU")
-    lm_out["train"] = run_train(dev, args.seed, profile=False)
+    lm_out["train"] = run_train(dev, args.seed, profile=False, tmp=ck_tmp)
     log(f"  released the training state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    phase(f"[3c/27] the LM multi-device half: {LM_ARCH}'s placement on the production "
+          f"meshes and data 2 x model 4, the elastic restore, GPipe, the gradient sync in "
+          f"{DIST_WORLD} gloo processes")
+    lm_out["multi"] = run_multi(dev, args.seed, ck)
+    shutil.rmtree(ck_tmp, ignore_errors=True)
+    log(f"  released the multi-device state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
 

@@ -16,9 +16,9 @@ so a checkpoint crosses between the packages in both directions:
   thread serializes them; the train loop stalls only for the copy.
 * **Atomicity**: writes go to ``<dir>.tmp`` then ``os.replace``, so a
   crash mid-save never corrupts the latest checkpoint.
-
-The reference's elastic reshard (``restore(mesh=, pspecs=)``) waits with
-the mesh half of ``dist.sharding``.
+* **Elastic reshard**: ``restore(mesh=, pspecs=)`` places the stored full
+  arrays onto any :class:`~repro_torch.dist.sharding.SimMesh`, whatever
+  mesh wrote them (a checkpoint holds no mesh).
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ import numpy as np
 from torch import nn
 
 from repro_torch.core.bfs import resolve_device
-from repro_torch.dist.sharding import sorted_leaves, tree_set
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import sorted_leaves, tree_get, tree_set
 from repro_torch.models import api
 
 
@@ -84,26 +85,48 @@ def latest_step(path: str) -> Optional[int]:
         return json.load(f)["step"]
 
 
-def restore(path: str, templates: Dict[str, Any], *, device="cuda"
+def restore(path: str, templates: Dict[str, Any], *, mesh: Optional[shd.SimMesh] = None,
+            pspecs: Optional[Dict[str, Any]] = None, device="cuda"
             ) -> Tuple[int, Dict[str, Any]]:
     """Restore named trees; ``templates`` give their structure. A model
     template is filled in place on its own device; any other template (a
     nested dict of tensors, arrays or ``PD``s) gives a new tree of tensors
-    on ``device`` (the card by default; raises when there is none)."""
+    on ``device`` (the card by default; raises when there is none).
+
+    With ``mesh`` and ``pspecs`` (named trees of specs, keyed by the
+    reference's paths), each named tree in ``pspecs`` comes back placed:
+    every leaf the ``[mesh.ranks, *shard]`` per-device shards of the stored
+    full array (:func:`~repro_torch.dist.sharding.place`), on ``device``.
+    A model template is still filled in place, from the full arrays, after
+    every leaf has been read and placed; its entry is then its shard tree."""
     dev = resolve_device(device)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     out: Dict[str, Any] = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for name, template in templates.items():
+            specs = pspecs.get(name) if mesh is not None and pspecs is not None else None
             if isinstance(template, nn.Module):
-                tree: Dict = {}
-                for p, _, _ in api.param_leaves(template):
-                    tree_set(tree, p, data["/".join((name,) + p)])
-                out[name] = api.load_reference(template, tree)
-                continue
-            tree = {}
-            for p, _ in sorted_leaves(template):
-                tree_set(tree, p, api.from_numpy(data["/".join((name,) + p)]).to(dev))
-            out[name] = tree
+                paths = [p for p, _, _ in api.param_leaves(template)]
+            else:
+                paths = [p for p, _ in sorted_leaves(template)]
+            arrays = {p: data["/".join((name,) + p)] for p in paths}
+            placed = None
+            if specs is not None:
+                placed = _unflatten({p: shd.place(api.from_numpy(a).to(dev), tree_get(specs, p),
+                                                  mesh) for p, a in arrays.items()})
+            if isinstance(template, nn.Module):
+                api.load_reference(template, _unflatten(arrays))
+                out[name] = template if placed is None else placed
+            elif placed is not None:
+                out[name] = placed
+            else:
+                out[name] = _unflatten({p: api.from_numpy(a).to(dev) for p, a in arrays.items()})
     return manifest["step"], out
+
+
+def _unflatten(leaves: Dict[Tuple[str, ...], Any]) -> Dict:
+    tree: Dict = {}
+    for p, v in leaves.items():
+        tree_set(tree, p, v)
+    return tree

@@ -32,14 +32,30 @@ wire bit-cast to int32 words, never converted.
 
 Where the reference picks a branch on the device (``lax.cond``), the port
 reads the deciding counts on the host: one read per call of the sparse
-(overflow guard) and adaptive syncs, none for the dense ones.  The ranks
-form one axis; the reference's hierarchical multi-axis wiring is not
-ported.
+(overflow guard) and adaptive syncs, none for the dense ones.
+
+**Axes.** A :class:`Communicator` carries a
+:class:`~repro_torch.dist.sharding.SimMesh` (one ``data`` axis of P ranks
+unless given one).  The dense syncs, Rabenseifner, int8 and ``tree_sync*``
+take the reference's ``axes``: ``None`` syncs all ranks as one axis, a
+tuple such as ``("pod", "data")`` syncs within each group of ranks that
+differ only on those axes, axis by axis (the full-buffer rounds: the first
+axis first, each least-significant digit first; Rabenseifner: the stages
+of every axis in one mixed radix, the first axis least significant,
+reduce-scattered most-significant digit first, as the reference's
+``_global_stages``).  The sparse and adaptive syncs run over all ranks.
+
+**Ranks held.** A sync's buffers hold one row for each rank in
+``comm.ranks``: every rank for the simulated :class:`Communicator`, the
+process's own for :class:`~repro_torch.dist.process.DistCommunicator`
+over ``torch.distributed``; the per-rank index arithmetic is built from
+``comm.ranks``, so the same function bodies serve both.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +64,7 @@ from repro_torch.core import butterfly
 from repro_torch.core import frontier as fr
 from repro_torch.core import monoid as mono
 from repro_torch.core.monoid import Monoid
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.kernels import bitmap_merge, ref as kref
 
 _MERGE_OPS = {
@@ -58,19 +75,44 @@ _MERGE_OPS = {
     "min": mono.umin,
 }
 Op = Union[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
+Axes = Union[None, str, Sequence[str]]
+
+
+def _as_axes(axes: Axes) -> Optional[Tuple[str, ...]]:
+    if axes is None:
+        return None
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def route(perm: Sequence[Optional[int]], p: int) -> Tuple[int, ...]:
+    """``perm`` as a tuple with ``-1`` for a rank that sends nothing (``None``
+    or ``-1``; the reference's ``ppermute`` pairs need not cover every
+    rank); refuses repeated or out-of-range destinations."""
+    key = tuple(-1 if d is None else int(d) for d in perm)
+    dst = [d for d in key if d >= 0]
+    if len(key) != p or len(set(dst)) != len(dst) or any(d >= p for d in dst):
+        raise ValueError(f"{key} is not a (partial) permutation of {p} ranks")
+    return key
 
 
 class Communicator:
-    """P simulated ranks on one device, with a per-rank send counter.
+    """P simulated ranks on one device, with per-rank send counters.
 
-    ``bytes_sent[r]`` counts the bytes rank ``r`` has put on the wire; each
-    sync's count must equal its byte model in :mod:`.butterfly`."""
+    ``p`` is a rank count (one ``data`` axis) or a
+    :class:`~repro_torch.dist.sharding.SimMesh`.  ``ranks`` are the ranks
+    whose rows a sync's buffers hold (all of them here).  ``bytes_sent[i]``
+    counts the bytes rank ``ranks[i]`` has put on the wire and ``sends[i]``
+    its messages; each sync's count must equal its byte model in
+    :mod:`.butterfly`."""
 
-    def __init__(self, p: int, device):
-        self.p = int(p)
+    def __init__(self, p, device):
+        self.mesh = p if isinstance(p, SimMesh) else SimMesh(int(p))
+        self.p = self.mesh.ranks
+        self.ranks = np.arange(self.p, dtype=np.int64)
         self.device = torch.device(device)
-        self.bytes_sent = np.zeros(self.p, dtype=np.int64)
-        self._perms: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self.bytes_sent = np.zeros(len(self.ranks), dtype=np.int64)
+        self.sends = np.zeros(len(self.ranks), dtype=np.int64)
+        self._perms: Dict[Tuple[int, ...], Tuple] = {}
         self._schedules: Dict[int, butterfly.Schedule] = {}
 
     def schedule(self, fanout: int) -> butterfly.Schedule:
@@ -78,26 +120,99 @@ class Communicator:
             self._schedules[fanout] = butterfly.build_schedule(self.p, fanout)
         return self._schedules[fanout]
 
-    def _perm(self, perm: Sequence[int]) -> torch.Tensor:
-        key = tuple(int(d) for d in perm)
+    def group_size(self, axes: Axes = None) -> int:
+        """The ranks a sync over ``axes`` reduces (all of them for ``None``)."""
+        axes = _as_axes(axes)
+        return self.p if axes is None else math.prod(self.mesh.shape[a] for a in axes)
+
+    def _lift(self, axis: str, perm: Sequence[int]) -> Tuple[int, ...]:
+        """A perm of ``axis``'s positions as a perm of the mesh's ranks: each
+        rank moves along that axis only, within its group."""
+        n, stride = self.mesh.shape[axis], self.mesh.axis_stride(axis)
+        g = np.arange(self.p, dtype=np.int64)
+        coord = (g // stride) % n
+        return tuple(int(d) for d in g + (np.asarray(perm)[coord] - coord) * stride)
+
+    def rounds(self, fanout: int, axes: Axes = None) -> Tuple[butterfly.Round, ...]:
+        """The butterfly rounds over ``axes``, least-significant digit first
+        and the first axis first; ``None`` is the schedule of all ranks.  An
+        axis's round is lifted to the mesh's ranks, its stride in global
+        rank numbers, so ``(rank // stride) % digit`` is the rank's digit on
+        that axis."""
+        axes = _as_axes(axes)
+        if axes is None:
+            return self.schedule(fanout).rounds
+        return tuple(butterfly.Round(rnd.digit, rnd.stride * self.mesh.axis_stride(axis),
+                                     tuple(self._lift(axis, perm) for perm in rnd.perms))
+                     for axis in axes
+                     for rnd in butterfly.build_schedule(self.mesh.shape[axis], fanout).rounds)
+
+    def rings(self, axes: Axes = None) -> List[Tuple[Tuple[int, ...], int]]:
+        """``(perm, n)`` for each axis of ``axes``: the ``+1`` ring shift
+        within the axis's groups and the axis size; ``None``: the ring over
+        all ranks."""
+        axes = _as_axes(axes)
+        if axes is None:
+            return [(tuple((i + 1) % self.p for i in range(self.p)), self.p)]
+        return [(self._lift(a, [(i + 1) % n for i in range(n)]), n)
+                for a, n in ((a, self.mesh.shape[a]) for a in axes)]
+
+    def shifts(self, axes: Axes = None) -> List[Tuple[int, ...]]:
+        """Perms ``s = 1 .. G-1``: each rank to the rank ``s`` ahead of it in
+        its group over ``axes`` (row-major over the axes), cyclically."""
+        axes = _as_axes(axes)
+        g = np.arange(self.p, dtype=np.int64)
+        if axes is None:
+            return [tuple(int(d) for d in (g + s) % self.p) for s in range(1, self.p)]
+        size = self.group_size(axes)
+        rest = tuple(a for a in self.mesh.axis_names if a not in axes)
+        gi, other = self.mesh.group_index(g, axes), self.mesh.group_index(g, rest)
+        table = np.empty((self.p // size, size), dtype=np.int64)
+        table[other, gi] = g
+        return [tuple(int(d) for d in table[other, (gi + s) % size]) for s in range(1, size)]
+
+    def pmean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean over all ranks of one scalar a rank (``values[i]`` is
+        rank ``ranks[i]``'s), as ``lax.pmean``; not counted as sync bytes."""
+        return values.sum() / self.p
+
+    def _perm(self, perm: Sequence[Optional[int]]) -> Tuple:
+        """(destination index, source index, sending mask) of a perm; the
+        last two None when every rank sends, as in every sync's round."""
+        key = tuple(perm)
         if key not in self._perms:
-            if sorted(key) != list(range(self.p)):
-                raise ValueError(f"{key} is not a permutation of {self.p} ranks")
-            self._perms[key] = torch.tensor(key, dtype=torch.int64,
-                                            device=self.device)
+            dst = np.asarray(route(key, self.p), dtype=np.int64)
+            send = dst >= 0
+            if send.all():
+                self._perms[key] = (torch.tensor(dst, device=self.device), None, None)
+            else:
+                src = torch.tensor(np.flatnonzero(send), device=self.device)
+                self._perms[key] = (torch.tensor(dst[send], device=self.device), src, send)
         return self._perms[key]
 
-    def ppermute(self, x: torch.Tensor, perm: Sequence[int],
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Optional[int]],
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``recv[perm[src]] = x[src]`` for every rank ``src``: the wire.
+        """``recv[perm[src]] = x[src]`` for every rank ``src``: the wire. A
+        rank whose ``perm`` entry is ``None`` (or ``-1``) sends nothing, and
+        a rank nobody sends to receives zeros, as the reference's partial
+        ``ppermute``.  Differentiable: autograd carries the copy back.
 
         ``out`` (a ``[P, ...]`` view, e.g. one slot of a receive stack)
         takes the copy in place of a fresh buffer."""
         if x.shape[0] != self.p:
             raise ValueError(f"buffer has {x.shape[0]} ranks, expected {self.p}")
-        recv = torch.empty_like(x) if out is None else out
-        recv.index_copy_(0, self._perm(perm), x)
-        self.bytes_sent += x[0].numel() * x.element_size()
+        dst, src, send = self._perm(perm)
+        nbytes = x[0].numel() * x.element_size()
+        if src is None:
+            recv = torch.empty_like(x) if out is None else out
+            recv.index_copy_(0, dst, x)
+            self.bytes_sent += nbytes
+            self.sends += 1
+        else:
+            recv = torch.zeros_like(x) if out is None else out.zero_()
+            recv.index_copy_(0, dst, x.index_select(0, src))
+            self.bytes_sent[send] += nbytes
+            self.sends[send] += 1
         return recv
 
 
@@ -123,15 +238,17 @@ def _merge_stack(stack: torch.Tensor, op: Op, use_kernels: bool) -> torch.Tensor
 
 
 def butterfly_merge(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
-                    op: Op = "add", use_kernels: bool = True) -> torch.Tensor:
-    """Merge ``x[P, ...]`` across all ranks with the butterfly schedule.
+                    op: Op = "add", use_kernels: bool = True,
+                    axes: Axes = None) -> torch.Tensor:
+    """Merge ``x[P, ...]`` across the ranks (over ``axes``) with the
+    butterfly schedule.
 
-    Round by round (``butterfly.build_schedule(P, fanout).rounds``), each
-    rank's accumulator and the ``digit - 1`` buffers it receives are
-    stacked into ``[P, digit, ...]`` and merged (``op`` associative and
-    commutative).  A round's stack is freed before the next is allocated:
-    at a lane wave's widths one stack is tens of GB."""
-    for rnd in comm.schedule(fanout).rounds:
+    Round by round (:meth:`Communicator.rounds`), each rank's accumulator
+    and the ``digit - 1`` buffers it receives are stacked into ``[P, digit,
+    ...]`` and merged (``op`` associative and commutative).  A round's
+    stack is freed before the next is allocated: at a lane wave's widths
+    one stack is tens of GB."""
+    for rnd in comm.rounds(fanout, axes):
         stack = x.new_empty((x.shape[0], rnd.digit) + tuple(x.shape[1:]))
         stack[:, 0] = x
         for j, perm in enumerate(rnd.perms, start=1):
@@ -158,9 +275,9 @@ def butterfly_or(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
 
 
 def butterfly_allreduce(x: torch.Tensor, comm: Communicator, *,
-                        fanout: int = 2) -> torch.Tensor:
+                        fanout: int = 2, axes: Axes = None) -> torch.Tensor:
     """Sum all-reduce with the paper-faithful full-buffer butterfly."""
-    return butterfly_merge(x, comm, fanout=fanout, op="add")
+    return butterfly_merge(x, comm, fanout=fanout, op="add", axes=axes)
 
 
 # ---------------------------------------------------------------------------
@@ -284,9 +401,11 @@ def butterfly_or_adaptive(x: torch.Tensor, comm: Communicator, *, fanout: int = 
 # ---------------------------------------------------------------------------
 
 
-def _global_stages(comm: Communicator, fanout: int):
-    """The schedule's rounds most-significant digit first."""
-    return comm.schedule(fanout).rounds[::-1]
+def _global_stages(comm: Communicator, fanout: int, axes: Axes = None):
+    """The rounds over ``axes`` most-significant digit first: the first
+    axis least significant, each axis's rounds least-significant digit
+    first, the flat list reversed (the reference's ``_global_stages``)."""
+    return comm.rounds(fanout, axes)[::-1]
 
 
 def _ranges(lo: np.ndarray, chunks: int, chunk_elems: int, device) -> torch.Tensor:
@@ -297,31 +416,31 @@ def _ranges(lo: np.ndarray, chunks: int, chunk_elems: int, device) -> torch.Tens
 
 
 def butterfly_reduce_scatter(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
-                             op: Op = "add", use_kernels: bool = True):
+                             op: Op = "add", use_kernels: bool = True, axes: Axes = None):
     """Recursive-halving reduce-scatter over the butterfly wiring.
 
-    Each rank's ``x[r]`` is flattened and zero-padded to a multiple of
-    ``P`` (the pad is the identity of add, or and unsigned max).  Returns
-    ``(chunk [P, n/P], lo int64[P])``: each rank's ``1/P`` slice of the
-    reduced buffer and its position in chunks.  The chunk offsets differ
-    by rank, so every slice is a gather (and every write-back a scatter)
-    along the rank axis; a round's merge runs on the contiguous
-    ``[P, digit, chunk]`` stack."""
-    p, dev = comm.p, x.device
-    flat = x.reshape(p, -1)
-    pad = (-flat.shape[1]) % p
-    flat = torch.cat([flat, flat.new_zeros((p, pad))], 1)
-    ce = flat.shape[1] // p
-    ranks = np.arange(p, dtype=np.int64)
-    lo = np.zeros(p, dtype=np.int64)
-    size = p
-    for rnd in _global_stages(comm, fanout):
+    Each rank's ``x[r]`` is flattened and zero-padded to a multiple of the
+    group size ``G`` (the pad is the identity of add, or and unsigned
+    max).  Returns ``(chunk [R, n/G], lo int64[R])`` for the ``R`` ranks
+    held: each rank's ``1/G`` slice of the reduced buffer and its position
+    in chunks.  The chunk offsets differ by rank, so every slice is a
+    gather (and every write-back a scatter) along the rank axis; a round's
+    merge runs on the contiguous ``[R, digit, chunk]`` stack."""
+    g, dev, ranks = comm.group_size(axes), x.device, comm.ranks
+    held = x.shape[0]
+    flat = x.reshape(held, -1)
+    pad = (-flat.shape[1]) % g
+    flat = torch.cat([flat, flat.new_zeros((held, pad))], 1)
+    ce = flat.shape[1] // g
+    lo = np.zeros(held, dtype=np.int64)
+    size = g
+    for rnd in _global_stages(comm, fanout, axes):
         d, stride = rnd.digit, rnd.stride
         newsize = size // d
         dig = (ranks // stride) % d
         mylo = lo + dig * newsize
         mine = _ranges(mylo, newsize, ce, dev)
-        stack = flat.new_empty((p, d, newsize * ce))
+        stack = flat.new_empty((held, d, newsize * ce))
         stack[:, 0] = flat.gather(1, mine)
         for j, perm in enumerate(rnd.perms, start=1):
             send = _ranges(lo + ((dig + j) % d) * newsize, newsize, ce, dev)
@@ -332,18 +451,18 @@ def butterfly_reduce_scatter(x: torch.Tensor, comm: Communicator, *, fanout: int
 
 
 def butterfly_allgather_chunks(chunk: torch.Tensor, lo: np.ndarray, total_elems: int,
-                               comm: Communicator, *, fanout: int = 2) -> torch.Tensor:
+                               comm: Communicator, *, fanout: int = 2,
+                               axes: Axes = None) -> torch.Tensor:
     """Recursive-doubling all-gather: inverse of the reduce-scatter above.
-    ``chunk[P, c]`` sits at chunk ``lo[r]`` of rank ``r``'s buffer; returns
-    ``[P, total_elems]``."""
-    p, dev = comm.p, chunk.device
+    ``chunk[R, c]`` sits at chunk ``lo[i]`` of rank ``comm.ranks[i]``'s
+    buffer; returns ``[R, total_elems]``."""
+    g, dev, ranks = comm.group_size(axes), chunk.device, comm.ranks
     ce = chunk.shape[1]
-    flat = chunk.new_zeros((p, p * ce))
+    flat = chunk.new_zeros((chunk.shape[0], g * ce))
     lo = np.asarray(lo, dtype=np.int64)
     flat.scatter_(1, _ranges(lo, 1, ce, dev), chunk)
-    ranks = np.arange(p, dtype=np.int64)
     size = 1
-    for rnd in comm.schedule(fanout).rounds:  # least-significant digit first
+    for rnd in comm.rounds(fanout, axes):  # least-significant digit first
         d, stride = rnd.digit, rnd.stride
         dig = (ranks // stride) % d
         base = lo - dig * size
@@ -357,16 +476,17 @@ def butterfly_allgather_chunks(chunk: torch.Tensor, lo: np.ndarray, total_elems:
 
 def butterfly_allreduce_rabenseifner(x: torch.Tensor, comm: Communicator, *,
                                      fanout: int = 2, op: Op = "add",
-                                     use_kernels: bool = True) -> torch.Tensor:
+                                     use_kernels: bool = True,
+                                     axes: Axes = None) -> torch.Tensor:
     """All-reduce = reduce-scatter + all-gather (bandwidth-optimal):
-    ``2 (P-1)/P`` of the padded buffer per rank, equal to
+    ``2 (G-1)/G`` of the padded buffer per rank, equal to
     ``butterfly.bytes_per_node_rabenseifner``.  ``op='or'`` gives the BFS
     bitmap merge, its rounds merged by ``bitmap_or_reduce``."""
     n = x[0].numel()
     chunk, lo = butterfly_reduce_scatter(x, comm, fanout=fanout, op=op,
-                                         use_kernels=use_kernels)
-    padded = n + (-n) % comm.p
-    flat = butterfly_allgather_chunks(chunk, lo, padded, comm, fanout=fanout)
+                                         use_kernels=use_kernels, axes=axes)
+    padded = n + (-n) % comm.group_size(axes)
+    flat = butterfly_allgather_chunks(chunk, lo, padded, comm, fanout=fanout, axes=axes)
     return flat[:, :n].reshape(x.shape)
 
 
@@ -376,36 +496,37 @@ def butterfly_allreduce_rabenseifner(x: torch.Tensor, comm: Communicator, *,
 
 
 def all_to_all_merge(x: torch.Tensor, comm: Communicator, *,
-                     op: Op = "or") -> torch.Tensor:
-    """All-to-all broadcast-merge: ``P - 1`` ring shifts, each rank ships
-    its ORIGINAL buffer to every peer and merges it with ``op`` (a name of
-    ``_MERGE_OPS`` or a callable; the bitmap OR by default).  O(P^2)
-    messages."""
+                     op: Op = "or", axes: Axes = None) -> torch.Tensor:
+    """All-to-all broadcast-merge: ``P - 1`` ring shifts per axis, each rank
+    ships its ORIGINAL buffer (the axis's input) to every peer and merges
+    it with ``op`` (a name of ``_MERGE_OPS`` or a callable; the bitmap OR
+    by default).  O(P^2) messages."""
     merge = _MERGE_OPS[op] if isinstance(op, str) else op
-    ring = [(i + 1) % comm.p for i in range(comm.p)]
-    shifted = x
-    for _ in range(comm.p - 1):
-        shifted = comm.ppermute(shifted, ring)
-        x = merge(x, shifted)
+    for ring, n in comm.rings(axes):
+        shifted = x
+        for _ in range(n - 1):
+            shifted = comm.ppermute(shifted, ring)
+            x = merge(x, shifted)
     return x
 
 
 def xla_allreduce(x: torch.Tensor, comm: Communicator, *, op: str = "add",
-                  use_kernels: bool = True) -> torch.Tensor:
+                  use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """The JAX package's compiler-scheduled all-reduce, on simulated ranks:
-    an all-gather (each rank ships its buffer to the ``P - 1`` others, one
-    shift each: ``(P - 1) * 4 W`` bytes per rank for int32 words) into a
-    ``[P, P, W]`` stack, then a ``P``-way reduce over the gathered axis.
-    ``op`` is ``add``, ``min`` or ``max`` (int32 words in their uint32
-    order, as the reference's ``pmin``/``pmax`` order its uint32 words) or
-    ``or`` (``bitmap_or_reduce`` with ``K = P``)."""
+    an all-gather over the group of ``G`` ranks (each rank ships its buffer
+    to the ``G - 1`` others, one shift each: ``(G - 1) * 4 W`` bytes per
+    rank for int32 words) into a ``[R, G, W]`` stack, then a ``G``-way
+    reduce over the gathered axis.  ``op`` is ``add``, ``min`` or ``max``
+    (int32 words in their uint32 order, as the reference's ``pmin``/``pmax``
+    order its uint32 words) or ``or`` (``bitmap_or_reduce`` with ``K =
+    G``)."""
     if op not in ("add", "min", "max", "or"):
         raise ValueError(op)
-    p = comm.p
-    stack = x.new_empty((p, p) + tuple(x.shape[1:]))
+    shifts = comm.shifts(axes)
+    stack = x.new_empty((x.shape[0], len(shifts) + 1) + tuple(x.shape[1:]))
     stack[:, 0] = x
-    for s in range(1, p):
-        comm.ppermute(x, [(i + s) % p for i in range(p)], out=stack[:, s])
+    for s, perm in enumerate(shifts, start=1):
+        comm.ppermute(x, perm, out=stack[:, s])
     if op == "add":
         return stack.sum(1, dtype=x.dtype)
     return _merge_stack(stack, op, use_kernels)
@@ -419,33 +540,34 @@ GRAD_SYNCS = ("xla_psum", "butterfly", "rabenseifner", "all_to_all")
 
 
 def sync_leaf(g: torch.Tensor, comm: Communicator, *, method: str = "xla_psum",
-              fanout: int = 2, mean: bool = True) -> torch.Tensor:
-    """Sum ``g[P, ...]`` over the ranks with ``method`` (then divide by P
-    when ``mean``): every rank's row of the result holds the sum."""
+              fanout: int = 2, mean: bool = True, axes: Axes = None) -> torch.Tensor:
+    """Sum ``g[R, ...]`` over the ranks (over ``axes``) with ``method``
+    (then divide by the group size when ``mean``): every rank's row of the
+    result holds the sum."""
     if method == "xla_psum":
-        out = xla_allreduce(g, comm, op="add")
+        out = xla_allreduce(g, comm, op="add", axes=axes)
     elif method == "butterfly":
-        out = butterfly_allreduce(g, comm, fanout=fanout)
+        out = butterfly_allreduce(g, comm, fanout=fanout, axes=axes)
     elif method == "rabenseifner":
-        out = butterfly_allreduce_rabenseifner(g, comm, fanout=fanout)
+        out = butterfly_allreduce_rabenseifner(g, comm, fanout=fanout, axes=axes)
     elif method == "all_to_all":
-        out = all_to_all_merge(g, comm, op="add")
+        out = all_to_all_merge(g, comm, op="add", axes=axes)
     else:
         raise ValueError(f"unknown grad-sync method {method!r}")
-    return out / comm.p if mean else out
+    return out / comm.group_size(axes) if mean else out
 
 
 def tree_sync(tree, comm: Communicator, *, method: str = "xla_psum", fanout: int = 2,
-              mean: bool = True):
-    """Synchronize a gradient tree (nested dicts of ``[P, ...]`` leaves)
-    across the ranks, leaf by leaf.
+              mean: bool = True, axes: Axes = None):
+    """Synchronize a gradient tree (nested dicts of ``[R, ...]`` leaves)
+    across the ranks (over ``axes``), leaf by leaf.
 
     method: ``xla_psum`` | ``butterfly`` (paper) | ``rabenseifner``
     (beyond-paper) | ``all_to_all`` (paper's baseline)."""
     if isinstance(tree, dict):
-        return {k: tree_sync(v, comm, method=method, fanout=fanout, mean=mean)
+        return {k: tree_sync(v, comm, method=method, fanout=fanout, mean=mean, axes=axes)
                 for k, v in tree.items()}
-    return sync_leaf(tree, comm, method=method, fanout=fanout, mean=mean)
+    return sync_leaf(tree, comm, method=method, fanout=fanout, mean=mean, axes=axes)
 
 
 def quantize_int8(acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -460,7 +582,7 @@ def quantize_int8(acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def butterfly_allreduce_int8(x: torch.Tensor, comm: Communicator, *,
-                             fanout: int = 2) -> torch.Tensor:
+                             fanout: int = 2, axes: Axes = None) -> torch.Tensor:
     """Butterfly sum all-reduce with **int8 on the wire every round**.
 
     Each round every rank quantizes its float32 accumulator with its own
@@ -471,7 +593,7 @@ def butterfly_allreduce_int8(x: torch.Tensor, comm: Communicator, *,
     element."""
     acc = x.float()
     shape = (-1,) + (1,) * (x.dim() - 1)
-    for rnd in comm.schedule(fanout).rounds:
+    for rnd in comm.rounds(fanout, axes):
         q, scale = quantize_int8(acc)
         for perm in rnd.perms:
             rq = comm.ppermute(q, perm)
@@ -481,34 +603,43 @@ def butterfly_allreduce_int8(x: torch.Tensor, comm: Communicator, *,
 
 
 def sync_leaf_int8(g: torch.Tensor, comm: Communicator, *, fanout: int = 2,
-                   mean: bool = True) -> torch.Tensor:
-    """:func:`butterfly_allreduce_int8` of ``g[P, ...]``, divided by P when
-    ``mean``, in ``g``'s dtype."""
-    out = butterfly_allreduce_int8(g, comm, fanout=fanout)
-    return ((out / comm.p) if mean else out).to(g.dtype)
+                   mean: bool = True, axes: Axes = None) -> torch.Tensor:
+    """:func:`butterfly_allreduce_int8` of ``g[R, ...]``, divided by the
+    group size when ``mean``, in ``g``'s dtype."""
+    out = butterfly_allreduce_int8(g, comm, fanout=fanout, axes=axes)
+    return ((out / comm.group_size(axes)) if mean else out).to(g.dtype)
 
 
-def tree_sync_int8(tree, comm: Communicator, *, fanout: int = 2, mean: bool = True):
+def tree_sync_int8(tree, comm: Communicator, *, fanout: int = 2, mean: bool = True,
+                   axes: Axes = None):
     """Gradient sync with int8 wire compression (DESIGN.md §7): every leaf
     by :func:`butterfly_allreduce_int8` (the reference's ``method`` is
     ignored there too)."""
     if isinstance(tree, dict):
-        return {k: tree_sync_int8(v, comm, fanout=fanout, mean=mean) for k, v in tree.items()}
-    return sync_leaf_int8(tree, comm, fanout=fanout, mean=mean)
+        return {k: tree_sync_int8(v, comm, fanout=fanout, mean=mean, axes=axes)
+                for k, v in tree.items()}
+    return sync_leaf_int8(tree, comm, fanout=fanout, mean=mean, axes=axes)
 
 
-def grad_sync_bytes(method: str, p: int, fanout: int, n: int, itemsize: int,
+def grad_sync_bytes(method: str, p, fanout: int, n: int, itemsize: int,
                     compress: Optional[str] = None) -> int:
     """The bytes one rank sends to sync a leaf of ``n`` elements of
-    ``itemsize`` bytes: the byte model of each method (the Rabenseifner
-    schedule's buffer padded to a multiple of P; int8: one byte an element
-    and a 4-byte scale a message)."""
+    ``itemsize`` bytes: the byte model of each method. ``p`` is the rank
+    count, or the sizes of the axes synced over in order (hierarchical:
+    the full-buffer rounds, int8's messages and all-to-all's ring shifts
+    add up axis by axis; Rabenseifner and ``xla_psum`` see the group of
+    ``prod(p)`` ranks, Rabenseifner's buffer padded to a multiple of it;
+    int8: one byte an element and a 4-byte scale a message)."""
+    sizes = (p,) if isinstance(p, (int, np.integer)) else tuple(p)
+    g = math.prod(sizes)
     if compress == "int8":
-        return butterfly.messages_per_node(p, fanout) * (n + 4)
+        return sum(butterfly.messages_per_node(a, fanout) for a in sizes) * (n + 4)
     if method == "butterfly":
-        return butterfly.bytes_per_node_allreduce(p, fanout, n * itemsize)
+        return sum(butterfly.bytes_per_node_allreduce(a, fanout, n * itemsize) for a in sizes)
     if method == "rabenseifner":
-        return butterfly.bytes_per_node_rabenseifner(p, fanout, (n + (-n) % p) * itemsize)
-    if method in ("all_to_all", "xla_psum"):
-        return (p - 1) * n * itemsize
+        return butterfly.bytes_per_node_rabenseifner(g, fanout, (n + (-n) % g) * itemsize)
+    if method == "all_to_all":
+        return sum(a - 1 for a in sizes) * n * itemsize
+    if method == "xla_psum":
+        return (g - 1) * n * itemsize
     raise ValueError(f"unknown grad-sync method {method!r}")

@@ -1,0 +1,172 @@
+"""The collectives over ``torch.distributed``: one process a rank.
+
+:class:`DistCommunicator` has the simulated
+:class:`~repro_torch.core.collectives.Communicator`'s interface, so every
+sync of :mod:`repro_torch.core.collectives` runs unchanged over a process
+group: each process holds its own rank's row as a leading axis of 1
+(``comm.ranks == [rank]``), and :meth:`DistCommunicator.ppermute` sends
+that row to ``perm[rank]`` and receives from the rank whose ``perm`` entry
+is ``rank``, with ``dist.batch_isend_irecv``.  ``bytes_sent`` and
+``sends`` count what this rank put on the wire, as the simulated counter
+counts each rank's.
+
+Backends:
+
+* **gloo**, CPU tensors: sent as they are (the tests' backend).
+* **gloo**, CUDA tensors: gloo's send and receive take host tensors only,
+  so each message is staged explicitly through pinned host memory (copied
+  off the card, sent, received, copied back); ``stage_s`` times those
+  copies.  This is gloo's documented behaviour, never a fallback.
+* **nccl**: CUDA tensors on the wire, one card a process (NCCL refuses two
+  ranks on one card).
+
+:func:`run_group` starts ``world`` processes with the ``spawn`` method (CUDA
+in a child needs it), joins them into one group through a file
+rendezvous, and joins them with a deadline: the first process that fails
+ends the others, and the deadline kills every one.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import multiprocessing.connection
+import os
+import shutil
+import tempfile
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.collectives import Communicator, route
+from repro_torch.dist.sharding import SimMesh
+
+
+class DistCommunicator(Communicator):
+    """This process's rank of the default process group, on ``device``.
+
+    ``mesh`` names the group's axes (its ranks row-major, as the
+    simulated mesh's); by default one ``data`` axis of the world size."""
+
+    def __init__(self, device, mesh: Optional[SimMesh] = None):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mesh = SimMesh(world) if mesh is None else mesh
+        if mesh.ranks != world:
+            raise ValueError(f"a mesh of {mesh.ranks} ranks over a group of {world}")
+        super().__init__(mesh, device)
+        self.rank = rank
+        self.ranks = np.array([rank], dtype=np.int64)
+        self.bytes_sent = np.zeros(1, dtype=np.int64)
+        self.sends = np.zeros(1, dtype=np.int64)
+        self.backend = dist.get_backend()
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.stage_s = 0.0  # host time of the pinned staging copies
+        self.wire_s = 0.0  # host time from posting a message to its arrival
+
+    def pmean(self, values: torch.Tensor) -> torch.Tensor:
+        total = values.detach().sum().to(torch.float64)
+        if self.backend != "nccl":  # gloo reduces host tensors
+            total = total.cpu()
+        dist.all_reduce(total)
+        return (total / self.p).to(values.device, values.dtype)
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Optional[int]],
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``recv[perm[src]] = x[src]`` across the processes: this rank's
+        row goes to ``perm[rank]`` (nothing for ``None``/``-1``), and the
+        row of the rank that names this one arrives (zeros if none does).
+        Not differentiable."""
+        if x.shape[0] != 1:
+            raise ValueError(f"buffer has {x.shape[0]} rows, expected this rank's 1")
+        key = route(perm, self.p)
+        dst = key[self.rank]
+        src = key.index(self.rank) if self.rank in key else -1
+        if out is None:
+            recv = torch.empty_like(x) if src >= 0 else torch.zeros_like(x)
+        else:
+            recv = out if src >= 0 else out.zero_()
+        if dst == self.rank:  # a rank that sends to itself: no wire
+            recv[0].copy_(x[0])
+        elif dst >= 0 or src >= 0:
+            target = recv[0] if src >= 0 else None
+            send = x[0].contiguous() if dst >= 0 else None
+            into = target
+            if self.staged:
+                t0 = time.perf_counter()
+                torch.cuda.synchronize(self.device)
+                if send is not None:
+                    send = torch.empty(send.shape, dtype=send.dtype,
+                                       pin_memory=True).copy_(send)
+                if target is not None:
+                    into = torch.empty(target.shape, dtype=target.dtype, pin_memory=True)
+                self.stage_s += time.perf_counter() - t0
+            elif target is not None and not target.is_contiguous():
+                into = torch.empty_like(target)
+            ops = []
+            if send is not None:
+                ops.append(dist.P2POp(dist.isend, send, dst))
+            if into is not None:
+                ops.append(dist.P2POp(dist.irecv, into, src))
+            t0 = time.perf_counter()
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            self.wire_s += time.perf_counter() - t0
+            if into is not target:
+                t0 = time.perf_counter()
+                target.copy_(into)
+                if self.staged:
+                    torch.cuda.synchronize(self.device)
+                self.stage_s += time.perf_counter() - t0
+        if dst >= 0:
+            self.bytes_sent[0] += x[0].numel() * x.element_size()
+            self.sends[0] += 1
+        return recv
+
+
+def _entry(fn: Callable, rank: int, world: int, init_method: str, backend: str,
+           timeout_s: float, args: tuple) -> None:
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(fn: Callable, world: int, args: tuple = (), *, timeout_s: float,
+              backend: str = "gloo") -> List[int]:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
+    into one ``backend`` group (``fn`` must be importable by name: a
+    module's top-level function).  Returns the exit codes (0 each when all
+    succeed).  The first process to exit non-zero ends the others (killed:
+    a negative code); at ``timeout_s`` every process still running is
+    killed and ``TimeoutError`` raised.  No process outlives the call."""
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_group_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, init, backend, timeout_s, args))
+             for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.start()
+        while True:
+            codes = [p.exitcode for p in procs]
+            running = [p.sentinel for p, c in zip(procs, codes) if c is None]
+            if not running or any(c not in (None, 0) for c in codes):
+                break
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world} processes still running after {timeout_s} s")
+            multiprocessing.connection.wait(running, timeout=left)
+    finally:
+        for p in procs:
+            if p.pid is not None and p.exitcode is None:
+                p.kill()
+            if p.pid is not None:
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [p.exitcode for p in procs]

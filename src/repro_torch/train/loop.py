@@ -12,7 +12,10 @@ simulated failures (the port of ``repro.train.loop``).
 
 ``grad_sync="xla"`` trains the whole batch on one device
 (``build_train_step``); any other value is the butterfly step's method over
-``ranks`` simulated ranks.
+``ranks`` simulated ranks. Given ``comm``, a ``DistCommunicator``, the
+loop runs one rank a process: the butterfly step over the process group
+(``"xla"`` becomes its ``xla_psum``), every process restoring from the
+checkpoint and rank 0 alone writing it and printing.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ def train(
     seed: int = 0,
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     device="cuda",
+    comm=None,
 ) -> Dict:
     """Train ``loop.n_steps`` steps on ``device`` (the card by default;
     raises when there is none). Returns the model under "params", the
@@ -69,14 +73,16 @@ def train(
     dev = resolve_device(device)
     opt = optim.get(cfg.optimizer)
     data = SyntheticLM(cfg, batch_size, seq_len)
-    if loop.grad_sync == "xla":
+    lead = comm is None or comm.rank == 0
+    if loop.grad_sync == "xla" and comm is None:
         fn = step_mod.build_train_step(cfg, microbatches=loop.microbatches,
                                        lr_kw=loop.lr_kw)
     else:
-        mesh = shd.SimMesh(ranks)
+        mesh = shd.SimMesh(ranks) if comm is None else comm.mesh
         fn = step_mod.build_train_step_butterfly(
-            cfg, mesh, rules or shd.rules_for_mesh(mesh), method=loop.grad_sync,
-            fanout=loop.fanout, microbatches=loop.microbatches, lr_kw=loop.lr_kw,
+            cfg, mesh, rules or shd.rules_for_mesh(mesh),
+            method="xla_psum" if loop.grad_sync == "xla" else loop.grad_sync,
+            fanout=loop.fanout, microbatches=loop.microbatches, lr_kw=loop.lr_kw, comm=comm,
         )
 
     start = 0
@@ -89,7 +95,8 @@ def train(
             device=dev,
         )
         model, opt_state = trees["params"], trees["opt_state"]
-        print(f"[restart] resumed from step {start}")
+        if lead:
+            print(f"[restart] resumed from step {start}")
     if model is None:
         model = api.init_params(cfg, seed, device=dev)
         opt_state = opt.init(model)
@@ -113,11 +120,11 @@ def train(
         if on_metrics:
             on_metrics(step, {**{k: float(v) for k, v in metrics.items()},
                               "step_time": dt, "straggler": straggler})
-        if straggler:
+        if straggler and lead:
             print(f"[straggler] step {step}: {dt:.2f}s vs ewma {ewma:.2f}s")
-        if step % loop.log_every == 0:
+        if step % loop.log_every == 0 and lead:
             print(f"step {step:5d} loss {loss:.4f} ({dt:.2f}s)")
-        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
+        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0 and lead:
             if pending is not None:
                 pending.join()  # one in-flight async save at a time
             pending = ckpt.save(

@@ -6,19 +6,26 @@ Two distribution paths:
   GSPMD step, whose compiler-scheduled all-reduce has no second device to
   sync with here.
 * ``build_train_step_butterfly`` — the paper's communication pattern as
-  the gradient sync over P simulated ranks (the ``rules.batch`` axis of a
-  :class:`~repro_torch.dist.sharding.SimMesh`). The global batch splits
-  into P contiguous row shards, as ``P("data")`` shards rows; each rank's
-  backward runs in turn into its row of ``[P, ...]`` gradient buffers;
-  :func:`~repro_torch.core.collectives.sync_leaf` (``method`` ∈ butterfly |
-  rabenseifner | all_to_all | xla_psum, ``fanout``; or the int8 wire)
-  merges them leaf by leaf through a ``Communicator``, which counts each
-  rank's bytes, and frees each stack. Clip and optimizer then apply to
-  rank 0's copy, as the reference's ``out_specs=P()`` takes every rank to
-  hold the same value: at fanout 2 the ranks' copies are bit-identical
-  (``a + b == b + a``); where the fold order differs by rank (fanout 4,
-  ``all_to_all``, ``xla_psum``) the metric ``rank_spread`` is the largest
-  difference between ranks. Requires non-FSDP rules (refused).
+  the gradient sync over the ``rules.batch`` axes of a
+  :class:`~repro_torch.dist.sharding.SimMesh` (hierarchically when there
+  are two, e.g. ``("pod", "data")``). The global batch splits into P
+  contiguous row shards, as ``P("data")`` shards rows. On simulated ranks
+  each rank's backward runs in turn into its row of ``[P, ...]`` gradient
+  buffers; :func:`~repro_torch.core.collectives.sync_leaf` (``method`` ∈
+  butterfly | rabenseifner | all_to_all | xla_psum, ``fanout``; or the
+  int8 wire) merges them leaf by leaf through a ``Communicator``, which
+  counts each rank's bytes, and frees each stack. Clip and optimizer then
+  apply to rank 0's copy, as the reference's ``out_specs=P()`` takes every
+  rank to hold the same value: at fanout 2 the ranks' copies are
+  bit-identical (``a + b == b + a``); where the fold order differs by rank
+  (fanout 4, ``all_to_all``, ``xla_psum``) the metric ``rank_spread`` is
+  the largest difference between ranks. Given a
+  :class:`~repro_torch.dist.process.DistCommunicator`, the same body runs
+  one rank a process: each process takes its own rows, syncs over
+  ``torch.distributed`` and applies its own copy; ``rank_spread`` is then
+  left out (a comparison across processes would ship every gradient once
+  more; compare the processes' parameters instead). Requires non-FSDP
+  rules (refused).
 
 Gradients are trees keyed by the reference's parameter paths, in its
 stacked shapes (``api.param_leaves``). With ``microbatches == 1`` they are
@@ -33,7 +40,6 @@ the model and the state are updated in place.
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Dict, Optional
 
 import torch
@@ -143,53 +149,67 @@ def build_train_step_butterfly(
     clip_norm: float = 1.0,
     compress: Optional[str] = None,  # None | "int8"
     lr_kw: Optional[Dict] = None,
+    comm: Optional[collectives.Communicator] = None,
 ):
-    """Paper-pattern gradient sync over the simulated ranks (DESIGN.md §7).
+    """Paper-pattern gradient sync over the ranks (DESIGN.md §7): simulated
+    on the model's device, or one a process when ``comm`` is a
+    ``DistCommunicator`` over ``rules.batch``'s ranks.
 
-    Metrics add ``rank_spread`` (the largest absolute difference between a
-    rank's synced gradient and rank 0's) and ``bytes_per_rank`` (what each
-    rank sent this step; every rank sends the same)."""
+    Metrics add ``bytes_per_rank`` (what each rank sent this step; every
+    rank sends the same) and, on simulated ranks, ``rank_spread`` (the
+    largest absolute difference between a rank's synced gradient and rank
+    0's)."""
     if rules.fsdp:
         raise ValueError("the butterfly grad-sync path requires non-FSDP params")
     if compress not in (None, "int8"):
         raise ValueError(f"unknown compression {compress!r}")
-    p = math.prod(mesh.shape[a] for a in rules.batch)
+    axes = tuple(rules.batch)
+    batch_mesh = SimMesh(tuple(mesh.shape[a] for a in axes), axes)
+    p = batch_mesh.ranks
+    if comm is not None and comm.mesh != batch_mesh:
+        raise ValueError(f"the communicator's mesh {comm.mesh} is not the batch axes' "
+                         f"{batch_mesh}")
     loss_fn = api.train_loss_fn(cfg)
     opt = optim.get(cfg.optimizer)
     lr_kw = lr_kw or {}
     accum = DTYPES[cfg.grad_accum_dtype]
 
-    def sync(g, comm):
+    def sync(g, c):
         if compress == "int8":
-            return collectives.sync_leaf_int8(g, comm, fanout=fanout)
-        return collectives.sync_leaf(g, comm, method=method, fanout=fanout)
+            return collectives.sync_leaf_int8(g, c, fanout=fanout, axes=axes)
+        return collectives.sync_leaf(g, c, method=method, fanout=fanout, axes=axes)
 
     def step(model, opt_state, batch, step_idx):
-        comm = collectives.Communicator(p, next(model.parameters()).device)
-        stacks = grad_buffers(model, microbatches, accum, lead=(p,))
+        c = comm if comm is not None else collectives.Communicator(
+            batch_mesh, next(model.parameters()).device)
+        sent = int(c.bytes_sent[0])
+        stacks = grad_buffers(model, microbatches, accum, lead=(len(c.ranks),))
+        shards = _split_batch(batch, p)
         losses = []
-        for r, shard in enumerate(_split_batch(batch, p)):
-            rank_out = shd.tree_map(lambda s: s[r], stacks)
-            losses.append(_grads_of(loss_fn, model, shard, microbatches, accum,
+        for i, r in enumerate(c.ranks):
+            rank_out = shd.tree_map(lambda s: s[i], stacks)
+            losses.append(_grads_of(loss_fn, model, shards[r], microbatches, accum,
                                     out=rank_out)[0])
             del rank_out
-        loss = torch.stack(losses).sum() / p  # lax.pmean
+        loss = c.pmean(torch.stack(losses))  # lax.pmean
         grads: Dict = {}
-        spread = torch.zeros((), dtype=torch.float32, device=comm.device)
+        spread = torch.zeros((), dtype=torch.float32, device=c.device)
         for path, _ in list(sorted_leaves(stacks)):
             g = tree_get(stacks, path)
             tree_set(stacks, path, None)
-            synced = sync(g, comm)
+            synced = sync(g, c)
             del g
-            for r in range(1, p):
-                spread = torch.maximum(spread, (synced[r] - synced[0]).abs().max().float())
+            for i in range(1, len(c.ranks)):
+                spread = torch.maximum(spread, (synced[i] - synced[0]).abs().max().float())
             tree_set(grads, path, synced[0].clone())
             del synced
         grads, gnorm = optim.clip_by_global_norm(grads, clip_norm)
         lr = optim.cosine_lr(step_idx, **lr_kw)
         model, opt_state = opt.apply(model, grads, opt_state, lr)
-        return model, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                                  "rank_spread": spread,
-                                  "bytes_per_rank": int(comm.bytes_sent[0])}
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   "bytes_per_rank": int(c.bytes_sent[0]) - sent}
+        if comm is None:
+            metrics["rank_spread"] = spread
+        return model, opt_state, metrics
 
     return step
