@@ -99,6 +99,19 @@ account:
     each rank sent equal to the byte model level by level, the merge
     launches equal to what the trace's branches call for), the trace's
     cost in wall time, the level table, and the adaptive decision's cost;
+10b. the hierarchical mesh: the P ranks as pods of 4 (pod 4 x data 4 at
+    P = 16), ``axes=("pod", "data")``: Kronecker BFS from phase 7's first
+    root, direction-optimizing, through the kernels, under all six syncs
+    at the fanout and the butterfly at fanout 2, each against the one-axis
+    run of the same root (distances, levels, edges examined and kernel
+    launches equal), each traced with every rank's bytes equal to the byte
+    model over the axes' sizes at every level, wall ms beside the one-axis
+    run's; ``bitmap_or_reduce`` at the fanout-2 merge ``[P, 2, W]``; the
+    analysis tools (``synthetic_shapes`` beside the real partition,
+    ``step_bytes`` and ``prefill_corrections`` of the LM config); after
+    phase 15, SSSP (adaptive, phase 12's first root) and CC (adaptive) on
+    the same mesh, equal to phases 12 and 15 bit for bit, SSSP's bytes
+    equal to the model at every iteration;
 11. multi-source BFS: one 32-lane Kronecker wave, direction-optimizing,
     under ``butterfly`` and ``adaptive``, every lane against the
     single-source port's distances for its root; time, GTEP/s, memory;
@@ -1319,6 +1332,212 @@ def merge_site_table(rows, paths):
         gap = "not measured" if rec["gap_ms"] is None else f"{rec['gap_ms']:.3f}"
         log(f"    @{rec['plane']} ({rec['path']}): {rec['launches_per_bfs']:.2f}, {per} | "
             f"{rec['ms']:.4f} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | {gap}")
+
+
+# ---------------------------------------------------------------------------
+# The hierarchical mesh (phase 10b)
+# ---------------------------------------------------------------------------
+
+#: Phase 10b's mesh: the P ranks as pods of 4 (pod 4 x data 4 at P = 16).
+AXES_NAMES = ("pod", "data")
+AXES_POD_SIZE = 4
+
+
+def axes_mesh(p):
+    from repro_torch.dist.sharding import SimMesh
+
+    return SimMesh((p // AXES_POD_SIZE, AXES_POD_SIZE), AXES_NAMES)
+
+
+def run_axes_bfs(parts, fanout, seed, dev, gen):
+    """Phase 10b: Kronecker BFS from one largest-component root (phase 7's
+    first), direction-optimizing, through the kernels, on the (pod, data)
+    mesh with ``axes=("pod", "data")`` under all six syncs at ``fanout``
+    and the butterfly at fanout 2.  Each run against the one-axis P-rank run
+    of the same root and sync: distances, levels and edges examined bit
+    for bit, the same kernel launches; each mesh run traced, every rank's
+    bytes equal to the byte model over the axes' sizes at every level
+    (all-to-all ships ``sum(a - 1)`` buffers a level); wall ms of each,
+    in turns.  ``bitmap_or_reduce`` at the fanout-2 butterfly's
+    ``[P, 2, W]`` merge, exact and timed.  Returns ``(summary, the
+    launches of the mesh runs, the fanout-2 path's summary and a function
+    that runs it once, the merge row)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bfs, collectives, flightrec
+    from repro_torch.graph import csr
+    from repro_torch.kernels import build
+
+    g, pg, layout, arrays = parts["g"], parts["pg"], parts["layout"], parts["arrays"]
+    mesh = axes_mesh(pg.p)
+    root = csr.largest_component_roots(g, 1, np.random.default_rng(seed),
+                                       labels=parts["labels"]).tolist()[0]
+    out, total, f2 = {}, {}, None
+    for sync, fo in [(s, fanout) for s in bfs.SYNCS] + [("butterfly", 2)]:
+        label = f"axes {sync} fanout {fo}"
+        one_cfg = bfs.BFSConfig(fanout=fo, sync=sync, mode="direction_optimizing",
+                                use_kernels=True)
+        cfg = dataclasses.replace(one_cfg, axes=mesh.axis_names)
+        one = bfs.build_bfs_fn(pg, one_cfg, layout, device=dev)
+        hier = bfs.build_bfs_fn(pg, cfg, layout, device=dev, mesh=mesh)
+        c1, cm = collectives.Communicator(pg.p, dev), collectives.Communicator(mesh, dev)
+        (d1, lv1, sc1), _, l1, _ = timed_run(one, arrays, root, c1)
+        (dm, lvm, scm), _, lm, _ = timed_run(hier, arrays, root, cm)
+        if not (torch.equal(d1, dm) and (lv1, sc1) == (lvm, scm)):
+            raise AssertionError(f"{label}: root {root} differs from the one-axis run: "
+                                 f"levels {lvm}/{lv1}, scanned {scm}/{sc1}")
+        if lm != l1:
+            raise AssertionError(f"{label}: launches {lm} != the one-axis run's {l1}")
+        for k, v in lm.items():
+            total[k] = total.get(k, 0) + v
+        traced = bfs.build_bfs_fn(pg, cfg, layout, device=dev, trace=True,
+                                  trace_levels=lvm, mesh=mesh)
+        ct = collectives.Communicator(mesh, dev)
+        per_level = LevelBytes(ct)
+        d_t, lv_t, sc_t, tbuf = traced(arrays, root, ct, level_ms=per_level)
+        if not (torch.equal(d_t, dm) and (lv_t, sc_t) == (lvm, scm)):
+            raise AssertionError(f"{label}: the traced run differs from the untraced one")
+        trace = flightrec.TraversalTrace.from_buffer(
+            tbuf, algo="bfs", sync=sync, p=pg.p, fanout=fo, n_words=pg.n_words,
+            capacity=cfg.resolved_capacity(pg.n_words),
+            density_threshold=cfg.density_threshold, axis_sizes=mesh.sizes)
+        model = trace.level_bytes_per_node().astype(np.int64)
+        if trace.levels != lvm or not np.array_equal(per_level.per_level(),
+                                                     np.repeat(model[:, None], pg.p, 1)):
+            raise AssertionError(f"{label}: bytes per level differ from the byte model")
+        if not np.array_equal(ct.bytes_sent, cm.bytes_sent):
+            raise AssertionError(f"{label}: the traced run sent other bytes")
+        ms = {"one": [], "mesh": []}
+        for _ in range(2):
+            for key, fn in (("one", one), ("mesh", hier)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(arrays, root)
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+        summ = trace.summary()
+        out[label] = dict(
+            sync=sync, fanout=fo, root=root, levels=lvm, scanned=scm,
+            bytes_per_rank=int(cm.bytes_sent[0]), one_axis_bytes_per_rank=int(c1.bytes_sent[0]),
+            dense_bytes_per_level=trace._dense_bytes_per_node(),
+            levels_dense_sparse_fallback=(summ["dense_levels"], summ["sparse_levels"],
+                                          summ["fallback_levels"]),
+            launches=lm, ms=ms["mesh"], one_axis_ms=ms["one"])
+        log(f"  {label}: root {root} == one-axis P={pg.p} ({lvm} levels, {scm:.0f} edges, "
+            f"launches {lm}); {summ['dense_levels']} dense / {summ['sparse_levels']} sparse "
+            f"/ {summ['fallback_levels']} fallback levels; bytes a rank {cm.bytes_sent[0]:,} "
+            f"== model at every level (one axis {c1.bytes_sent[0]:,}); wall ms mesh "
+            f"{', '.join(f'{x:.3f}' for x in ms['mesh'])} | one axis "
+            f"{', '.join(f'{x:.3f}' for x in ms['one'])}")
+        if fo == 2:
+            f2 = (out[label], lambda fn=hier: fn(arrays, root))
+    if total.get("bitmap_or_reduce", 0) == 0:
+        raise AssertionError(f"phase 10b: bitmap_or_reduce never launched: {total}")
+    log(f"  phase 10b's mesh runs launched {total}")
+    stack = random_words((pg.p, 2, pg.n_words), gen, dev)
+    merge = check_kernel(dict(name="bitmap_or_reduce", cell="kronecker",
+                              plane="axes_merge_f2", path="axes butterfly fanout 2",
+                              args=(stack,), kwargs={}, bytes=nbytes(stack) // 2 * 3))
+    return out, total, f2, merge
+
+
+def run_axes_weighted(parts, fanout, dev, sssp_rows, slice5):
+    """Phase 10b, continued after phase 15: SSSP (adaptive) from phase 12's
+    first root and CC (adaptive) on the (pod, data) mesh with ``axes=("pod",
+    "data")``: the distances equal phase 12's bit for bit, the labels
+    phase 15's (the host components), with phase 12's and 15's iterations;
+    SSSP traced, every rank's bytes equal to the byte model over the axes'
+    sizes at every iteration; ms beside the one-axis runs'."""
+    import numpy as np
+    import torch
+
+    from repro_torch import programs
+    from repro_torch.core import collectives, flightrec
+    from repro_torch.traversal import sssp
+
+    pg, arrays = parts["pg"], parts["arrays"]
+    mesh = axes_mesh(pg.p)
+    out = {}
+    root = next(iter(sssp_rows))
+    cfg = sssp.SSSPConfig(axes=mesh.axis_names, fanout=fanout, sync="adaptive")
+    fn = sssp.build_sssp_fn(pg, cfg, device=dev, mesh=mesh)
+    fn(arrays, root)
+    comm = collectives.Communicator(mesh, dev)
+    (d, iters, relaxed), ms, launches, peak = timed_run(fn, arrays, root, comm)
+    one = slice5["sssp adaptive"]
+    if not torch.equal(d, sssp_rows[root]) or iters != one["iters"][0]:
+        raise AssertionError(f"axes sssp: root {root} differs from phase 12 "
+                             f"({iters} / {one['iters'][0]} iterations)")
+    n_rows = sssp.dist_rows(pg)
+    ct = collectives.Communicator(mesh, dev)
+    per_level = LevelBytes(ct)
+    traced = sssp.build_sssp_fn(pg, cfg, device=dev, trace=True, trace_levels=iters,
+                                mesh=mesh)
+    d_t, it_t, _, tbuf = traced(arrays, root, ct, level_ms=per_level)
+    trace = flightrec.TraversalTrace.from_buffer(
+        tbuf, algo="sssp", sync="adaptive", p=pg.p, fanout=fanout, n_words=n_rows,
+        capacity=cfg.resolved_capacity(n_rows), density_threshold=cfg.density_threshold,
+        axis_sizes=mesh.sizes)
+    model = trace.level_bytes_per_node().astype(np.int64)
+    if not torch.equal(d_t, d) or not np.array_equal(per_level.per_level(),
+                                                     np.repeat(model[:, None], pg.p, 1)):
+        raise AssertionError("axes sssp: the traced run or its bytes differ")
+    out["sssp adaptive"] = dict(root=root, iters=iters, relaxed=relaxed, ms=ms,
+                                one_axis_ms=one["ms"][0], bytes_per_rank=int(comm.bytes_sent[0]),
+                                one_axis_bytes_per_rank=one["bytes_per_rank"],
+                                launches=launches, peak_bytes=peak)
+    log(f"  axes sssp adaptive: root {root} == phase 12 ({iters} iterations, {relaxed:.0f} "
+        f"relaxations); bytes a rank {comm.bytes_sent[0]:,} == model at every iteration; "
+        f"{ms:.3f} ms (phase 12's first root {one['ms'][0]:.3f} ms)")
+
+    prog = programs.by_name("cc")
+    pcfg = programs.ProgramConfig(axes=mesh.axis_names, fanout=fanout, sync="adaptive")
+    fn = programs.build_program_fn(pg, prog, pcfg, device=dev, mesh=mesh)
+    arg = prog.default_arg(pg, dev)
+    fn(arrays, arg)
+    comm = collectives.Communicator(mesh, dev)
+    res, ms, launches, peak = timed_run(fn, arrays, arg, comm)
+    one = slice5["cc adaptive"]
+    if not np.array_equal(prog.assemble(pg, res[0]), min_id_labels(parts["labels"])) \
+            or res[-2] != one["iters"]:
+        raise AssertionError(f"axes cc: labels or rounds ({res[-2]} / {one['iters']}) "
+                             f"differ from phase 15")
+    out["cc adaptive"] = dict(iters=res[-2], work=res[-1], ms=ms, one_axis_ms=one["ms"],
+                              bytes_per_rank=int(comm.bytes_sent[0]),
+                              one_axis_bytes_per_rank=one["bytes_per_rank"],
+                              launches=launches, peak_bytes=peak)
+    log(f"  axes cc adaptive: labels == phase 15 (host components), {res[-2]} rounds; "
+        f"bytes a rank {comm.bytes_sent[0]:,} (one axis {one['bytes_per_rank']:,}); "
+        f"{ms:.3f} ms (phase 15 {one['ms']:.3f} ms)")
+    return out
+
+
+def run_tools(parts, scale, edge_factor):
+    """Phase 10b's analysis tools, host calls: ``synthetic_shapes`` of the
+    Kronecker graph beside its real partition, ``step_bytes`` and
+    ``prefill_corrections`` of the LM config."""
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.graph import partition
+    from repro_torch.launch import analytic, corrections
+
+    pg = parts["pg"]
+    syn = partition.synthetic_shapes(1 << scale, 2 * (1 << scale) * edge_factor, pg.p)
+    real = dict(emax=pg.emax, vmax=pg.vmax, n_words=pg.n_words)
+    planned = dict(emax=syn.emax, vmax=syn.vmax, n_words=syn.n_words)
+    bounds = all(planned[k] >= real[k] for k in real)
+    cfg = configs.get_config(LM_ARCH)
+    step = analytic.step_bytes(cfg, SHAPES["train_4k"])
+    corr = corrections.prefill_corrections(cfg, SHAPES["prefill_32k"])
+    log(f"  synthetic_shapes(2^{scale}, {2 * (1 << scale) * edge_factor:,}, {pg.p}): "
+        f"{planned} against the partition's {real} (upper bound: {bounds})")
+    log(f"  step_bytes({LM_ARCH}, train_4k): {step['global']:,.0f} B a step "
+        f"(params {step['detail']['params']:,.0f}, active {step['detail']['active']:,.0f}); "
+        f"prefill_corrections(prefill_32k): {corr['flops']:,.0f} flops, "
+        f"{corr['bytes']:,.0f} B (a scan-body count's; the port's count needs none)")
+    return dict(synthetic=planned, partition=real, upper_bound=bounds,
+                step_bytes_train_4k=step, prefill_corrections_32k=corr)
 
 
 # ---------------------------------------------------------------------------
@@ -4160,6 +4379,16 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
             f"read) {paths[label]['decision_ms']:.4f} ms host, against "
             f"{per_level:.4f} ms a level of the trimmed BFS")
 
+    phase(f"[10b/27] the hierarchical mesh: Kronecker BFS on pod {args.ranks // 4} x data 4 "
+          f"under every sync against the one-axis run; the analysis tools")
+    slice8 = {}
+    slice8["axes_bfs"], slice8["axes_launches"], (f2_path, f2_run), f2_merge = run_axes_bfs(
+        kron, args.fanout, args.seed, dev, gen)
+    paths["axes butterfly fanout 2"], profiles["axes butterfly fanout 2"] = f2_path, f2_run
+    merge_rows.append(f2_merge)
+    slice8["tools"] = run_tools(kron, args.scale, args.edge_factor)
+    torch.cuda.empty_cache()
+
     phase(f"[11/27] multi-source BFS: one {LANES}-lane Kronecker wave, "
           f"direction_optimizing")
     single = bfs.build_bfs_fn(kron["pg"], kcfg, kron["layout"], device=dev)
@@ -4191,6 +4420,10 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
 
     phase("[15/27] connected components: butterfly and adaptive")
     slice5.update(run_cc(kron, args.fanout, dev))
+    torch.cuda.empty_cache()
+
+    phase("[10b/27, continued] SSSP and CC on the hierarchical mesh against phases 12 and 15")
+    slice8["axes_weighted"] = run_axes_weighted(kron, args.fanout, dev, sssp_rows, slice5)
     torch.cuda.empty_cache()
 
     phase(f"[16/27] k-core: Kronecker, butterfly; scale {args.kcore_scale} against the host")
@@ -4302,7 +4535,8 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
-                           slice5=slice5, slice6=slice6, slice7=slice7, lm=lm_out,
+                           slice5=slice5, slice6=slice6, slice7=slice7, slice8=slice8,
+                           lm=lm_out,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

@@ -35,8 +35,9 @@ import numpy as np
 from repro_torch import programs
 from repro_torch.analytics import msbfs
 from repro_torch.core import metrics as metrics_mod
-from repro_torch.core.bfs import BFSConfig, place_arrays, resolve_device
+from repro_torch.core.bfs import BFSConfig, place_arrays, resolve_device, resolve_mesh
 from repro_torch.core.devlock import device_lock
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.traversal import bc as bc_mod
 from repro_torch.traversal import sssp as sssp_mod
@@ -92,35 +93,38 @@ def _cached(pg, device, key: Tuple, build: Callable[[], object]):
     return fn
 
 
-def compiled_wave_fn(pg: PartitionedGraph, device, cfg: BFSConfig, lanes: int):
+def compiled_wave_fn(pg: PartitionedGraph, device, cfg: BFSConfig, lanes: int,
+                     mesh: Optional[SimMesh] = None):
     """The cached MS-BFS wave program for this key."""
-    dev = resolve_device(device)
-    return _cached(pg, dev, (id(pg), dev, "bfs", cfg, lanes),
-                   lambda: msbfs.build_msbfs_fn(pg, cfg, lanes, device=dev))
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
+    return _cached(pg, dev, (id(pg), dev, "bfs", cfg, lanes, mesh),
+                   lambda: msbfs.build_msbfs_fn(pg, cfg, lanes, device=dev, mesh=mesh))
 
 
-def compiled_sssp_fn(pg: PartitionedGraph, device, cfg: SSSPConfig):
+def compiled_sssp_fn(pg: PartitionedGraph, device, cfg: SSSPConfig,
+                     mesh: Optional[SimMesh] = None):
     """The cached distributed-SSSP program for this key."""
-    dev = resolve_device(device)
-    return _cached(pg, dev, (id(pg), dev, "sssp", cfg),
-                   lambda: sssp_mod.build_sssp_fn(pg, cfg, device=dev))
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
+    return _cached(pg, dev, (id(pg), dev, "sssp", cfg, mesh),
+                   lambda: sssp_mod.build_sssp_fn(pg, cfg, device=dev, mesh=mesh))
 
 
-def compiled_bc_fn(pg: PartitionedGraph, device, cfg: BFSConfig, lanes: int):
+def compiled_bc_fn(pg: PartitionedGraph, device, cfg: BFSConfig, lanes: int,
+                   mesh: Optional[SimMesh] = None):
     """The cached betweenness-centrality wave program for this key."""
-    dev = resolve_device(device)
-    return _cached(pg, dev, (id(pg), dev, "bc", cfg, lanes),
-                   lambda: bc_mod.build_bc_fn(pg, cfg, lanes, device=dev))
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
+    return _cached(pg, dev, (id(pg), dev, "bc", cfg, lanes, mesh),
+                   lambda: bc_mod.build_bc_fn(pg, cfg, lanes, device=dev, mesh=mesh))
 
 
 def compiled_program_fn(pg: PartitionedGraph, device, algo: str,
-                        cfg: "programs.ProgramConfig"):
+                        cfg: "programs.ProgramConfig", mesh: Optional[SimMesh] = None):
     """The cached §19 vertex program for this key (warm starts reuse it —
     only the operand differs)."""
-    dev = resolve_device(device)
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
     prog = programs.by_name(algo)
-    return _cached(pg, dev, (id(pg), dev, "vp:" + algo, cfg),
-                   lambda: programs.build_program_fn(pg, prog, cfg, device=dev))
+    return _cached(pg, dev, (id(pg), dev, "vp:" + algo, cfg, mesh),
+                   lambda: programs.build_program_fn(pg, prog, cfg, device=dev, mesh=mesh))
 
 
 @dataclasses.dataclass
@@ -145,20 +149,22 @@ class BFSQueryEngine:
     word).  Queries are packed greedily: ``ceil(len(roots)/lanes)`` waves
     per batch, each one call of the cached program.  ``device`` holds the
     placed arrays and runs every program (the card unless the caller asks
-    for the CPU).
+    for the CPU); ``mesh`` is the ranks' mesh, every program syncing over
+    ``cfg.axes`` (:func:`~repro_torch.core.bfs.resolve_mesh`).
     """
 
     def __init__(self, pg: PartitionedGraph, cfg: BFSConfig = BFSConfig(), *,
-                 lanes: int = 32, device="cuda"):
+                 lanes: int = 32, device="cuda", mesh: Optional[SimMesh] = None):
         if lanes < 1:
             raise ValueError(f"lanes must be >= 1, got {lanes}")
         self.pg = pg
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(pg.p, cfg.axes, mesh)
         self.cfg = cfg
         self.lanes = lanes
         self.stats = EngineStats()
         self._arrays = place_arrays(pg, device=self.device)
-        self._fn = compiled_wave_fn(pg, self.device, cfg, lanes)
+        self._fn = compiled_wave_fn(pg, self.device, cfg, lanes, self.mesh)
 
     def refresh_arrays(self) -> None:
         """Re-place the partition arrays after an IN-PLACE host mutation
@@ -240,7 +246,8 @@ class BFSQueryEngine:
             arrays = {**arrays, **bfs_mod.place_layout(layout, device=self.device)}
         with device_lock(self.device):
             prof = profiler.profile_bfs(self.pg, cfg, int(root), iters=iters,
-                                        arrays=arrays, layout=layout, device=self.device)
+                                        arrays=arrays, layout=layout, device=self.device,
+                                        mesh=self.mesh)
             del arrays
             cache = profiler.cache_report(self, root=int(root))
         return {"program": prof, "cache": cache}
@@ -259,7 +266,7 @@ class BFSQueryEngine:
                 "SSSPConfig"
             )
         return SSSPConfig(
-            fanout=self.cfg.fanout, sync=self.cfg.sync,
+            axes=self.cfg.axes, fanout=self.cfg.fanout, sync=self.cfg.sync,
             sparse_capacity=self.cfg.sparse_capacity,
             density_threshold=self.cfg.density_threshold,
         )
@@ -271,7 +278,7 @@ class BFSQueryEngine:
         to the engine's BFS knobs lifted to :class:`SSSPConfig`."""
         roots = self._checked_ids(roots, "root")
         cfg = self._sssp_cfg(cfg)
-        fn = compiled_sssp_fn(self.pg, self.device, cfg)
+        fn = compiled_sssp_fn(self.pg, self.device, cfg, self.mesh)
         out = np.empty((roots.size, self.pg.n), dtype=np.int64)
         for i, r in enumerate(roots):
             with device_lock(self.device):
@@ -288,7 +295,7 @@ class BFSQueryEngine:
         ``float64[n]``.  Sources pack into ``lanes``-wide Brandes waves
         (pad lanes carry ``-1``); one program serves every wave."""
         sources = self._checked_ids(sources, "source")
-        fn = compiled_bc_fn(self.pg, self.device, self.cfg, self.lanes)
+        fn = compiled_bc_fn(self.pg, self.device, self.cfg, self.lanes, self.mesh)
         bc = np.zeros(self.pg.n, dtype=np.float64)
         for lo in range(0, sources.size, self.lanes):
             chunk = sources[lo : lo + self.lanes]
@@ -319,7 +326,7 @@ class BFSQueryEngine:
                 "explicit ProgramConfig"
             )
         return programs.ProgramConfig(
-            fanout=self.cfg.fanout, sync=self.cfg.sync,
+            axes=self.cfg.axes, fanout=self.cfg.fanout, sync=self.cfg.sync,
             sparse_capacity=self.cfg.sparse_capacity,
             density_threshold=self.cfg.density_threshold,
         )
@@ -342,7 +349,7 @@ class BFSQueryEngine:
         ``iters`` for the §16 re-push-vs-recompute ledger."""
         prog = programs.by_name(algo)
         cfg = self._program_cfg(cfg)
-        fn = compiled_program_fn(self.pg, self.device, algo, cfg)
+        fn = compiled_program_fn(self.pg, self.device, algo, cfg, self.mesh)
         if arg is None:
             arg = prog.default_arg(self.pg, self.device)
         with device_lock(self.device):

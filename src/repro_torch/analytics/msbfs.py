@@ -32,9 +32,12 @@ from repro_torch.core.bfs import (
     _expand_push,
     _sync_frontier,
     device_sync,
+    mesh_comm,
     place_arrays,
     resolve_device,
+    resolve_mesh,
 )
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.partition import PartitionedGraph
 
 LANE_BITS = fr.WORD_BITS
@@ -55,8 +58,9 @@ def wave_rows(pg: PartitionedGraph, *, lane_pad: int = 128) -> int:
 
 def build_msbfs_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *,
                    device="cuda", trace: bool = False,
-                   trace_levels: Optional[int] = None):
-    """B-lane multi-source BFS over ``pg``'s P simulated ranks.
+                   trace_levels: Optional[int] = None, mesh: Optional[SimMesh] = None):
+    """B-lane multi-source BFS over ``pg``'s P simulated ranks on ``mesh``
+    (:func:`~repro_torch.core.bfs.resolve_mesh`), syncing over ``cfg.axes``.
 
     Returns ``run(arrays, roots, comm=None)`` where ``arrays`` is the SAME
     placed dict the single-source BFS consumes (no kernel layout) and
@@ -79,6 +83,7 @@ def build_msbfs_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *,
         raise NotImplementedError(
             "use_kernels=True is single-source only; MS-BFS uses the plain path")
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     bw = lane_words(n_lanes)
     n_rows = wave_rows(pg)
     p, vmax = pg.p, pg.vmax
@@ -106,8 +111,7 @@ def build_msbfs_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *,
         roots = np.asarray(roots, dtype=np.int64)
         if roots.shape != (n_lanes,):
             raise ValueError(f"expected {n_lanes} roots, got shape {roots.shape}")
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         deg_out = arrays["deg_out"]
         active = torch.as_tensor(roots >= 0, device=dev)
         lane_bits = torch.zeros(bw * LANE_BITS, dtype=torch.bool, device=dev)
@@ -187,8 +191,8 @@ def assemble_distances(pg: PartitionedGraph, d_owned, n_lanes: int) -> np.ndarra
 
 
 def multi_source_bfs(pg: PartitionedGraph, roots: Sequence[int],
-                     cfg: BFSConfig = BFSConfig(), *,
-                     device="cuda") -> Tuple[np.ndarray, int, float]:
+                     cfg: BFSConfig = BFSConfig(), *, device="cuda",
+                     mesh: Optional[SimMesh] = None) -> Tuple[np.ndarray, int, float]:
     """End-to-end helper: one wave over ``roots`` (one lane per root).
 
     Returns ``(dist int64[B, n], levels, scanned)``; ``dist[b]`` matches
@@ -200,6 +204,6 @@ def multi_source_bfs(pg: PartitionedGraph, roots: Sequence[int],
     if np.any((roots < -1) | (roots >= pg.n)):
         raise ValueError(f"root out of range (n={pg.n}, -1=inactive): {roots}")
     dev = resolve_device(device)
-    fn = build_msbfs_fn(pg, cfg, int(roots.size), device=dev)
+    fn = build_msbfs_fn(pg, cfg, int(roots.size), device=dev, mesh=mesh)
     d_owned, levels, scanned = fn(place_arrays(pg, device=dev), roots)
     return assemble_distances(pg, d_owned, int(roots.size)), levels, scanned

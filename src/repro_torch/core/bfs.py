@@ -20,11 +20,18 @@ on.  ``use_kernels=True`` runs phase 1 and every OR merge of a dense round
 through the CUDA kernels of :mod:`repro_torch.kernels`; on CPU tensors the
 same calls take the kernels' plain versions.  ``trace=True`` records one
 flight-recorder row per level (:mod:`repro_torch.core.flightrec`).
+
+**Mesh.** The ranks sit on a :class:`~repro_torch.dist.sharding.SimMesh`
+(one ``data`` axis of P ranks unless a ``mesh`` is given), and every
+sync runs over the config's ``axes``, as the reference's over its mesh's
+axes: ``SimMesh((4, 4), ("pod", "data"))`` with ``axes=("pod", "data")``
+syncs axis by axis (:func:`resolve_mesh` checks the pair).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,6 +40,7 @@ import torch
 from repro_torch.core import collectives, flightrec
 from repro_torch.core import frontier as fr
 from repro_torch.core import loop
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.kernels import blocks
@@ -54,6 +62,40 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain path on the CPU")
     return dev
+
+
+def resolve_mesh(p: int, axes: Tuple[str, ...], mesh: Optional[SimMesh] = None) -> SimMesh:
+    """The mesh a traversal of ``p`` partitions syncs on over ``axes``:
+    ``mesh``, or one ``data`` axis of ``p`` ranks.  Partition ``i`` sits on
+    rank ``i`` (row-major over the mesh, where the reference's
+    ``P(axes)`` puts it when ``axes`` are in the mesh's order; no result
+    depends on which rank holds which partition).  Raises ``ValueError``
+    when ``axes`` names an axis the mesh lacks or names one twice, or
+    when the axes' sizes do not multiply to ``p`` (the reference's
+    ``P(axes)`` places ``p`` partitions on them) or the mesh holds other
+    ranks (a rank holds one partition)."""
+    mesh = SimMesh(p) if mesh is None else mesh
+    axes = tuple(axes)
+    missing = [a for a in axes if a not in mesh.shape]
+    if missing or len(set(axes)) != len(axes):
+        raise ValueError(f"axes {axes} do not name distinct axes of the mesh "
+                         f"{mesh.axis_names}")
+    size = math.prod(mesh.shape[a] for a in axes)
+    if size != p or mesh.ranks != p:
+        raise ValueError(f"axes {axes} of the {mesh.ranks}-rank mesh {mesh.shape} hold "
+                         f"{size} ranks; {p} partitions need {p} on both")
+    return mesh
+
+
+def mesh_comm(comm: Optional[collectives.Communicator], mesh: SimMesh,
+              dev: torch.device) -> collectives.Communicator:
+    """A run's Communicator: a fresh one on ``mesh``, or the caller's,
+    which must simulate the mesh the program was built on."""
+    if comm is None:
+        return collectives.Communicator(mesh, dev)
+    if comm.mesh != mesh:
+        raise ValueError(f"a Communicator on {comm.mesh} for a program built on {mesh}")
+    return comm
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +130,7 @@ def bfs_reference(g: Graph, root: int) -> np.ndarray:
 class BFSConfig:
     """Algorithm knobs (paper Sec. 3/4)."""
 
+    axes: Tuple[str, ...] = ("data",)  # mesh axes the syncs run over
     fanout: int = 2  # paper fanout: 1 -> pairwise, 4 -> radix-4 rounds
     # butterfly | sparse | adaptive | rabenseifner | all_to_all | xla
     sync: str = "butterfly"
@@ -123,7 +166,7 @@ def _sync_frontier(words: torch.Tensor, cfg: BFSConfig, comm: collectives.Commun
     ``use_kernels`` (by default ``cfg.use_kernels``)."""
     if use_kernels is None:
         use_kernels = cfg.use_kernels
-    kw = dict(fanout=cfg.fanout, use_kernels=use_kernels)
+    kw = dict(fanout=cfg.fanout, use_kernels=use_kernels, axes=cfg.axes)
     if cfg.sync == "butterfly":
         return collectives.butterfly_or(words, comm, **kw)
     if cfg.sync == "sparse":
@@ -138,8 +181,9 @@ def _sync_frontier(words: torch.Tensor, cfg: BFSConfig, comm: collectives.Commun
     if cfg.sync == "rabenseifner":
         return collectives.butterfly_allreduce_rabenseifner(words, comm, op="or", **kw)
     if cfg.sync == "all_to_all":
-        return collectives.all_to_all_merge(words, comm, op="or")
-    return collectives.xla_allreduce(words, comm, op="or", use_kernels=use_kernels)
+        return collectives.all_to_all_merge(words, comm, op="or", axes=cfg.axes)
+    return collectives.xla_allreduce(words, comm, op="or", use_kernels=use_kernels,
+                                     axes=cfg.axes)
 
 
 def _lane_rows(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -238,8 +282,10 @@ def device_sync(dev: torch.device):
 
 def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
                  layout: Optional[blocks.BFSKernelLayout] = None, *, device="cuda",
-                 trace: bool = False, trace_levels: Optional[int] = None):
-    """Distributed BFS over ``pg``'s P simulated ranks.
+                 trace: bool = False, trace_levels: Optional[int] = None,
+                 mesh: Optional[SimMesh] = None):
+    """Distributed BFS over ``pg``'s P simulated ranks on ``mesh``
+    (:func:`resolve_mesh`), every sync over ``cfg.axes``.
 
     Returns ``run(arrays, root, comm=None, *, level_ms=None)`` with
     ``arrays`` from :func:`place_arrays` on the same device.  Output:
@@ -258,6 +304,7 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
     dev = resolve_device(device)
     if cfg.use_kernels and layout is None:
         raise ValueError("use_kernels=True requires a BFSKernelLayout")
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     meta = layout.meta if layout is not None else None
     p, n_words, vmax = pg.p, pg.n_words, pg.vmax
     max_levels = cfg.max_levels if cfg.max_levels is not None else pg.n
@@ -279,8 +326,7 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
         root = int(root)
         if not 0 <= root < pg.n:
             raise ValueError(f"root {root} outside [0, {pg.n})")
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         deg_out = arrays["deg_out"]
         visited = fr.set_bit(torch.zeros((p, n_words), dtype=torch.int32, device=dev), root)
         d_owned = torch.full((p, vmax), INF, dtype=torch.int32, device=dev)
@@ -347,10 +393,13 @@ def assemble_distances(pg: PartitionedGraph, d_owned: torch.Tensor) -> np.ndarra
 
 
 def distributed_bfs(pg: PartitionedGraph, root: int, cfg: BFSConfig = BFSConfig(),
-                    *, device="cuda") -> Tuple[np.ndarray, int, float]:
-    """End-to-end helper: lay out, place, run, assemble global distances."""
+                    *, device="cuda", mesh: Optional[SimMesh] = None
+                    ) -> Tuple[np.ndarray, int, float]:
+    """End-to-end helper: lay out, place, run, assemble global distances
+    (``mesh``: the ranks' mesh, as the reference's ``mesh`` argument)."""
     dev = resolve_device(device)
     layout = blocks.build_bfs_layout(pg) if cfg.use_kernels else None
     arrays = place_arrays(pg, layout, device=dev)
-    d_owned, levels, scanned = build_bfs_fn(pg, cfg, layout, device=dev)(arrays, root)
+    d_owned, levels, scanned = build_bfs_fn(pg, cfg, layout, device=dev, mesh=mesh)(
+        arrays, root)
     return assemble_distances(pg, d_owned), levels, scanned

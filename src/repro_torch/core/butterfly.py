@@ -39,12 +39,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
 
 __all__ = [
     "digit_plan",
+    "axes_digit_plan",
     "Round",
     "Schedule",
     "build_schedule",
@@ -52,6 +53,8 @@ __all__ = [
     "total_messages",
     "bytes_per_node_allreduce",
     "bytes_per_node_rabenseifner",
+    "bytes_per_node_all_to_all",
+    "bytes_per_node_allgather",
     "sparse_round_capacities",
     "bytes_per_node_sparse",
     "expected_bytes_per_node_adaptive",
@@ -63,6 +66,9 @@ __all__ = [
 ]
 
 SPARSE_PAIR_BYTES = 8  # int32 word index + uint32 word on the wire
+#: A sync's ranks: a rank count (one axis), or the sizes of the mesh axes
+#: it runs over, in the order it runs them.
+Ranks = Union[int, Sequence[int]]
 
 
 def _digit_size(fanout: int) -> int:
@@ -176,30 +182,48 @@ def build_schedule(p: int, fanout: int, *, msb_first: bool = False) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
-def messages_per_node(p: int, fanout: int) -> int:
+def axes_digit_plan(p: Ranks, fanout: int) -> List[int]:
+    """The digits of a sync's rounds: :func:`digit_plan` of a rank count,
+    or, for the sizes of mesh axes, each axis's plan in turn (the first
+    axis first), as ``Communicator.rounds(fanout, axes)`` runs them."""
+    if isinstance(p, (int, np.integer)):
+        return digit_plan(int(p), fanout)
+    return [d for a in p for d in digit_plan(int(a), fanout)]
+
+
+def group_size(p: Ranks) -> int:
+    """The ranks a sync over ``p`` (a count or the axes' sizes) reduces."""
+    return int(p) if isinstance(p, (int, np.integer)) else math.prod(int(a) for a in p)
+
+
+def messages_per_node(p: Ranks, fanout: int) -> int:
     """Messages *sent* by each node over the whole butterfly.
 
     Paper counts ``f * log_f(CN)``; we count the exact ``sum(d_i - 1)``
-    (no self-message), which the paper's expression upper-bounds.
+    (no self-message), which the paper's expression upper-bounds.  Over
+    mesh axes (``p`` their sizes) the axes' rounds add up.
     """
-    return sum(d - 1 for d in digit_plan(p, fanout))
+    return sum(d - 1 for d in axes_digit_plan(p, fanout))
 
 
 def total_messages(p: int, fanout: int) -> int:
     return p * messages_per_node(p, fanout)
 
 
-def bytes_per_node_allreduce(p: int, fanout: int, nbytes: int) -> int:
+def bytes_per_node_allreduce(p: Ranks, fanout: int, nbytes: int) -> int:
     """Bytes sent per node for the paper-style full-buffer butterfly
     (every round ships the whole O(V) frontier / gradient buffer)."""
     return messages_per_node(p, fanout) * nbytes
 
 
-def bytes_per_node_rabenseifner(p: int, fanout: int, nbytes: int) -> int:
+def bytes_per_node_rabenseifner(p: Ranks, fanout: int, nbytes: int) -> int:
     """Bytes sent per node for reduce-scatter + all-gather on the same
     butterfly wiring (beyond-paper optimization): ``2 * (P-1)/P * nbytes``
-    for the power-of-digit case; computed exactly from the digit plan."""
-    digits = digit_plan(p, fanout)
+    for the power-of-digit case; computed exactly from the digit plan.
+    Over mesh axes the stages of every axis split one buffer, so a buffer
+    of a multiple of ``prod(p)`` bytes costs what the group of
+    ``prod(p)`` ranks costs."""
+    digits = axes_digit_plan(p, fanout)
     sent = 0
     size = nbytes
     for d in digits:  # reduce-scatter: send (d-1) chunks of size/d each round
@@ -209,8 +233,23 @@ def bytes_per_node_rabenseifner(p: int, fanout: int, nbytes: int) -> int:
     return 2 * sent
 
 
+def bytes_per_node_all_to_all(p: Ranks, nbytes: int) -> int:
+    """Bytes sent per node by the all-to-all broadcast-merge: ``P - 1``
+    ring shifts of the whole buffer, axis by axis over mesh axes
+    (``sum(a - 1)`` buffers)."""
+    sizes = (p,) if isinstance(p, (int, np.integer)) else tuple(p)
+    return sum(int(a) - 1 for a in sizes) * nbytes
+
+
+def bytes_per_node_allgather(p: Ranks, nbytes: int) -> int:
+    """Bytes sent per node by the all-gather that stands for the
+    compiler's collective: the buffer to each of the ``G - 1`` other
+    ranks of the group (``G = prod(p)`` over mesh axes)."""
+    return (group_size(p) - 1) * nbytes
+
+
 def sparse_round_capacities(
-    p: int, fanout: int, capacity: int, n_words: int | None = None
+    p: Ranks, fanout: int, capacity: int, n_words: int | None = None
 ) -> List[int]:
     """Per-round send capacity (in (idx, word) pairs) of the sparse butterfly.
 
@@ -218,17 +257,18 @@ def sparse_round_capacities(
     union-growth bound: after ``r`` rounds each accumulator holds at most
     that many active words when every initial frontier fits ``capacity``.
     Clamped at ``n_words`` (a compaction can never exceed the dense size).
+    Over mesh axes the digit product carries from one axis to the next.
     """
     caps: List[int] = []
     c = capacity
-    for d in digit_plan(p, fanout):
+    for d in axes_digit_plan(p, fanout):
         caps.append(min(c, n_words) if n_words is not None else c)
         c *= d
     return caps
 
 
 def bytes_per_node_sparse(
-    p: int,
+    p: Ranks,
     fanout: int,
     capacity: int,
     n_words: int | None = None,
@@ -239,12 +279,13 @@ def bytes_per_node_sparse(
     extended to the compact wire format)."""
     caps = sparse_round_capacities(p, fanout, capacity, n_words)
     return sum(
-        (d - 1) * cap * pair_bytes for d, cap in zip(digit_plan(p, fanout), caps)
+        (d - 1) * cap * pair_bytes
+        for d, cap in zip(axes_digit_plan(p, fanout), caps)
     )
 
 
 def expected_bytes_per_node_adaptive(
-    p: int,
+    p: Ranks,
     fanout: int,
     n_words: int,
     density: float,

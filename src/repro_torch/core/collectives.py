@@ -43,7 +43,13 @@ differ only on those axes, axis by axis (the full-buffer rounds: the first
 axis first, each least-significant digit first; Rabenseifner: the stages
 of every axis in one mixed radix, the first axis least significant,
 reduce-scattered most-significant digit first, as the reference's
-``_global_stages``).  The sparse and adaptive syncs run over all ranks.
+``_global_stages``).  The sparse and adaptive syncs take ``axes`` too:
+their rounds are the same, and the capacity grows by each round's digit
+across the axes.  Their deciding counts (the overflow guard's changed
+words, the adaptive OR's popcount and nonzero words) are maxed over each
+group, as the reference's ``pmax`` over the axes, so each group takes its
+own branch; the counts of every group come to the host in one read, and
+each rank's bytes count the branch its group ran.
 
 **Ranks held.** A sync's buffers hold one row for each rank in
 ``comm.ranks``: every rank for the simulated :class:`Communicator`, the
@@ -114,6 +120,7 @@ class Communicator:
         self.sends = np.zeros(len(self.ranks), dtype=np.int64)
         self._perms: Dict[Tuple[int, ...], Tuple] = {}
         self._schedules: Dict[int, butterfly.Schedule] = {}
+        self._rounds: Dict[Tuple, Tuple[butterfly.Round, ...]] = {}
 
     def schedule(self, fanout: int) -> butterfly.Schedule:
         if fanout not in self._schedules:
@@ -142,10 +149,37 @@ class Communicator:
         axes = _as_axes(axes)
         if axes is None:
             return self.schedule(fanout).rounds
-        return tuple(butterfly.Round(rnd.digit, rnd.stride * self.mesh.axis_stride(axis),
-                                     tuple(self._lift(axis, perm) for perm in rnd.perms))
-                     for axis in axes
-                     for rnd in butterfly.build_schedule(self.mesh.shape[axis], fanout).rounds)
+        key = (fanout, axes)
+        if key not in self._rounds:
+            self._rounds[key] = tuple(
+                butterfly.Round(rnd.digit, rnd.stride * self.mesh.axis_stride(axis),
+                                tuple(self._lift(axis, perm) for perm in rnd.perms))
+                for axis in axes
+                for rnd in butterfly.build_schedule(self.mesh.shape[axis], fanout).rounds)
+        return self._rounds[key]
+
+    def group_ids(self, axes: Axes = None) -> np.ndarray:
+        """int64[R]: each held rank's group over ``axes`` (ranks that differ
+        only on those axes share one id; all ranks are group 0 for
+        ``None``)."""
+        axes = _as_axes(axes)
+        if axes is None:
+            return np.zeros(len(self.ranks), dtype=np.int64)
+        rest = tuple(a for a in self.mesh.axis_names if a not in axes)
+        return self.mesh.group_index(self.ranks, rest)
+
+    def group_max(self, counts: Sequence[torch.Tensor], axes: Axes = None) -> np.ndarray:
+        """int64[K, R]: each of the ``K`` per-rank statistics ``counts[k][R]``
+        maxed over each rank's group over ``axes`` (the reference's
+        ``pmax`` over the axes), read on the host in one transfer."""
+        stack = torch.stack([c.to(torch.int64) for c in counts])
+        gid = self.group_ids(axes)
+        n = int(gid.max()) + 1
+        if n == 1:
+            return stack.amax(1, keepdim=True).cpu().numpy()[:, gid]
+        idx = torch.as_tensor(gid, device=stack.device).expand_as(stack)
+        gmax = stack.new_full((stack.shape[0], n), torch.iinfo(torch.int64).min)
+        return gmax.scatter_reduce_(1, idx, stack, "amax").cpu().numpy()[:, gid]
 
     def rings(self, axes: Axes = None) -> List[Tuple[Tuple[int, ...], int]]:
         """``(perm, n)`` for each axis of ``axes``: the ``+1`` ring shift
@@ -259,19 +293,20 @@ def butterfly_merge(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
 
 
 def butterfly_reduce(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
-                     fanout: int = 2, use_kernels: bool = True) -> torch.Tensor:
+                     fanout: int = 2, use_kernels: bool = True,
+                     axes: Axes = None) -> torch.Tensor:
     """All-reduce ``x`` over a :class:`~repro_torch.core.monoid.Monoid` with
     the full-buffer butterfly (DESIGN.md §14)."""
     return butterfly_merge(x, comm, fanout=fanout, op=monoid.combine,
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, axes=axes)
 
 
 def butterfly_or(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """Bitmap frontier synchronization (BFS phase 2): the OR monoid's
     butterfly, one ``bitmap_or_reduce`` launch per round."""
     return butterfly_reduce(x, comm, mono.OR_U32, fanout=fanout,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, axes=axes)
 
 
 def butterfly_allreduce(x: torch.Tensor, comm: Communicator, *,
@@ -291,14 +326,15 @@ def bits_limit(n_words: int, density_threshold: float) -> int:
     return int(density_threshold * n_words * fr.WORD_BITS)
 
 
-def _sparse_rounds(words, comm, monoid, fanout, capacity, ref):
+def _sparse_rounds(words, comm, monoid, fanout, capacity, ref, axes=None):
     """The sparse butterfly: per round every rank compacts the words of its
     pre-round accumulator that differ from ``ref`` to the round capacity
     and ships the pairs (``8 * cap_r`` bytes a message) to each partner,
-    which combines them; the capacity grows by the round's digit."""
+    which combines them; the capacity grows by the round's digit, across
+    the axes."""
     n_words = words.shape[-1]
     cap = capacity
-    for rnd in comm.schedule(fanout).rounds:
+    for rnd in comm.rounds(fanout, axes):
         idx, vals, _, _ = fr.compact_changed(words, ref, min(cap, n_words), monoid)
         wire = vals.view(torch.int32)  # float32 words ship as their bits
         for perm in rnd.perms:
@@ -309,10 +345,31 @@ def _sparse_rounds(words, comm, monoid, fanout, capacity, ref):
     return words
 
 
+def _by_group(x: torch.Tensor, comm: Communicator, sparse_rows: np.ndarray,
+              sparse: Callable, dense: Callable) -> torch.Tensor:
+    """``sparse(x)`` on the ranks of ``sparse_rows``, ``dense(x)`` on the
+    others (whole groups either way: a group's rounds stay inside it).
+    When the groups disagree both branches run on every rank, and each
+    rank's bytes and sends count only the branch its group took."""
+    if sparse_rows.all():
+        return sparse(x)
+    if not sparse_rows.any():
+        return dense(x)
+    b0, s0 = comm.bytes_sent.copy(), comm.sends.copy()
+    out_dense = dense(x)
+    b_dense, s_dense = comm.bytes_sent.copy(), comm.sends.copy()
+    comm.bytes_sent[:], comm.sends[:] = b0, s0
+    out_sparse = sparse(x)
+    comm.bytes_sent[:] = np.where(sparse_rows, comm.bytes_sent, b_dense)
+    comm.sends[:] = np.where(sparse_rows, comm.sends, s_dense)
+    pick = torch.as_tensor(sparse_rows, device=x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(pick, out_sparse, out_dense)
+
+
 def butterfly_reduce_sparse(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
                             fanout: int = 2, capacity: int = 256,
                             ref: Optional[torch.Tensor] = None, fallback: bool = True,
-                            use_kernels: bool = True) -> torch.Tensor:
+                            use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """Monoid all-reduce of ``x[P, W]`` shipping COMPACT ``(word_index,
     word)`` pairs of the words changed since ``ref`` (a ``[W]`` buffer the
     ranks share; the identity by default, which for OR makes "changed" ==
@@ -324,50 +381,59 @@ def butterfly_reduce_sparse(x: torch.Tensor, comm: Communicator, monoid: Monoid,
     (:class:`~repro_torch.core.monoid.MonoidContractError` otherwise).
 
     ``fallback=True`` guards the only overflow condition, the INITIAL
-    changed count of the busiest rank against ``capacity``: the count is
-    read on the host and an overflow runs the dense :func:`butterfly_reduce`
-    instead (its merges through ``bitmap_or_reduce`` for OR), so truncation
-    never corrupts the result.  ``fallback=False`` skips the guard and the
-    read (callers that pre-checked the count)."""
+    changed count of the busiest rank of each group over ``axes`` against
+    ``capacity``: the counts are read on the host and a group that
+    overflows runs the dense :func:`butterfly_reduce` instead (its merges
+    through ``bitmap_or_reduce`` for OR), so truncation never corrupts the
+    result.  ``fallback=False`` skips the guard and the read (callers that
+    pre-checked the count)."""
     monoid.check_sparse_ref(ref)
     n_words = x.shape[-1]
     ref_arr = monoid.identity_like(x) if ref is None else ref
-    if fallback:
-        count = int(fr.changed_count(x, ref_arr).max())
-        if count > min(capacity, n_words):
-            return butterfly_reduce(x, comm, monoid, fanout=fanout,
-                                    use_kernels=use_kernels)
-    return _sparse_rounds(x, comm, monoid, fanout, capacity, ref_arr)
+
+    def sparse(w):
+        return _sparse_rounds(w, comm, monoid, fanout, capacity, ref_arr, axes)
+
+    if not fallback:
+        return sparse(x)
+    (count,) = comm.group_max([fr.changed_count(x, ref_arr)], axes)
+    return _by_group(x, comm, count <= min(capacity, n_words), sparse,
+                     lambda w: butterfly_reduce(w, comm, monoid, fanout=fanout,
+                                                use_kernels=use_kernels, axes=axes))
 
 
 def butterfly_reduce_adaptive(x: torch.Tensor, comm: Communicator, monoid: Monoid, *,
                               fanout: int = 2, capacity: int = 256,
                               density_threshold: float = 0.02,
                               ref: Optional[torch.Tensor] = None,
-                              use_kernels: bool = True) -> torch.Tensor:
+                              use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """Per-call dense/sparse dispatch keyed on the CHANGED-word density:
-    sparse when the busiest rank's changed-since-``ref`` word count stays
-    under ``density_threshold`` of ``W`` and fits ``capacity``, dense
-    otherwise; the count is read on the host."""
+    sparse when the busiest rank's changed-since-``ref`` word count (of
+    each group over ``axes``) stays under ``density_threshold`` of ``W``
+    and fits ``capacity``, dense otherwise; the counts are read on the
+    host."""
     monoid.check_sparse_ref(ref)
     n_words = x.shape[-1]
     cap = min(capacity, n_words)
     ref_arr = monoid.identity_like(x) if ref is None else ref
-    changed = int(fr.changed_count(x, ref_arr).max())
-    if changed <= int(density_threshold * n_words) and changed <= cap:
-        return butterfly_reduce_sparse(x, comm, monoid, fanout=fanout, capacity=cap,
-                                       ref=ref, fallback=False)
-    return butterfly_reduce(x, comm, monoid, fanout=fanout, use_kernels=use_kernels)
+    (changed,) = comm.group_max([fr.changed_count(x, ref_arr)], axes)
+    go_sparse = (changed <= int(density_threshold * n_words)) & (changed <= cap)
+    return _by_group(
+        x, comm, go_sparse,
+        lambda w: butterfly_reduce_sparse(w, comm, monoid, fanout=fanout, capacity=cap,
+                                          ref=ref, fallback=False, axes=axes),
+        lambda w: butterfly_reduce(w, comm, monoid, fanout=fanout,
+                                   use_kernels=use_kernels, axes=axes))
 
 
 def butterfly_or_sparse(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
                         capacity: int = 256, fallback: bool = True,
-                        use_kernels: bool = True) -> torch.Tensor:
+                        use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """Bitmap OR-merge shipping compact pairs: the OR-monoid instance of
     :func:`butterfly_reduce_sparse`."""
     return butterfly_reduce_sparse(x, comm, mono.OR_U32, fanout=fanout,
                                    capacity=capacity, fallback=fallback,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, axes=axes)
 
 
 def adaptive_counts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -378,22 +444,24 @@ def adaptive_counts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def butterfly_or_adaptive(x: torch.Tensor, comm: Communicator, *, fanout: int = 2,
                           capacity: int = 256, density_threshold: float = 0.02,
-                          use_kernels: bool = True) -> torch.Tensor:
+                          use_kernels: bool = True, axes: Axes = None) -> torch.Tensor:
     """Per-call dense/sparse dispatch keyed on the frontier's density.
 
     In the BFS level loop this decides EVERY level: sparse when the
-    densest rank's popcount stays under ``density_threshold`` of the bitmap
-    bits AND its nonzero-word count fits ``capacity`` (the sparse path's
-    no-overflow precondition, so it runs without the guard), dense
-    otherwise.  The two counts are read on the host in one transfer."""
+    densest rank's popcount (of each group over ``axes``) stays under
+    ``density_threshold`` of the bitmap bits AND its nonzero-word count
+    fits ``capacity`` (the sparse path's no-overflow precondition, so it
+    runs without the guard), dense otherwise.  The two counts of every
+    group are read on the host in one transfer."""
     n_words = x.shape[-1]
     cap = min(capacity, n_words)
-    pops, nz = adaptive_counts(x)
-    pops, nz = torch.stack([pops, nz.to(pops.dtype)]).tolist()
-    if pops <= bits_limit(n_words, density_threshold) and nz <= cap:
-        return butterfly_or_sparse(x, comm, fanout=fanout, capacity=cap,
-                                   fallback=False)
-    return butterfly_or(x, comm, fanout=fanout, use_kernels=use_kernels)
+    pops, nz = comm.group_max([fr.popcount(x, dim=-1), fr.count_nonzero(x)], axes)
+    return _by_group(
+        x, comm, (pops <= bits_limit(n_words, density_threshold)) & (nz <= cap),
+        lambda w: butterfly_or_sparse(w, comm, fanout=fanout, capacity=cap,
+                                      fallback=False, axes=axes),
+        lambda w: butterfly_or(w, comm, fanout=fanout, use_kernels=use_kernels,
+                               axes=axes))
 
 
 # ---------------------------------------------------------------------------
@@ -633,13 +701,13 @@ def grad_sync_bytes(method: str, p, fanout: int, n: int, itemsize: int,
     sizes = (p,) if isinstance(p, (int, np.integer)) else tuple(p)
     g = math.prod(sizes)
     if compress == "int8":
-        return sum(butterfly.messages_per_node(a, fanout) for a in sizes) * (n + 4)
+        return butterfly.messages_per_node(sizes, fanout) * (n + 4)
     if method == "butterfly":
-        return sum(butterfly.bytes_per_node_allreduce(a, fanout, n * itemsize) for a in sizes)
+        return butterfly.bytes_per_node_allreduce(sizes, fanout, n * itemsize)
     if method == "rabenseifner":
         return butterfly.bytes_per_node_rabenseifner(g, fanout, (n + (-n) % g) * itemsize)
     if method == "all_to_all":
-        return sum(a - 1 for a in sizes) * n * itemsize
+        return butterfly.bytes_per_node_all_to_all(sizes, n * itemsize)
     if method == "xla_psum":
-        return (g - 1) * n * itemsize
+        return butterfly.bytes_per_node_allgather(sizes, n * itemsize)
     raise ValueError(f"unknown grad-sync method {method!r}")

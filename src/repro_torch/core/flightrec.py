@@ -40,12 +40,19 @@ and attributes wire bytes per level by the byte model of what the port
 ships, which :func:`reconcile_bytes` checks against the
 :class:`~repro_torch.core.collectives.Communicator`'s count, and
 :func:`timed_bfs_levels` attaches each level's wall time.
+
+On a hierarchical mesh the syncs run over the config's ``axes``, which
+cover the mesh, so the counts above (maxima over all ranks) are the
+reference's; the byte models take the axes' sizes (``axis_sizes``):
+the full-buffer and sparse rounds run axis by axis and all-to-all ships
+``sum(a - 1)`` buffers.  The reference's recorder models one flat axis of
+``P`` ranks there, which over-counts all-to-all.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,6 +208,8 @@ class TraversalTrace:
     Byte attribution covers the level's frontier/distance/message sync;
     BC's dense sigma/delta ADD all-reduces (one per forward level, one per
     backward level) are reported in ``summary()['extra_dense_syncs']``.
+    ``axis_sizes`` are the sizes of the mesh axes the sync ran over, in
+    order (``None``: one axis of ``p`` ranks).
     """
 
     algo: str
@@ -214,11 +223,12 @@ class TraversalTrace:
         default_factory=lambda: np.zeros((0, TRACE_COLS), np.int32)
     )
     wall_ms: Optional[np.ndarray] = None
+    axis_sizes: Optional[Tuple[int, ...]] = None
 
     @classmethod
     def from_buffer(cls, buf, *, algo: str, sync: str, p: int, fanout: int,
                     n_words: int, capacity: int, density_threshold: float = 0.02,
-                    wall_ms=None) -> "TraversalTrace":
+                    wall_ms=None, axis_sizes=None) -> "TraversalTrace":
         """Build from the raw buffer (``[L, COLS]``, a tensor or an array;
         or the reference's ``[P, L, COLS]``, whose row [0] is taken),
         trimming unwritten rows (LEVEL cell 0)."""
@@ -236,7 +246,8 @@ class TraversalTrace:
         return cls(algo=algo, sync=sync, p=int(p), fanout=int(fanout),
                    n_words=int(n_words), capacity=int(capacity),
                    density_threshold=float(density_threshold), data=data,
-                   wall_ms=wall_ms)
+                   wall_ms=wall_ms,
+                   axis_sizes=None if axis_sizes is None else tuple(int(a) for a in axis_sizes))
 
     @property
     def levels(self) -> int:
@@ -248,23 +259,31 @@ class TraversalTrace:
 
     # -- byte attribution: what the port's collectives ship ----------------
 
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        """The byte models' ranks: the axes' sizes, or ``(p,)``."""
+        return self.axis_sizes if self.axis_sizes is not None else (self.p,)
+
     def _dense_bytes_per_node(self) -> float:
         """A dense level's bytes per rank.  Where the reference models a
         compiler-scheduled collective (``xla``: a ring estimate) the port
-        counts what it ships: the all-gather's ``(P - 1)`` buffers, and for
-        Rabenseifner the buffer zero-padded to a multiple of ``P`` words."""
+        counts what it ships: the all-gather's ``(G - 1)`` buffers, and for
+        Rabenseifner the buffer zero-padded to a multiple of ``G`` words
+        (``G`` the group of ``prod(sizes)`` ranks)."""
         nbytes = self.n_words * 4
+        g = max(butterfly.group_size(self.sizes), 1)
         if self.sync == "rabenseifner":
-            padded = -(-self.n_words // max(self.p, 1)) * max(self.p, 1) * 4
-            return float(butterfly.bytes_per_node_rabenseifner(
-                self.p, self.fanout, padded))
-        if self.sync in ("all_to_all", "xla"):
-            return float((self.p - 1) * nbytes)
-        return float(butterfly.bytes_per_node_allreduce(self.p, self.fanout, nbytes))
+            padded = -(-self.n_words // g) * g * 4
+            return float(butterfly.bytes_per_node_rabenseifner(g, self.fanout, padded))
+        if self.sync == "all_to_all":
+            return float(butterfly.bytes_per_node_all_to_all(self.sizes, nbytes))
+        if self.sync == "xla":
+            return float(butterfly.bytes_per_node_allgather(self.sizes, nbytes))
+        return float(butterfly.bytes_per_node_allreduce(self.sizes, self.fanout, nbytes))
 
     def _sparse_bytes_per_node(self) -> float:
         return float(butterfly.bytes_per_node_sparse(
-            self.p, self.fanout, self.capacity, self.n_words))
+            self.sizes, self.fanout, self.capacity, self.n_words))
 
     def level_bytes_per_node(self) -> np.ndarray:
         """Wire bytes per rank per level: sparse levels pay the §12
@@ -391,16 +410,24 @@ def _bfs_parts(pg, cfg, arrays, layout, device):
     return dev, arrays, layout
 
 
-def _trace(pg, cfg, tbuf, wall_ms=None) -> TraversalTrace:
+def axis_sizes(cfg, mesh=None) -> Optional[Tuple[int, ...]]:
+    """The sizes of ``cfg.axes`` on ``mesh`` (``None`` without a mesh: one
+    axis of the partition's ranks)."""
+    return None if mesh is None else tuple(mesh.shape[a] for a in cfg.axes)
+
+
+def _trace(pg, cfg, tbuf, wall_ms=None, mesh=None) -> TraversalTrace:
     return TraversalTrace.from_buffer(
         tbuf, algo="bfs", sync=cfg.sync, p=pg.p, fanout=cfg.fanout,
         n_words=pg.n_words, capacity=cfg.resolved_capacity(pg.n_words),
-        density_threshold=cfg.density_threshold, wall_ms=wall_ms)
+        density_threshold=cfg.density_threshold, wall_ms=wall_ms,
+        axis_sizes=axis_sizes(cfg, mesh))
 
 
 def traced_bfs(pg, root: int, cfg, *, trace_levels: Optional[int] = None,
-               comm=None, device="cuda"):
-    """End-to-end single-source BFS with the flight recorder on.
+               comm=None, device="cuda", mesh=None):
+    """End-to-end single-source BFS with the flight recorder on (on
+    ``mesh``, as :func:`repro_torch.core.bfs.build_bfs_fn`).
 
     Returns ``(dist int64[n], levels, scanned, TraversalTrace)`` — the
     first three exactly as :func:`repro_torch.core.bfs.distributed_bfs`."""
@@ -408,15 +435,15 @@ def traced_bfs(pg, root: int, cfg, *, trace_levels: Optional[int] = None,
 
     dev, arrays, layout = _bfs_parts(pg, cfg, None, None, device)
     fn = bfs_mod.build_bfs_fn(pg, cfg, layout, device=dev, trace=True,
-                              trace_levels=trace_levels)
+                              trace_levels=trace_levels, mesh=mesh)
     d_owned, levels, scanned, tbuf = fn(arrays, root, comm)
     return (bfs_mod.assemble_distances(pg, d_owned), levels, scanned,
-            _trace(pg, cfg, tbuf))
+            _trace(pg, cfg, tbuf, mesh=mesh))
 
 
 def timed_bfs_levels(pg, cfg, root: int, *, arrays=None, layout=None,
                      trace_levels: Optional[int] = None, warmup: bool = True,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """Host-timed BFS: each level's wall time, the clock stopping after
     ``torch.cuda.synchronize()`` (on the card), beside the flight
     recorder's row.  The host loop already runs one level per host
@@ -431,9 +458,9 @@ def timed_bfs_levels(pg, cfg, root: int, *, arrays=None, layout=None,
 
     dev, arrays, layout = _bfs_parts(pg, cfg, arrays, layout, device)
     fn = bfs_mod.build_bfs_fn(pg, cfg, layout, device=dev, trace=True,
-                              trace_levels=trace_levels)
+                              trace_levels=trace_levels, mesh=mesh)
     if warmup:
         fn(arrays, root)
     walls: List[float] = []
     d_owned, _, _, tbuf = fn(arrays, root, level_ms=walls)
-    return bfs_mod.assemble_distances(pg, d_owned), _trace(pg, cfg, tbuf, walls)
+    return bfs_mod.assemble_distances(pg, d_owned), _trace(pg, cfg, tbuf, walls, mesh)

@@ -179,7 +179,7 @@ def roofline(least_bytes: float, wire_bytes: float) -> Dict:
 
 
 def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,
-                device="cuda") -> ProgramProfile:
+                device="cuda", mesh=None) -> ProgramProfile:
     """Profile the single-source BFS program for ``(pg, cfg)`` on ``device``,
     the kernels included when ``cfg.use_kernels``.
 
@@ -189,7 +189,9 @@ def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,
     kernels' least bytes tallied; re-runs it level by level for the
     per-level wall clock and flight-recorder rows; and reconciles the byte
     model against the Communicator's count exactly.  ``arrays`` (placed
-    with ``layout`` when the kernels run) are placed when not given."""
+    with ``layout`` when the kernels run) are placed when not given;
+    ``mesh`` is the ranks' mesh (:func:`~repro_torch.core.bfs.resolve_mesh`),
+    whose axes' sizes the byte model takes."""
     from repro_torch.core import bfs as bfs_mod
     from repro_torch.core import collectives, flightrec
     from repro_torch.kernels import bounds
@@ -197,8 +199,9 @@ def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
     dev, arrays, layout = flightrec._bfs_parts(pg, cfg, arrays, layout, device)
+    mesh = bfs_mod.resolve_mesh(pg.p, cfg.axes, mesh)
     sync = bfs_mod.device_sync(dev)
-    fn = bfs_mod.build_bfs_fn(pg, cfg, layout, device=dev)
+    fn = bfs_mod.build_bfs_fn(pg, cfg, layout, device=dev, mesh=mesh)
     fn(arrays, root)  # warm
     sync()
     best = float("inf")
@@ -209,11 +212,11 @@ def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,
         sync()
         best = min(best, time.perf_counter() - t0)
 
-    comm = collectives.Communicator(pg.p, dev)
+    comm = collectives.Communicator(mesh, dev)
     with bounds.tallying() as counts:
         fn(arrays, root, comm)
     _, trace = flightrec.timed_bfs_levels(pg, cfg, root, arrays=arrays, layout=layout,
-                                          warmup=False, device=dev)
+                                          warmup=False, device=dev, mesh=mesh)
     rec = flightrec.reconcile_bytes(trace, comm.bytes_sent)
     shipped = _shipped(rec)
     rf = roofline(bounds.total_bytes(counts), shipped["total"])
@@ -247,11 +250,11 @@ def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,
     )
 
 
-def _twin(engine, algo: str, cfg, lanes: Optional[int], root: int):
-    """Run the traced twin of one cached program from ``root``: returns
-    ``(trace, rec)``.  Wave programs (MS-BFS, betweenness) exchange the
-    flattened ``wave_rows × lane_words`` lane buffer, SSSP the padded
-    distance buffer.  BC's forward OR syncs ship on a Communicator of
+def _twin(engine, algo: str, cfg, lanes: Optional[int], root: int, mesh):
+    """Run the traced twin of one cached program (built on ``mesh``) from
+    ``root``: returns ``(trace, rec)``.  Wave programs (MS-BFS,
+    betweenness) exchange the flattened ``wave_rows × lane_words`` lane
+    buffer, SSSP the padded distance buffer.  BC's forward OR syncs ship on a Communicator of
     their own (its dense ADD syncs are not in the rows)."""
     from repro_torch.analytics import msbfs
     from repro_torch.core import collectives, flightrec
@@ -259,27 +262,29 @@ def _twin(engine, algo: str, cfg, lanes: Optional[int], root: int):
     from repro_torch.traversal import sssp as sssp_mod
 
     pg, dev, arrays = engine.pg, engine.device, engine._arrays
-    comm = collectives.Communicator(pg.p, dev)
+    comm = collectives.Communicator(mesh, dev)
     if algo == "sssp":
         n_words = sssp_mod.dist_rows(pg)
-        out = sssp_mod.build_sssp_fn(pg, cfg, device=dev, trace=True)(arrays, root, comm)
+        out = sssp_mod.build_sssp_fn(pg, cfg, device=dev, trace=True, mesh=mesh)(
+            arrays, root, comm)
         counted = comm
     else:
         n_words = msbfs.wave_rows(pg) * msbfs.lane_words(lanes)
         roots = np.full(lanes, -1, dtype=np.int64)
         roots[0] = root
         if algo == "bfs":
-            out = msbfs.build_msbfs_fn(pg, cfg, lanes, device=dev, trace=True)(
+            out = msbfs.build_msbfs_fn(pg, cfg, lanes, device=dev, trace=True, mesh=mesh)(
                 arrays, roots, comm)
             counted = comm
         else:
-            counted = collectives.Communicator(pg.p, dev)
-            out = bc_mod.build_bc_fn(pg, cfg, lanes, device=dev, trace=True)(
+            counted = collectives.Communicator(mesh, dev)
+            out = bc_mod.build_bc_fn(pg, cfg, lanes, device=dev, trace=True, mesh=mesh)(
                 arrays, roots, comm, or_comm=counted)
     trace = flightrec.TraversalTrace.from_buffer(
         out[-1], algo={"bfs": "msbfs"}.get(algo, algo), sync=cfg.sync, p=pg.p,
         fanout=cfg.fanout, n_words=n_words, capacity=cfg.resolved_capacity(n_words),
-        density_threshold=cfg.density_threshold)
+        density_threshold=cfg.density_threshold,
+        axis_sizes=flightrec.axis_sizes(cfg, mesh))
     return trace, flightrec.reconcile_bytes(trace, counted.bytes_sent,
                                             forward_only=algo == "bc")
 
@@ -313,7 +318,7 @@ def cache_report(engine, *, root: int = 0) -> List[CacheEntryReport]:
             continue
         lanes = int(key[4]) if algo != "sssp" else None
         with device_lock(dev):
-            trace, rec = _twin(engine, algo, cfg, lanes, int(root))
+            trace, rec = _twin(engine, algo, cfg, lanes, int(root), key[-1])
         reports.append(CacheEntryReport(
             algo=algo, sync=cfg.sync, lanes=lanes, n_words=int(trace.n_words),
             capacity=int(trace.capacity), supported=True,

@@ -53,10 +53,13 @@ from repro_torch.core.bfs import (
     _lane_rows,
     _sync_frontier,
     device_sync,
+    mesh_comm,
     place_arrays,
     resolve_device,
+    resolve_mesh,
 )
 from repro_torch.core.devlock import device_lock
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.traversal import sssp as sssp_mod
 from repro_torch.traversal.sssp import UNREACHED, SSSPConfig, dist_rows, owned_rows
@@ -72,7 +75,7 @@ CHUNK_ELEMS = 1 << 26
 def _or_cfg(cfg: SSSPConfig) -> BFSConfig:
     """The OR-sync (bitmap) twin of a distance-sync config: taint and seed
     bitmaps merge with the same sync family the distances use."""
-    return BFSConfig(fanout=cfg.fanout, sync=cfg.sync,
+    return BFSConfig(axes=cfg.axes, fanout=cfg.fanout, sync=cfg.sync,
                      sparse_capacity=cfg.sparse_capacity,
                      density_threshold=cfg.density_threshold)
 
@@ -106,8 +109,11 @@ def _check_weighted(pg: PartitionedGraph, unit_weight: bool) -> None:
 
 def build_repair_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, unit_weight: bool = False,
                     with_taint: bool = True, trace: bool = False,
-                    trace_levels: Optional[int] = None, device="cuda"):
-    """Incremental repair over ``pg``'s P simulated ranks.
+                    trace_levels: Optional[int] = None, device="cuda",
+                    mesh: Optional[SimMesh] = None):
+    """Incremental repair over ``pg``'s P simulated ranks on ``mesh``
+    (:func:`~repro_torch.core.bfs.resolve_mesh`), every sync over
+    ``cfg.axes``.
 
     Returns ``run(arrays, dist0, taint_seed, relax_seed, comm=None, *,
     level_ms=None)`` where ``arrays`` is the placed (POST-update)
@@ -136,6 +142,7 @@ def build_repair_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, unit_weight: bool 
     """
     _check_weighted(pg, unit_weight)
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     p, n_rows = pg.p, dist_rows(pg)
     nw = n_rows // fr.WORD_BITS
     capacity = cfg.resolved_capacity(n_rows)
@@ -148,8 +155,7 @@ def build_repair_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, unit_weight: bool 
     def run(arrays, dist0, taint_seed, relax_seed,
             comm: Optional[collectives.Communicator] = None, *,
             level_ms: Optional[list] = None):
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         dist0 = _replicated(dist0, p, dev)
         src, dst = arrays["edge_src"], arrays["edge_dst"]
         emask = _edge_mask(src, arrays["edge_count"])
@@ -241,16 +247,17 @@ def build_repair_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, unit_weight: bool 
 
 
 def compiled_repair_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, unit_weight: bool = False,
-                       with_taint: bool = True, device="cuda"):
+                       with_taint: bool = True, device="cuda",
+                       mesh: Optional[SimMesh] = None):
     """The module-cached repair program for this key (the same bounded-LRU
     program cache the engine's programs live in)."""
     from repro_torch.analytics import engine as eng
 
-    dev = resolve_device(device)
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
     return eng._cached(
-        pg, dev, (id(pg), dev, "repair", cfg, unit_weight, with_taint),
+        pg, dev, (id(pg), dev, "repair", cfg, unit_weight, with_taint, mesh),
         lambda: build_repair_fn(pg, cfg, unit_weight=unit_weight, with_taint=with_taint,
-                                device=dev),
+                                device=dev, mesh=mesh),
     )
 
 
@@ -259,7 +266,7 @@ LANE_BITS = fr.WORD_BITS
 
 def build_repair_wave_fn(pg: PartitionedGraph, cfg: SSSPConfig, lane_words: int = 1, *,
                          unit_weight: bool = False, with_taint: bool = True,
-                         device="cuda"):
+                         device="cuda", mesh: Optional[SimMesh] = None):
     """Lane-packed repair: up to ``32 · lane_words`` prior rows repaired in
     ONE wave (the §13 result, replayed for repair: the sync round count —
     and most of the relax cost — is shared across lanes).
@@ -289,6 +296,7 @@ def build_repair_wave_fn(pg: PartitionedGraph, cfg: SSSPConfig, lane_words: int 
     if lane_words < 1:
         raise ValueError(f"lane_words must be >= 1, got {lane_words}")
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     p, n_rows, vmax = pg.p, dist_rows(pg), pg.vmax
     lanes = lane_words * LANE_BITS
     capacity = cfg.resolved_capacity(n_rows * lanes)
@@ -299,8 +307,7 @@ def build_repair_wave_fn(pg: PartitionedGraph, cfg: SSSPConfig, lane_words: int 
 
     def run(arrays, dist0, taint_seed, relax_seed,
             comm: Optional[collectives.Communicator] = None):
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         dist0 = _replicated(dist0, p, dev)  # [P, n_rows, L], one copy
         src, dst = arrays["edge_src"], arrays["edge_dst"]
         emask = _edge_mask(src, arrays["edge_count"])
@@ -407,16 +414,16 @@ def build_repair_wave_fn(pg: PartitionedGraph, cfg: SSSPConfig, lane_words: int 
 
 def compiled_repair_wave_fn(pg: PartitionedGraph, cfg: SSSPConfig, lane_words: int = 1, *,
                             unit_weight: bool = False, with_taint: bool = True,
-                            device="cuda"):
+                            device="cuda", mesh: Optional[SimMesh] = None):
     """The module-cached lane-packed repair program for this key."""
     from repro_torch.analytics import engine as eng
 
-    dev = resolve_device(device)
+    dev, mesh = resolve_device(device), resolve_mesh(pg.p, cfg.axes, mesh)
     return eng._cached(
         pg, dev,
-        (id(pg), dev, "repair_wave", cfg, lane_words, unit_weight, with_taint),
+        (id(pg), dev, "repair_wave", cfg, lane_words, unit_weight, with_taint, mesh),
         lambda: build_repair_wave_fn(pg, cfg, lane_words, unit_weight=unit_weight,
-                                     with_taint=with_taint, device=dev),
+                                     with_taint=with_taint, device=dev, mesh=mesh),
     )
 
 
@@ -475,15 +482,17 @@ def encode_distances(row: np.ndarray, n_rows: int) -> np.ndarray:
 def repair_row(pg: PartitionedGraph, row: np.ndarray, update, cfg: SSSPConfig, *,
                unit_weight: bool = False, arrays: Optional[dict] = None,
                bfs_sentinel: Optional[bool] = None, device="cuda",
-               comm: Optional[collectives.Communicator] = None
-               ) -> Tuple[np.ndarray, int, int]:
+               comm: Optional[collectives.Communicator] = None,
+               mesh: Optional[SimMesh] = None) -> Tuple[np.ndarray, int, int]:
     """Repair one cached distance row after ``update`` has been applied to
     ``pg``'s partition arrays.  Returns ``(new_row, touched, iters)`` —
     ``touched == 0`` means the row is proven unchanged (``new_row is
     row``); a seed-free proof costs NO device work.
 
     ``arrays`` are the placed post-update arrays (placed on ``device`` when
-    omitted); ``comm`` collects the syncs' bytes per rank.  ``bfs_sentinel`` controls the unreached sentinel of the
+    omitted); ``comm`` collects the syncs' bytes per rank; ``mesh`` is the
+    ranks' mesh, the syncs running over ``cfg.axes``.  ``bfs_sentinel``
+    controls the unreached sentinel of the
     returned row (INT32_MAX for BFS levels, :data:`UNREACHED` for SSSP);
     defaults to ``unit_weight``."""
     relax_ids, taint_ids = repair_seeds(row, update, unit_weight=unit_weight)
@@ -495,7 +504,7 @@ def repair_row(pg: PartitionedGraph, row: np.ndarray, update, cfg: SSSPConfig, *
     n_rows = dist_rows(pg)
     nw = n_rows // fr.WORD_BITS
     fn = compiled_repair_fn(pg, cfg, unit_weight=unit_weight,
-                            with_taint=taint_ids.size > 0, device=dev)
+                            with_taint=taint_ids.size > 0, device=dev, mesh=mesh)
     with device_lock(dev):
         d_owned, iters, count = fn(arrays, encode_distances(row, n_rows),
                                    seed_words(taint_ids, nw), seed_words(relax_ids, nw),
@@ -512,14 +521,16 @@ def repair_row(pg: PartitionedGraph, row: np.ndarray, update, cfg: SSSPConfig, *
 def repair_rows(pg: PartitionedGraph, rows, update, cfg: SSSPConfig, *,
                 unit_weight: bool = False, arrays: Optional[dict] = None,
                 bfs_sentinel: Optional[bool] = None, max_repairs: Optional[int] = None,
-                device="cuda", comm: Optional[collectives.Communicator] = None):
+                device="cuda", comm: Optional[collectives.Communicator] = None,
+                mesh: Optional[SimMesh] = None):
     """Repair MANY prior rows against one update batch, lane-packed: rows
     proven unchanged on the host cost nothing; the suspects share one
     §16 repair wave per 32 lanes (a lone suspect takes the cheaper
     single-row program).  Returns ``[(new_row, touched, iters), ...]`` in
     input order — ``touched == 0`` means ``new_row is rows[i]``; suspects
     beyond ``max_repairs`` (the device-repair budget) return ``None``.
-    ``comm`` collects the syncs' bytes per rank."""
+    ``comm`` collects the syncs' bytes per rank; ``mesh`` as
+    :func:`repair_row`'s."""
     results = [None] * len(rows)
     suspects = []
     seeds = []
@@ -537,7 +548,7 @@ def repair_rows(pg: PartitionedGraph, rows, update, cfg: SSSPConfig, *,
         i = suspects[0]
         results[i] = repair_row(pg, rows[i], update, cfg, unit_weight=unit_weight,
                                 arrays=arrays, bfs_sentinel=bfs_sentinel, device=dev,
-                                comm=comm)
+                                comm=comm, mesh=mesh)
         return results
     if arrays is None:
         arrays = place_arrays(pg, device=dev)
@@ -562,7 +573,7 @@ def repair_rows(pg: PartitionedGraph, rows, update, cfg: SSSPConfig, *,
                 taint_w[taint_ids, b >> 5] |= mask
                 with_taint = True
         fn = compiled_repair_wave_fn(pg, cfg, lane_words, unit_weight=unit_weight,
-                                     with_taint=with_taint, device=dev)
+                                     with_taint=with_taint, device=dev, mesh=mesh)
         with device_lock(dev):
             d_owned, it, counts = fn(arrays, dist0, taint_w, relax_w, comm)
             d_owned = d_owned.cpu().numpy().view(np.uint32)

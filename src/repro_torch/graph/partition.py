@@ -10,6 +10,10 @@ traversal runs over.
 Out-edges are kept sorted by (src, dst) and in-edges by (dst, src).  A
 weighted graph's ``uint32`` weights are partitioned alongside (``edge_weight``
 with the out-edges, ``in_weight`` with the in-edges).
+
+:func:`synthetic_shapes` sizes a partition from ``(n, m, P)`` alone, with
+no graph built: an upper bound of what :func:`partition_1d` gives a
+Kronecker graph of that size, for planning memory and shapes.
 """
 
 from __future__ import annotations
@@ -109,6 +113,59 @@ def from_reference(scalars: dict, arrays: Dict[str, np.ndarray]) -> PartitionedG
 
 def _round32(x: int) -> int:
     return (x + WORD_BITS - 1) // WORD_BITS * WORD_BITS
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticShapes:
+    """Shape-only stand-in for :class:`PartitionedGraph`: the sizes a 1D
+    partition of a graph of ``n`` vertices and ``n_edges`` directed edges
+    over ``p`` ranks takes, with no graph built.
+
+    Sizing rules (the reference's): edges are 1D-balanced with 15 % slack;
+    a Kronecker partition can own up to ~4x the mean vertex count (degree
+    skew pushes edge-balanced cuts off the uniform grid), hence ``vmax = 4
+    * n / p``; vertex counts round to 32 (bitmap words), edge and word
+    counts to 128 lanes.
+    """
+
+    p: int
+    n: int
+    n_edges: int
+    n_words: int
+    vmax: int
+    emax: int
+    wmax: int
+
+    def array_shapes(self) -> dict:
+        """The shape of each plane of :meth:`PartitionedGraph.arrays`."""
+        p, emax, vmax = self.p, self.emax, self.vmax
+        return dict(
+            v_start=(p,),
+            v_count=(p,),
+            word_start=(p,),
+            edge_src=(p, emax),
+            edge_dst=(p, emax),
+            edge_count=(p,),
+            in_src=(p, emax),
+            in_dst=(p, emax),
+            in_count=(p,),
+            deg_out=(p, vmax),
+        )
+
+
+def synthetic_shapes(n: int, m_directed: int, p: int, *, lane_pad: int = 128,
+                     slack: float = 1.15, vskew: float = 4.0) -> SyntheticShapes:
+    """:class:`SyntheticShapes` of ``n`` vertices and ``m_directed`` edges
+    over ``p`` ranks."""
+    n_pad = _round32(n)
+    emax = int(m_directed / p * slack)
+    emax = (emax + lane_pad - 1) // lane_pad * lane_pad
+    vmax = _round32(int(n_pad / p * vskew))
+    wmax = vmax // WORD_BITS
+    n_words = n_pad // WORD_BITS + wmax
+    n_words = (n_words + lane_pad - 1) // lane_pad * lane_pad
+    return SyntheticShapes(p=p, n=n_pad, n_edges=m_directed, n_words=n_words,
+                           vmax=vmax, emax=emax, wmax=wmax)
 
 
 def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGraph:

@@ -154,6 +154,58 @@ def main(argv=None) -> int:
         ap.error("--swap-after is a single-service path; use mutations "
                  "(--mutate-rate) with --replicas")
 
+    import torch
+
+    # On the CPU the waves (one at a time under the device lock) are many
+    # small ops, so intra-op threads only add barriers; on a loaded host a
+    # descheduled thread stalls every op at its barrier, waves slow by an
+    # order of magnitude, organic latency passes --router-timeout-s, and
+    # the hedges put every replica on backoff, so a chaos stall's hedge
+    # finds none to go to.  The CPU path runs one thread, restored on exit.
+    threads = torch.get_num_threads()
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        return _serve(ap, args)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def fault_exemplar(events, first_seq: int = 0):
+    """Exemplar picker for the availability and staleness SLOs: the newest
+    request a fault was injected on, i.e. the trace of the newest
+    ``chaos`` event the injection itself stamped (``kill-replica``,
+    ``stall-wave``), which holds the hedge or failover the fault forced;
+    else the newest traced ``chaos`` or ``retry`` event (a ``kill-impact``,
+    a retry of organic degradation).  Events before ``first_seq`` (another
+    run's, in a process-wide log) are never picked.
+
+    The reference takes the newest ``chaos`` event.  A killed replica's
+    abandoned scheduler fails the requests it held a few ms after the
+    kill, so their ``kill-impact`` events can land after a ``stall-wave``
+    on the same op and take the exemplar from the stalled request, whose
+    trace alone holds the hedge."""
+
+    def pick():
+        fallback = None
+        for ev in reversed(events.events()):
+            if ev["seq"] < first_seq:
+                break
+            if not ev["trace_id"] or ev["kind"] not in ("chaos", "retry"):
+                continue
+            if ev["kind"] == "chaos" and ev["name"] != "kill-impact":
+                return {"trace_id": ev["trace_id"], "source": f"event:chaos:{ev['name']}"}
+            if fallback is None or (fallback["kind"] == "retry" and ev["kind"] == "chaos"):
+                fallback = ev
+        if fallback is None:
+            return None
+        return {"trace_id": fallback["trace_id"],
+                "source": f"event:{fallback['kind']}:{fallback['name']}"}
+
+    return pick
+
+
+def _serve(ap, args) -> int:
     import json
     import time
 
@@ -180,6 +232,7 @@ def main(argv=None) -> int:
 
     tracer = Tracer() if args.trace else NULL_TRACER
     event_log = events_mod.default_event_log()
+    first_seq = event_log.snapshot()["emitted"] + 1  # this run's events
     if args.events:
         event_log.attach_sink(args.events)
 
@@ -282,8 +335,7 @@ def main(argv=None) -> int:
             # chaos-first: when a fault was injected, the exemplar is the
             # request the fault hit (its trace holds kill + hedge); retry
             # events cover organic degradation without chaos
-            return slo_mod.event_log_exemplar(
-                event_log, kinds=("chaos", "retry"))
+            return fault_exemplar(event_log, first_seq)
 
         slo_mgr = slo_mod.build_from_config(
             slo_config, source_for, exemplar_for, events=event_log)

@@ -41,7 +41,9 @@ from repro_torch.core import collectives, flightrec
 from repro_torch.core import frontier as fr
 from repro_torch.core import loop
 from repro_torch.core import monoid as mono
-from repro_torch.core.bfs import device_sync, place_arrays, resolve_device
+from repro_torch.core.bfs import (device_sync, mesh_comm, place_arrays, resolve_device,
+                                  resolve_mesh)
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.traversal.sssp import owned_rows
 
@@ -55,6 +57,7 @@ class ProgramConfig:
     sparse/adaptive knobs are shared semantics); ``damping``/``tol`` are
     read by convergence-style programs (PageRank)."""
 
+    axes: Tuple[str, ...] = ("data",)  # mesh axes the syncs run over
     fanout: int = 2
     # butterfly | sparse | adaptive | all_to_all | xla
     sync: str = "butterfly"
@@ -227,24 +230,28 @@ def _sync_program(msg, ref, monoid: mono.Monoid, cfg: ProgramConfig, capacity: i
     SSSP sync dispatch generalized over the monoid.  ``ref=None`` selects
     delta mode on the sparse paths (enforced against
     ``monoid.sparse_mode``)."""
+    axes = cfg.axes
     if cfg.sync == "butterfly":
-        return collectives.butterfly_reduce(msg, comm, monoid, fanout=cfg.fanout)
+        return collectives.butterfly_reduce(msg, comm, monoid, fanout=cfg.fanout, axes=axes)
     if cfg.sync == "sparse":
         return collectives.butterfly_reduce_sparse(msg, comm, monoid, fanout=cfg.fanout,
-                                                   capacity=capacity, ref=ref)
+                                                   capacity=capacity, ref=ref, axes=axes)
     if cfg.sync == "adaptive":
         return collectives.butterfly_reduce_adaptive(
             msg, comm, monoid, fanout=cfg.fanout, capacity=capacity,
-            density_threshold=cfg.density_threshold, ref=ref)
+            density_threshold=cfg.density_threshold, ref=ref, axes=axes)
     if cfg.sync == "all_to_all":
-        return collectives.all_to_all_merge(msg, comm, op=monoid.combine)
-    return collectives.xla_allreduce(msg, comm, op=_XLA_OPS[monoid.name])
+        return collectives.all_to_all_merge(msg, comm, op=monoid.combine, axes=axes)
+    return collectives.xla_allreduce(msg, comm, op=_XLA_OPS[monoid.name], axes=axes)
 
 
 def build_program_fn(pg: PartitionedGraph, program: VertexProgram,
                      cfg: ProgramConfig = ProgramConfig(), *, device="cuda",
-                     trace: bool = False, trace_levels: Optional[int] = None):
-    """Run ``program`` on the shared round loop over ``pg``'s P ranks.
+                     trace: bool = False, trace_levels: Optional[int] = None,
+                     mesh: Optional[SimMesh] = None):
+    """Run ``program`` on the shared round loop over ``pg``'s P ranks on
+    ``mesh`` (:func:`~repro_torch.core.bfs.resolve_mesh`), syncing over
+    ``cfg.axes``.
 
     Returns ``run(arrays, arg, comm=None, *, level_ms=None)`` where
     ``arrays`` is the placed partition every traversal consumes and ``arg``
@@ -258,6 +265,7 @@ def build_program_fn(pg: PartitionedGraph, program: VertexProgram,
     :meth:`VertexProgram.metrics`).
     """
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     max_iters = (cfg.max_iters if cfg.max_iters is not None
                  else program.default_max_iters(pg))
     msg_words = program_msg_words(pg, program)
@@ -267,8 +275,7 @@ def build_program_fn(pg: PartitionedGraph, program: VertexProgram,
 
     def run(arrays, arg=None, comm: Optional[collectives.Communicator] = None, *,
             level_ms: Optional[list] = None):
-        if comm is None:
-            comm = collectives.Communicator(pg.p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         ctx = _context(pg, cfg, arrays, dev)
         state0 = tuple(program.init(ctx, arg))
         k = len(state0)
@@ -304,14 +311,15 @@ def build_program_fn(pg: PartitionedGraph, program: VertexProgram,
 
 def run_program(pg: PartitionedGraph, program: VertexProgram,
                 cfg: ProgramConfig = ProgramConfig(), *, arg=None,
-                device="cuda") -> Tuple[np.ndarray, int, float]:
+                device="cuda", mesh: Optional[SimMesh] = None
+                ) -> Tuple[np.ndarray, int, float]:
     """End-to-end helper: place arrays, run, assemble.
 
     Returns ``(result, iters, work)`` — the program's global result (see
     each program's ``assemble``), rounds executed, and edges examined.
     """
     dev = resolve_device(device)
-    fn = build_program_fn(pg, program, cfg, device=dev)
+    fn = build_program_fn(pg, program, cfg, device=dev, mesh=mesh)
     if arg is None:
         arg = program.default_arg(pg, dev)
     out = fn(place_arrays(pg, device=dev), arg)

@@ -515,6 +515,7 @@ class GraphQueryService:
                     engine.pg, rows, update, cfg,
                     unit_weight=unit_weight, arrays=engine._arrays,
                     max_repairs=budget[0], device=engine.device,
+                    mesh=engine.mesh,
                 )
                 if budget[0] is not None:
                     # device-repaired suspects (iters > 0) consume budget;
@@ -550,7 +551,7 @@ class GraphQueryService:
                 if budget[0] is not None and budget[0] < len(rows):
                     return [None] * len(rows)  # budget exhausted: drop
                 fn = compiled_program_fn(
-                    engine.pg, engine.device, "pagerank", pcfg
+                    engine.pg, engine.device, "pagerank", pcfg, engine.mesh
                 )
                 outcomes = programs_mod.repair_rank_rows(
                     rows, pg=engine.pg, fn=fn, arrays=engine._arrays

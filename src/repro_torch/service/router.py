@@ -29,7 +29,8 @@ ONE failover resubmission to a different replica; a request that exceeds
 ``timeout_s`` triggers ONE hedged duplicate to a different replica
 (first result wins, the loser is discarded by the future's
 first-set-wins contract) while the slow replica is marked SUSPECT with
-exponential backoff.  A background heartbeat loop probes suspects,
+exponential backoff; a hedge whose every other replica is on backoff goes
+to one of them (the reference drops it).  A background heartbeat loop probes suspects,
 declares dead schedulers DEAD, rebuilds dead replicas from the base
 graph + full replication-log replay, and redelivers missing log batches
 (catch-up) — which is also the repair path for dropped, delayed, and
@@ -836,7 +837,13 @@ class ReplicaRouter:
     def _fire_hedge(self, ticket: _Ticket) -> None:
         """The per-request timeout elapsed with the primary still silent:
         dispatch ONE duplicate to a different replica (first result wins)
-        and put the slow replica on backoff."""
+        and put the slow replica on backoff.  Where every other replica
+        that could answer sits out a backoff, the duplicate goes to one of
+        them all the same: the primary has already outlived the timeout,
+        and a backoff spaces out routine picks, not this escape (the
+        reference drops the hedge then; on a loaded host, where slow waves
+        put every replica on backoff, that left a stalled request to the
+        hard timeout)."""
         now = time.monotonic()
         with ticket.lock:
             if ticket.hedged:
@@ -846,7 +853,8 @@ class ReplicaRouter:
         for r in self.replicas:
             if r.id in slow:
                 self._suspect(r)
-        other = self._pick(ticket.min_seq, slow, now)
+        other = (self._pick(ticket.min_seq, slow, now)
+                 or self._pick(ticket.min_seq, slow, float("inf")))
         if other is None:
             return  # nowhere to hedge; the hard timeout is the backstop
         self.telemetry.bump("hedges")

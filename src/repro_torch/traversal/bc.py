@@ -45,9 +45,12 @@ from repro_torch.core.bfs import (
     _lane_rows,
     _sync_frontier,
     device_sync,
+    mesh_comm,
     place_arrays,
     resolve_device,
+    resolve_mesh,
 )
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.traversal.sssp import owned_rows
@@ -110,14 +113,15 @@ def _sync_add(buf: torch.Tensor, cfg: BFSConfig,
     idempotent, so the sparse changed-word wire format does not apply —
     sparse/adaptive configs ride the dense butterfly here while their
     frontier OR sync stays sparse."""
+    axes = cfg.axes
     if cfg.sync == "all_to_all":
-        return collectives.all_to_all_merge(buf, comm, op="add")
+        return collectives.all_to_all_merge(buf, comm, op="add", axes=axes)
     if cfg.sync == "xla":
-        return collectives.xla_allreduce(buf, comm, op="add")
+        return collectives.xla_allreduce(buf, comm, op="add", axes=axes)
     if cfg.sync == "rabenseifner":
         return collectives.butterfly_allreduce_rabenseifner(buf, comm, fanout=cfg.fanout,
-                                                            op="add")
-    return collectives.butterfly_allreduce(buf, comm, fanout=cfg.fanout)
+                                                            op="add", axes=axes)
+    return collectives.butterfly_allreduce(buf, comm, fanout=cfg.fanout, axes=axes)
 
 
 def _scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -128,8 +132,11 @@ def _scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> tor
 
 
 def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="cuda",
-                trace: bool = False, trace_levels: Optional[int] = None):
-    """B-lane betweenness centrality over ``pg``'s P simulated ranks.
+                trace: bool = False, trace_levels: Optional[int] = None,
+                mesh: Optional[SimMesh] = None):
+    """B-lane betweenness centrality over ``pg``'s P simulated ranks on
+    ``mesh`` (:func:`~repro_torch.core.bfs.resolve_mesh`), every sync over
+    ``cfg.axes``.
 
     Returns ``run(arrays, roots, comm=None, *, or_comm=None, level_ms=None,
     lanes=None)`` where ``roots`` is ``n_lanes`` vertex ids (``-1`` =
@@ -157,6 +164,7 @@ def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="c
         raise NotImplementedError("use_kernels=True is single-source only; BC uses "
                                   "the plain path")
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     bw = lane_words(n_lanes)
     n_rows = wave_rows(pg)
     p, vmax = pg.p, pg.vmax
@@ -182,10 +190,8 @@ def build_bc_fn(pg: PartitionedGraph, cfg: BFSConfig, n_lanes: int, *, device="c
         roots = np.asarray(roots, dtype=np.int64)
         if roots.shape != (n_lanes,):
             raise ValueError(f"expected {n_lanes} roots, got shape {roots.shape}")
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
-        if or_comm is None:
-            or_comm = comm
+        comm = mesh_comm(comm, mesh, dev)
+        or_comm = comm if or_comm is None else mesh_comm(or_comm, mesh, dev)
         active = torch.as_tensor(roots >= 0, device=dev)
         seeds = torch.as_tensor(np.where(roots >= 0, roots, 0), device=dev)
         onehot = (torch.arange(bw * fr.WORD_BITS, device=dev)[None, :]
@@ -285,8 +291,8 @@ def assemble_bc(pg: PartitionedGraph, bc_owned: torch.Tensor) -> np.ndarray:
 
 
 def betweenness_centrality(pg: PartitionedGraph, sources: Sequence[int],
-                           cfg: BFSConfig = BFSConfig(), *,
-                           device="cuda") -> Tuple[np.ndarray, int, float]:
+                           cfg: BFSConfig = BFSConfig(), *, device="cuda",
+                           mesh: Optional[SimMesh] = None) -> Tuple[np.ndarray, int, float]:
     """End-to-end helper: one wave over ``sources`` (one lane per source).
 
     Returns ``(bc float64[n], depth, scanned)``; ``bc`` matches
@@ -299,6 +305,6 @@ def betweenness_centrality(pg: PartitionedGraph, sources: Sequence[int],
     if np.any((sources < -1) | (sources >= pg.n)):
         raise ValueError(f"source out of range (n={pg.n}, -1=inactive): {sources}")
     dev = resolve_device(device)
-    fn = build_bc_fn(pg, cfg, int(sources.size), device=dev)
+    fn = build_bc_fn(pg, cfg, int(sources.size), device=dev, mesh=mesh)
     bc_owned, depth, scanned = fn(place_arrays(pg, device=dev), sources)
     return assemble_bc(pg, bc_owned), depth, scanned

@@ -42,7 +42,9 @@ from repro_torch.core import collectives, flightrec
 from repro_torch.core import frontier as fr
 from repro_torch.core import loop
 from repro_torch.core import monoid as mono
-from repro_torch.core.bfs import device_sync, place_arrays, resolve_device
+from repro_torch.core.bfs import (device_sync, mesh_comm, place_arrays, resolve_device,
+                                  resolve_mesh)
+from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.partition import PartitionedGraph
 
@@ -87,6 +89,7 @@ def sssp_reference(g: Graph, root: int) -> np.ndarray:
 class SSSPConfig:
     """Algorithm knobs, mirroring :class:`repro_torch.core.bfs.BFSConfig`."""
 
+    axes: Tuple[str, ...] = ("data",)  # mesh axes the syncs run over
     fanout: int = 2
     # butterfly | sparse | adaptive | all_to_all | xla
     sync: str = "butterfly"
@@ -128,19 +131,19 @@ def _sync_dist(new: torch.Tensor, prev: torch.Tensor, cfg: SSSPConfig, capacity:
     """Phase-2 MIN-merge of tentative distances ``new[P, n_rows]``;
     ``prev`` is the replicated-consistent post-last-sync buffer (the sparse
     reference)."""
-    m = mono.MIN_U32
+    m, axes = mono.MIN_U32, cfg.axes
     if cfg.sync == "butterfly":
-        return collectives.butterfly_reduce(new, comm, m, fanout=cfg.fanout)
+        return collectives.butterfly_reduce(new, comm, m, fanout=cfg.fanout, axes=axes)
     if cfg.sync == "sparse":
         return collectives.butterfly_reduce_sparse(new, comm, m, fanout=cfg.fanout,
-                                                   capacity=capacity, ref=prev)
+                                                   capacity=capacity, ref=prev, axes=axes)
     if cfg.sync == "adaptive":
         return collectives.butterfly_reduce_adaptive(
             new, comm, m, fanout=cfg.fanout, capacity=capacity,
-            density_threshold=cfg.density_threshold, ref=prev)
+            density_threshold=cfg.density_threshold, ref=prev, axes=axes)
     if cfg.sync == "all_to_all":
-        return collectives.all_to_all_merge(new, comm, op=m.combine)
-    return collectives.xla_allreduce(new, comm, op="min")
+        return collectives.all_to_all_merge(new, comm, op=m.combine, axes=axes)
+    return collectives.xla_allreduce(new, comm, op="min", axes=axes)
 
 
 def relax(arrays, dist: torch.Tensor, active: torch.Tensor, *, unit_weight: bool = False):
@@ -162,8 +165,10 @@ def relax(arrays, dist: torch.Tensor, active: torch.Tensor, *, unit_weight: bool
 
 
 def build_sssp_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, device="cuda",
-                  trace: bool = False, trace_levels: Optional[int] = None):
-    """Distributed SSSP over ``pg``'s P simulated ranks.
+                  trace: bool = False, trace_levels: Optional[int] = None,
+                  mesh: Optional[SimMesh] = None):
+    """Distributed SSSP over ``pg``'s P simulated ranks on ``mesh``
+    (:func:`~repro_torch.core.bfs.resolve_mesh`), syncing over ``cfg.axes``.
 
     Returns ``run(arrays, root, comm=None, *, level_ms=None)`` where
     ``arrays`` is the placed WEIGHTED partition (:func:`place_arrays`).
@@ -182,6 +187,7 @@ def build_sssp_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, device="cuda",
             "SSSP requires a weighted partition — generate the graph with "
             "max_weight > 0 (graph.generators) or pass weights to from_edges")
     dev = resolve_device(device)
+    mesh = resolve_mesh(pg.p, cfg.axes, mesh)
     p, n_rows = pg.p, dist_rows(pg)
     capacity = cfg.resolved_capacity(n_rows)
     # bucket advances consume iterations without relaxing; bound generously
@@ -195,8 +201,7 @@ def build_sssp_fn(pg: PartitionedGraph, cfg: SSSPConfig, *, device="cuda",
         root = int(root)
         if not 0 <= root < pg.n:
             raise ValueError(f"root {root} outside [0, {pg.n})")
-        if comm is None:
-            comm = collectives.Communicator(p, dev)
+        comm = mesh_comm(comm, mesh, dev)
         dist = torch.full((p, n_rows), -1, dtype=torch.int32, device=dev)
         dist[:, root] = 0
         changed = fr.set_bit(torch.zeros((p, n_rows // fr.WORD_BITS), dtype=torch.int32,
@@ -258,9 +263,10 @@ def assemble_distances(pg: PartitionedGraph, d_owned: torch.Tensor) -> np.ndarra
 
 
 def distributed_sssp(pg: PartitionedGraph, root: int, cfg: SSSPConfig = SSSPConfig(),
-                     *, device="cuda") -> Tuple[np.ndarray, int, float]:
+                     *, device="cuda", mesh: Optional[SimMesh] = None
+                     ) -> Tuple[np.ndarray, int, float]:
     """End-to-end helper: place arrays, run, assemble global distances."""
     dev = resolve_device(device)
-    d_owned, iters, relaxed = build_sssp_fn(pg, cfg, device=dev)(
+    d_owned, iters, relaxed = build_sssp_fn(pg, cfg, device=dev, mesh=mesh)(
         place_arrays(pg, device=dev), root)
     return assemble_distances(pg, d_owned), iters, relaxed

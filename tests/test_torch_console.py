@@ -283,6 +283,32 @@ def test_chaos_showcase_alert_exemplar_navigates_to_fault(tmp_path):
     assert "repro ops console" in html and "https://" not in html
 
 
+def test_fault_exemplar_is_the_request_the_fault_was_injected_on():
+    """The serving CLI's availability exemplar: the trace the injection
+    stamped (``kill-replica`` and ``stall-wave`` on one op), even where a
+    killed replica's held requests log their ``kill-impact`` after it;
+    else the newest chaos, else the newest retry; never another run's."""
+    from repro_torch.launch.serve_graph import fault_exemplar
+
+    log = EventLog()
+    log.emit("chaos", "kill-impact", trace_id="old")  # an earlier run's
+    first = log.snapshot()["emitted"] + 1
+    pick = fault_exemplar(log, first)
+    assert pick() is None
+    log.emit("retry", "hedge", trace_id="organic")
+    assert pick() == {"trace_id": "organic", "source": "event:retry:hedge"}
+    log.emit("chaos", "kill-impact", trace_id="hit")
+    log.emit("retry", "retry", trace_id="hit")
+    assert pick() == {"trace_id": "hit", "source": "event:chaos:kill-impact"}
+    log.emit("chaos", "kill-replica", trace_id="op20")
+    log.emit("chaos", "stall-wave", trace_id="op20")
+    log.emit("chaos", "kill-impact", trace_id="late")  # the abandoned wave's
+    log.emit("retry", "retry", trace_id="late")
+    assert pick() == {"trace_id": "op20", "source": "event:chaos:stall-wave"}
+    log.emit("chaos", "stall-wave", trace_id="")  # untraced: never picked
+    assert pick()["trace_id"] == "op20"
+
+
 # ---------------------------------------------------------------------------
 # parity with the reference console
 # ---------------------------------------------------------------------------

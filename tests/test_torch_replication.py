@@ -475,6 +475,33 @@ def test_stalled_wave_is_hedged_to_another_replica(graph, cfg):
         router.stop()
 
 
+def test_hedge_goes_to_a_backed_off_replica_when_no_other_is_eligible(graph, cfg):
+    """Every replica but the stalled primary sits out a backoff: the hedge
+    still goes to one of them (the reference drops it and leaves the
+    request to the hard timeout, which on a loaded host broke the chaos
+    showcase's exemplar), and the client gets the hedged, fresh result."""
+    reps = _replicas(graph, cfg, n=2)
+    inj = FaultInjector.from_spec("stall@op=1:ms=2000", seed=5,
+                                  n_replicas=2)
+    router = ReplicaRouter(
+        reps, timeout_s=0.25, hard_timeout_factor=200.0,
+        heartbeat_interval_s=None, injector=inj, suspect_backoff_s=0.05,
+    )
+    try:
+        victim = inj.faults[0].victim
+        other = reps[1 - victim]
+        other.mark_suspect(60.0, time.monotonic())  # backed off for a minute
+        root = _roots(graph, 1)[0]
+        res = router.submit("bfs", root).result(RESULT_S)
+        assert res.hedged and not res.stale and res.replica == other.id
+        np.testing.assert_array_equal(
+            _norm(res.value), _norm(bfs.bfs_reference(graph, root))
+        )
+        assert router.snapshot()["faults"]["hedges"] == 1
+    finally:
+        router.stop()
+
+
 def test_router_admission_is_structured_and_final():
     """Front-door shedding: global in-flight bound + per-tenant quota
     raise structured AdmissionError; non-retryable rejections are never

@@ -638,3 +638,62 @@ def test_profiler_phase_rehearsed_on_the_cpu(kron10, cpu_card):
     assert all(c["reconciled"] for c in out["cache"] if c["supported"])
     assert set(out["kernel_calls"]) >= {"frontier_gather_full", "frontier_scatter"}
     assert out["launches"]["frontier_scatter"] > 0
+
+
+# --- phase 10b (the hierarchical mesh) rehearsed on the CPU ------------------
+
+
+@pytest.fixture(scope="module")
+def kron10_p8():
+    """The weighted Kronecker graph at scale 10 over 8 ranks: pod 2 x data 4."""
+    import unittest.mock as mock
+
+    from repro_torch.graph import generators
+
+    with mock.patch.object(torch.cuda, "synchronize", lambda *a, **k: None):
+        return chip_smoke.etl("kronecker 10 P8", lambda: generators.kronecker(
+            10, 8, seed=0, max_weight=chip_smoke.WEIGHT), 8, torch.device("cpu"),
+            "direction_optimizing")
+
+
+def test_axes_mesh_is_pods_of_four():
+    assert chip_smoke.axes_mesh(16).shape == {"pod": 4, "data": 4}
+    assert chip_smoke.axes_mesh(8).shape == {"pod": 2, "data": 4}
+
+
+def test_axes_phase_rehearsed_on_the_cpu(kron10_p8, cpu_card):
+    from repro_torch.core import bfs
+
+    dev = cpu_card
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    out, total, (f2, f2_run), merge = chip_smoke.run_axes_bfs(kron10_p8, 4, 0, dev, gen)
+    assert set(out) == {f"axes {s} fanout 4" for s in bfs.SYNCS} | {"axes butterfly fanout 2"}
+    assert total["bitmap_or_reduce"] > 0 and total["frontier_scatter"] > 0
+    a2a = out["axes all_to_all fanout 4"]
+    # (2 - 1) + (4 - 1) buffers a level on the mesh, 7 on one axis
+    assert a2a["bytes_per_rank"] * 7 == a2a["one_axis_bytes_per_rank"] * 4
+    # the dense syncs send the one-axis bytes (pod 2 x data 4 has the
+    # digits [2], [4] against [4, 2]: as many messages); the sparse rounds'
+    # capacities, clamped at the bitmap's 128 words here, follow the order
+    for sync in ("butterfly", "rabenseifner", "xla"):
+        rec = out[f"axes {sync} fanout 4"]
+        assert rec["bytes_per_rank"] == rec["one_axis_bytes_per_rank"], sync
+    assert f2 is out["axes butterfly fanout 2"] and f2["launches"]["bitmap_or_reduce"] > 0
+    f2_run()
+    assert merge["plane"] == "axes_merge_f2" and merge["max_abs_err"] == 0
+    assert merge["shape"] == f"({kron10_p8['pg'].p}, 2, {kron10_p8['pg'].n_words})"
+    tools = chip_smoke.run_tools(kron10_p8, 10, 8)
+    assert tools["upper_bound"] and tools["step_bytes_train_4k"]["global"] > 0
+
+
+def test_axes_weighted_phase_rehearsed_on_the_cpu(kron10_p8, cpu_card):
+    dev = cpu_card
+    rows, slice5 = {}, {}
+    slice5.update(chip_smoke.run_sssp(kron10_p8, 4, 0, dev, {"butterfly": 1, "adaptive": 1},
+                                      32, keep=rows))
+    slice5.update(chip_smoke.run_cc(kron10_p8, 4, dev))
+    out = chip_smoke.run_axes_weighted(kron10_p8, 4, dev, rows, slice5)
+    assert out["sssp adaptive"]["iters"] == slice5["sssp adaptive"]["iters"][0]
+    assert out["cc adaptive"]["iters"] == slice5["cc adaptive"]["iters"]
+    assert out["sssp adaptive"]["bytes_per_rank"] > 0
