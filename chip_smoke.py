@@ -65,6 +65,19 @@ account:
    seconds with the staging's share, one butterfly step a process equal
    to the simulated-rank step; a failing or hanging process fails the
    phase; none of the four graph kernels launched;
+3d. the roofline terms without HLO (``launch.hlo_stats``, ``launch.dryrun``):
+   (a) at the end of phase 3b, one more real train step of its model (16 x
+   1024 tokens, one microbatch) counted by ``FlopCounterMode`` equal
+   exactly to the same step under fake tensors in this process; the
+   modeled compute and memory terms against phase 3b's median step; the
+   card's peak memory against the fake ``MemTracker`` peak; (b) after
+   phase 9, the dry run's BFS cell at phase 7's partition: a dense level's
+   bytes and sends a rank equal the Communicator's at every level of
+   phase 7's first root, its least kernel bytes at the HBM rate against
+   the measured ms a level; (c) ``python -m repro_torch.launch.dryrun``
+   for qwen3-1.7b's ``train_4k`` in a process of its own, started before
+   the LM phases and read here: its row ``ok`` from fake tensors, and
+   ``summary``'s tables of it;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -3158,6 +3171,7 @@ def train_published(dev, seed, profile):
         f"TFLOP/s bf16; with remat's recompute 2ND ({remat_flops:.4g}) "
         f"{res['executed_share']:.1%}; peak device memory {peak / 1e9:.2f} GB; "
         f"{wall_s:.1f} s in all")
+    res["roofline"] = roofline_step(cfg, out["params"], out["opt_state"], dev, med)
     if profile:
         fn = step_mod.build_train_step(cfg, microbatches=cfg.train_microbatches,
                                        lr_kw=TRAIN_LR)
@@ -3170,6 +3184,172 @@ def train_published(dev, seed, profile):
             f"unprofiled step's {med * 1e3:.1f} ms")
         res["profile"] = prof
     return res, out["params"]
+
+
+def roofline_step(cfg, model, state, dev, median_s):
+    """Phase 3d(a): one more real train step of phase 3b's model (16 x 1024
+    tokens, one microbatch: a step's flops do not depend on the
+    microbatching; not one of the timed steps) inside
+    ``launch.hlo_stats.measure`` (``FlopCounterMode``, the card's peak),
+    and the same step at the same shape under fake tensors in this
+    process (``MemTracker``'s peak): the two flop counts equal exactly.
+    The modeled terms at that shape on one card (compute the flops at the
+    bfloat16 peak, memory ``analytic.step_bytes`` at the HBM rate) against
+    phase 3b's median step, and the card's peak against the fake one."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import analytic, hlo_stats
+    from repro_torch.models import api
+    from repro_torch.train import optim, step as step_mod
+
+    shape = configs.ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    fn = step_mod.build_train_step(cfg, microbatches=1, lr_kw=TRAIN_LR)
+    batch = device_batch(SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ), TRAIN_STEPS + 1, dev)
+    t0 = time.perf_counter()
+    real = hlo_stats.measure(fn, model, state, batch, TRAIN_STEPS + 1)
+    real_s = time.perf_counter() - t0
+    real.out = None
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fake_model = api.build_model(cfg, torch.device("cpu"))
+        fake_batch = {k: torch.zeros(tuple(v.shape), dtype=v.dtype) for k, v in batch.items()}
+        fake = hlo_stats.measure(fn, fake_model, optim.get(cfg.optimizer).init(fake_model),
+                                 fake_batch, TRAIN_STEPS + 1)
+    fake.out = None
+    fake_s = time.perf_counter() - t0
+    if real.flops != fake.flops or real.flops_by_op != fake.flops_by_op or real.flops <= 0:
+        raise AssertionError(f"the real step counts {real.flops:.6g} flops "
+                             f"({real.flops_by_op}), the fake one {fake.flops:.6g} "
+                             f"({fake.flops_by_op})")
+    step_bytes = analytic.step_bytes(cfg, shape)["global"]
+    roof = hlo_stats.roofline(fake.flops, step_bytes, 0.0)
+    out = dict(flops=real.flops, flops_by_op=real.flops_by_op, fake_flops=fake.flops,
+               step_bytes=step_bytes, t_compute_ms=roof.t_compute * 1e3,
+               t_memory_ms=roof.t_memory * 1e3, step_time_est_ms=roof.step_time * 1e3,
+               dominant=roof.dominant, median_step_ms=median_s * 1e3,
+               achieved_over_modeled=median_s / roof.step_time,
+               real_peak_bytes=real.memory["peak_bytes_per_device"],
+               fake_peak_bytes=fake.memory["peak_bytes_per_device"],
+               peak_ratio=real.memory["peak_bytes_per_device"]
+               / max(fake.memory["peak_bytes_per_device"], 1.0),
+               real_memory=real.memory, fake_memory=fake.memory,
+               real_step_s=real_s, fake_step_s=fake_s)
+    log(f"  3d(a) one real step in FlopCounterMode ({real_s:.1f} s) == the same step under "
+        f"fake tensors ({fake_s:.1f} s): {real.flops:.6g} flops exactly "
+        f"({', '.join(f'{k} {v:.6g}' for k, v in real.flops_by_op.items())})")
+    log(f"  3d(a) modeled on one card at {TRAIN_BATCH} x {TRAIN_SEQ}: compute "
+        f"{out['t_compute_ms']:.1f} ms (flops / {hlo_stats.PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
+        f"memory {out['t_memory_ms']:.1f} ms (step_bytes {step_bytes:.4g} B / "
+        f"{hlo_stats.HBM_BW / 1e12:.2f} TB/s), step_time_est {out['step_time_est_ms']:.1f} "
+        f"ms ({roof.dominant}); measured median {median_s * 1e3:.1f} ms = "
+        f"{out['achieved_over_modeled']:.3f}x the model")
+    log(f"  3d(a) peak memory of the step: card {out['real_peak_bytes'] / 1e9:.3f} GB "
+        f"(max_memory_allocated), fake {out['fake_peak_bytes'] / 1e9:.3f} GB (MemTracker): "
+        f"ratio {out['peak_ratio']:.4f}")
+    return out
+
+
+class LevelCounts(list):
+    """A ``level_ms`` list (``build_bfs_fn``'s run appends each level's wall
+    ms) that also keeps the Communicator's per-rank bytes and sends after
+    each level."""
+
+    def __init__(self, comm):
+        super().__init__()
+        self.comm, self.bytes, self.sends = comm, [], []
+
+    def append(self, ms):
+        super().append(ms)
+        self.bytes.append(self.comm.bytes_sent.copy())
+        self.sends.append(self.comm.sends.copy())
+
+
+def roofline_bfs(parts, cfg, root, dev):
+    """Phase 3d(b): the dry run's BFS cell at phase 7's real partition (one
+    dense top-down level's terms, ``launch.dryrun.bfs_level_terms``): its
+    bytes and sends a rank equal the Communicator's count at every level
+    of phase 7's first root (the butterfly's levels are all dense); the
+    modeled memory term (the level's least kernel bytes over the HBM rate)
+    against the measured ms a level."""
+    import numpy as np
+
+    from repro_torch.core import bfs, collectives
+    from repro_torch.dist.sharding import SimMesh
+    from repro_torch.launch import dryrun, hlo_stats
+
+    pg = parts["pg"]
+    mesh = SimMesh(pg.p)
+    terms = dryrun.bfs_level_terms(pg, dataclasses.replace(cfg, mode="top_down"), mesh)
+    comm = collectives.Communicator(mesh, dev)
+    levels = LevelCounts(comm)
+    fn = bfs.build_bfs_fn(pg, cfg, parts["layout"], device=dev)
+    _, n_levels, _ = fn(parts["arrays"], root, comm, level_ms=levels)
+    sent = np.diff(np.stack([np.zeros_like(comm.bytes_sent)] + levels.bytes), axis=0)
+    sends = np.diff(np.stack([np.zeros_like(comm.sends)] + levels.sends), axis=0)
+    if not (len(levels) == n_levels and (sent == terms["bytes_sent"]).all()
+            and (sends == terms["sends"]).all()):
+        raise AssertionError(f"3d(b): the BFS cell models {terms['bytes_sent']} B and "
+                             f"{terms['sends']} sends a rank a level; phase 7's root {root} "
+                             f"sent {sent[:, 0].tolist()} B and {sends[:, 0].tolist()}")
+    model_ms = terms["least_bytes_total"] / hlo_stats.HBM_BW * 1e3
+    ms = np.asarray(levels, dtype=np.float64)
+    out = dict(root=root, levels=n_levels, bytes_per_level=terms["bytes_sent"],
+               sends_per_level=terms["sends"], collectives=terms["collectives"],
+               least_bytes=terms["least_bytes"], model_memory_ms=model_ms,
+               model_collective_ms=terms["bytes_sent"] / hlo_stats.LINK_BW * 1e3,
+               level_ms=ms.tolist(), level_ms_median=float(np.median(ms)),
+               level_ms_max=float(ms.max()))
+    log(f"  3d(b) root {root}: {n_levels} levels, each {terms['bytes_sent']:,} B and "
+        f"{terms['sends']} sends a rank == the BFS cell's dense level at every level")
+    log(f"  3d(b) a dense top-down level's least kernel bytes {terms['least_bytes_total']:.4g} "
+        f"B (gather {terms['least_bytes']['gather']:.4g}, scatter "
+        f"{terms['least_bytes']['scatter']:.4g}, merge {terms['least_bytes']['merge']:.4g}; "
+        f"upper bounds where a bound reads values) = {model_ms:.3f} ms at the HBM rate; "
+        f"measured a level (device synced each level): median {out['level_ms_median']:.3f} "
+        f"ms, max {out['level_ms_max']:.3f} ms, all {', '.join(f'{x:.2f}' for x in ms)}")
+    return out
+
+
+def start_dryrun_cli(out_dir):
+    """Phase 3d(c), started before the LM phases so that it overlaps them:
+    ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b's ``train_4k`` on
+    the single-pod mesh, in a process of its own that sees no card (fake
+    tensors, one thread)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+           "train_4k", "--mesh", "single", "--out", out_dir]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun_cli(proc, out_dir, timeout_s=600):
+    """Phase 3d(c): the CLI's exit code 0, its row ``ok`` from fake tensors,
+    and ``summary``'s tables of it."""
+    from repro_torch.launch import summary
+
+    t0 = time.perf_counter()
+    try:
+        text, _ = proc.communicate(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    waited = time.perf_counter() - t0
+    rows = summary.load(out_dir, "single")
+    if proc.returncode != 0 or len(rows) != 1 or rows[0]["status"] != "ok" \
+            or rows[0]["source"] != "fake":
+        raise AssertionError(f"3d(c): the dry-run CLI exited {proc.returncode}: {text[-2000:]}")
+    row = rows[0]
+    for line in text.strip().splitlines():
+        log(f"  3d(c) dryrun: {line}")
+    for line in (summary.dryrun_table(rows) + "\n" + summary.roofline_table(rows)).splitlines():
+        log(f"  3d(c) summary: {line}")
+    log(f"  3d(c) waited {waited:.1f} s for the CLI after the phases it overlapped")
+    return dict(row={k: v for k, v in row.items() if k != "flops_by_op"}, waited_s=waited)
 
 
 def rel_err(got, want) -> float:
@@ -4206,14 +4386,7 @@ def main(argv=None) -> int:
 def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
     """Phases 2 to 27 (or 3, 3b and 3c alone); the restart's checkpoints
     under ``ck_tmp``."""
-    import numpy as np
     import torch
-
-    from repro_torch import programs
-    from repro_torch.analytics import msbfs
-    from repro_torch.core import bfs
-    from repro_torch.graph import generators
-    from repro_torch.kernels import build
 
     ck = os.path.join(ck_tmp, "ck")
     if args.multi_card:
@@ -4239,6 +4412,29 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+
+    dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    dry_cli = start_dryrun_cli(dry_dir)
+    try:
+        return run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli,
+                                dry_dir)
+    finally:
+        if dry_cli.poll() is None:
+            dry_cli.kill()
+            dry_cli.communicate()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli, dry_dir) -> int:
+    """Phases 2 to 27, the dry-run CLI of phase 3d(c) running beside them."""
+    import numpy as np
+    import torch
+
+    from repro_torch import programs
+    from repro_torch.analytics import msbfs
+    from repro_torch.core import bfs
+    from repro_torch.graph import generators
+    from repro_torch.kernels import build
 
     phase("[2/27] build")
     t0 = time.perf_counter()
@@ -4352,6 +4548,12 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
     for label, summary in (("kronecker", kron_sum), ("torus", torus_sum)):
         log(f"  {label} launches per BFS by site: " + ", ".join(
             f"{k.split(':')[1]} {v:.2f}" for k, v in summary["site_launches_per_bfs"].items()))
+
+    phase("[3d/27, continued] the roofline terms: the BFS cell at phase 7's partition, "
+          "the dry-run CLI")
+    roof = {"train_step": lm_out["train"]["published"]["roofline"],
+            "bfs_cell": roofline_bfs(kron, kcfg, kron_sum["first_root"], dev),
+            "cli": finish_dryrun_cli(dry_cli, dry_dir)}
 
     phase(f"[10/27] the other syncs, every one through the kernels ({SYNC_ROOTS} roots "
         f"each, {4 * SYNC_ROOTS} for adaptive Kronecker)")
@@ -4536,7 +4738,7 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            kernels=records, sites=rows, merge_sites=merge_rows,
                            slice5=slice5, slice6=slice6, slice7=slice7, slice8=slice8,
-                           lm=lm_out,
+                           roofline=roof, lm=lm_out,
                            edge_cases=n_edge, timing_floor_ms=floor_ms,
                            kronecker=kron_sum, torus=torus_sum, paths=paths,
                            same_root=same_root,

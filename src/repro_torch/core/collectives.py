@@ -60,6 +60,7 @@ over ``torch.distributed``; the per-rank index arithmetic is built from
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -90,6 +91,18 @@ def _as_axes(axes: Axes) -> Optional[Tuple[str, ...]]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+#: The collective kinds of the reference's HLO count
+#: (``repro.launch.hlo_stats``), under its names.
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+def empty_stats() -> Dict[str, Dict[str, float]]:
+    """``{kind: {"count", "operand_bytes", "wire_bytes"}}`` at zero."""
+    return {k: {"count": 0, "operand_bytes": 0.0, "wire_bytes": 0.0}
+            for k in COLLECTIVE_KINDS}
+
+
 def route(perm: Sequence[Optional[int]], p: int) -> Tuple[int, ...]:
     """``perm`` as a tuple with ``-1`` for a rank that sends nothing (``None``
     or ``-1``; the reference's ``ppermute`` pairs need not cover every
@@ -109,7 +122,15 @@ class Communicator:
     whose rows a sync's buffers hold (all of them here).  ``bytes_sent[i]``
     counts the bytes rank ``ranks[i]`` has put on the wire and ``sends[i]``
     its messages; each sync's count must equal its byte model in
-    :mod:`.butterfly`."""
+    :mod:`.butterfly`.
+
+    ``collectives`` records the calls by the reference's collective kinds
+    (:data:`COLLECTIVE_KINDS`), as its HLO count has them: a call's
+    ``count``, ``operand_bytes`` (one rank's buffer) and ``wire_bytes``
+    (what one rank sends for it).  Every :meth:`ppermute` is one
+    ``collective-permute``; a collective built of shifts
+    (:func:`xla_allreduce`) records itself as one call of its own kind
+    (:meth:`as_one`) and its shifts go unrecorded there."""
 
     def __init__(self, p, device):
         self.mesh = p if isinstance(p, SimMesh) else SimMesh(int(p))
@@ -118,9 +139,31 @@ class Communicator:
         self.device = torch.device(device)
         self.bytes_sent = np.zeros(len(self.ranks), dtype=np.int64)
         self.sends = np.zeros(len(self.ranks), dtype=np.int64)
+        self.collectives = empty_stats()
+        self._as_one = False
         self._perms: Dict[Tuple[int, ...], Tuple] = {}
         self._schedules: Dict[int, butterfly.Schedule] = {}
         self._rounds: Dict[Tuple, Tuple[butterfly.Round, ...]] = {}
+
+    def record(self, kind: str, operand_bytes: float, wire_bytes: float) -> None:
+        """One call of ``kind`` in :attr:`collectives` (none inside
+        :meth:`as_one`)."""
+        if not self._as_one:
+            rec = self.collectives[kind]
+            rec["count"] += 1
+            rec["operand_bytes"] += float(operand_bytes)
+            rec["wire_bytes"] += float(wire_bytes)
+
+    @contextlib.contextmanager
+    def as_one(self, kind: str, operand_bytes: float, wire_bytes: float):
+        """The block is one call of ``kind``: it is recorded once, and the
+        permutes inside it are not."""
+        self.record(kind, operand_bytes, wire_bytes)
+        outer, self._as_one = self._as_one, True
+        try:
+            yield
+        finally:
+            self._as_one = outer
 
     def schedule(self, fanout: int) -> butterfly.Schedule:
         if fanout not in self._schedules:
@@ -237,6 +280,7 @@ class Communicator:
             raise ValueError(f"buffer has {x.shape[0]} ranks, expected {self.p}")
         dst, src, send = self._perm(perm)
         nbytes = x[0].numel() * x.element_size()
+        self.record("collective-permute", nbytes, nbytes)
         if src is None:
             recv = torch.empty_like(x) if out is None else out
             recv.index_copy_(0, dst, x)
@@ -350,7 +394,8 @@ def _by_group(x: torch.Tensor, comm: Communicator, sparse_rows: np.ndarray,
     """``sparse(x)`` on the ranks of ``sparse_rows``, ``dense(x)`` on the
     others (whole groups either way: a group's rounds stay inside it).
     When the groups disagree both branches run on every rank, and each
-    rank's bytes and sends count only the branch its group took."""
+    rank's bytes and sends count only the branch its group took
+    (``comm.collectives`` records the calls of both: both ran)."""
     if sparse_rows.all():
         return sparse(x)
     if not sparse_rows.any():
@@ -587,14 +632,19 @@ def xla_allreduce(x: torch.Tensor, comm: Communicator, *, op: str = "add",
     reduce over the gathered axis.  ``op`` is ``add``, ``min`` or ``max``
     (int32 words in their uint32 order, as the reference's ``pmin``/``pmax``
     order its uint32 words) or ``or`` (``bitmap_or_reduce`` with ``K =
-    G``)."""
+    G``).  ``comm.collectives`` records it as one ``all-reduce`` of one
+    rank's buffer, as the reference's HLO has it; its wire bytes are the
+    ``G - 1`` buffers a rank really sends (the reference estimates a
+    ring's ``2 N (G - 1) / G``)."""
     if op not in ("add", "min", "max", "or"):
         raise ValueError(op)
     shifts = comm.shifts(axes)
     stack = x.new_empty((x.shape[0], len(shifts) + 1) + tuple(x.shape[1:]))
     stack[:, 0] = x
-    for s, perm in enumerate(shifts, start=1):
-        comm.ppermute(x, perm, out=stack[:, s])
+    nbytes = x[0].numel() * x.element_size()
+    with comm.as_one("all-reduce", nbytes, len(shifts) * nbytes):
+        for s, perm in enumerate(shifts, start=1):
+            comm.ppermute(x, perm, out=stack[:, s])
     if op == "add":
         return stack.sum(1, dtype=x.dtype)
     return _merge_stack(stack, op, use_kernels)

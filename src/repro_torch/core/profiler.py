@@ -18,13 +18,14 @@ acceptance bar) and a per-level time × bytes table.  The JSON keeps the
 reference's fields: ``hlo_bytes`` holds the bytes a rank shipped, as the
 Communicator counted them.
 
-The roofline has no XLA cost analysis to read.  Its memory term is the
-least bytes the run's kernel launches must move (:mod:`..kernels.bounds`,
-the count the kernels' bounds use), tallied in the kernel wrappers on both
-routes; a program run without the kernels tallies nothing there.  BFS does
-no floating-point work, so the compute term is 0.  The network term is the
-bytes a rank shipped over an NVLink 4 link's rate.  The H100 constants are
-below, each with its source; none is a TPU's.
+The roofline (:func:`repro_torch.launch.hlo_stats.roofline`, whose H100
+constants it uses) has no XLA cost analysis to read.  Its memory term is
+the least bytes the run's kernel launches must move
+(:mod:`..kernels.bounds`, the count the kernels' bounds use), tallied in
+the kernel wrappers on both routes; a program run without the kernels
+tallies nothing there.  BFS does no floating-point work, so the compute
+term is 0.  The network term is the bytes a rank shipped over an NVLink 4
+link's rate.
 
 ``cache_report`` reconciles every program of the engine's module-wide
 cache that belongs to the engine's graph and device: each is run once
@@ -40,6 +41,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.launch import hlo_stats
+from repro_torch.launch.hlo_stats import HBM_BW as HBM_BYTES_PER_S
+from repro_torch.launch.hlo_stats import LINK_BW as NVLINK_BYTES_PER_S
+
 __all__ = [
     "LevelRow",
     "ProgramProfile",
@@ -51,12 +56,6 @@ __all__ = [
     "NVLINK_BYTES_PER_S",
 ]
 
-#: H100 SXM5 HBM3 memory rate, 3.35 TB/s (NVIDIA H100 Tensor Core GPU
-#: data sheet, SXM column).
-HBM_BYTES_PER_S = 3.35e12
-#: NVLink 4 rate a direction for one H100 SXM5: 900 GB/s total
-#: bidirectional (same data sheet), so 450 GB/s each way.
-NVLINK_BYTES_PER_S = 450e9
 
 
 @dataclasses.dataclass
@@ -167,15 +166,7 @@ def roofline(least_bytes: float, wire_bytes: float) -> Dict:
     launches must move, ``wire_bytes`` a rank ships.  The reference's
     fields, the terms in seconds, ``dominant`` the largest term and
     ``step_time`` their maximum."""
-    terms = {"compute": 0.0, "memory": least_bytes / HBM_BYTES_PER_S,
-             "collective": wire_bytes / NVLINK_BYTES_PER_S}
-    return {"flops_per_device": 0.0, "bytes_per_device": float(least_bytes),
-            "collective_operand_bytes": float(wire_bytes),
-            "collective_wire_bytes": float(wire_bytes),
-            "t_compute": terms["compute"], "t_memory": terms["memory"],
-            "t_collective": terms["collective"],
-            "dominant": max(terms, key=terms.get),
-            "step_time": max(terms.values())}
+    return hlo_stats.roofline(0.0, least_bytes, wire_bytes).to_dict()
 
 
 def profile_bfs(pg, cfg, root: int, *, iters: int = 3, arrays=None, layout=None,

@@ -82,6 +82,8 @@ class DistCommunicator(Communicator):
         if x.shape[0] != 1:
             raise ValueError(f"buffer has {x.shape[0]} rows, expected this rank's 1")
         key = route(perm, self.p)
+        nbytes = x[0].numel() * x.element_size()
+        self.record("collective-permute", nbytes, nbytes)
         dst = key[self.rank]
         src = key.index(self.rank) if self.rank in key else -1
         if out is None:
@@ -121,7 +123,7 @@ class DistCommunicator(Communicator):
                     torch.cuda.synchronize(self.device)
                 self.stage_s += time.perf_counter() - t0
         if dst >= 0:
-            self.bytes_sent[0] += x[0].numel() * x.element_size()
+            self.bytes_sent[0] += nbytes
             self.sends[0] += 1
         return recv
 

@@ -19,8 +19,8 @@ Model (global bytes per step, divided by chips):
 All terms are exact sizes from the config, except the activation
 stream's factor for the intermediate ops inside a block.  The model holds
 no hardware constant: a byte count over the H100's HBM rate
-(:data:`repro_torch.core.profiler.HBM_BYTES_PER_S`) gives the memory
-term's time.
+(:data:`repro_torch.launch.hlo_stats.HBM_BW`) gives the memory term's
+time.
 """
 
 from __future__ import annotations

@@ -1,0 +1,222 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), ``summary``,
+``reroof`` and ``fill_experiments`` on a small ``SimMesh((2, 2), ("data",
+"model"))`` with the reduced configs and 64-token shapes in place of the
+published ones: the rows carry the reference's field names, ``long_500k``
+skips exactly where the reference's ``shape_supported`` skips, a row's
+flops equal the step's count, its gradient-sync
+record equals a real simulated-rank train step's Communicator, ``reroof``
+restores overwritten fields from the saved tables, ``fill_experiments``
+run twice gives the same file, and a failing cell fails the CLI."""
+
+import ast
+import json
+import os
+
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.core import collectives
+from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+from repro_torch.launch import dryrun, fill_experiments, hlo_stats, reroof, summary
+from repro_torch.models import api
+from repro_torch.train import optim, step as step_mod
+from test_torch_hlo_common import BATCH, SEQ, port_flops
+
+MESH = SimMesh((2, 2), ("data", "model"))
+ARCHS = ("qwen3-1.7b", "mamba2-130m")
+# the port's own fields: where a value was measured, the flops split, the
+# collectives' model, flops by op
+PORT_FIELDS = {"source", "device", "flops_split", "flops_by_op", "memory_source",
+               "collectives_model"}
+
+
+def _ref_lm_fields():
+    """The field names of an analysed ``ok`` LM row of the reference's dry
+    run, read from its source: ``_cell_record``'s and the analysis path's
+    ``rec.update``'s keywords."""
+    path = os.path.join(os.path.dirname(ref_configs.__file__), "..", "launch", "dryrun.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_lm_cell")
+    names = set()
+    for call in ast.walk(fn):
+        if not isinstance(call, ast.Call):
+            continue
+        f = call.func
+        what = f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+        keys = {k.arg for k in call.keywords if k.arg}
+        if what == "_cell_record" or (what == "update" and "flops_per_device" in keys):
+            names |= keys
+    return names
+
+
+@pytest.fixture
+def small(monkeypatch):
+    """Reduced configs and 64-token shapes under the published names."""
+    orig = configs.get_config
+    monkeypatch.setattr(configs, "get_config", lambda a: configs.reduced(orig(a)))
+    for name, s in list(SHAPES.items()):
+        monkeypatch.setitem(SHAPES, name, ShapeConfig(name, SEQ, 1 if s.global_batch == 1
+                                                      else BATCH, s.kind))
+    yield
+
+
+def _cells(out, **kw):
+    return {(a, s): dryrun.run_lm_cell(a, s, False, str(out), mesh=MESH, verbose=False, **kw)
+            for a in ARCHS for s in SHAPES}
+
+
+def test_rows_fields_and_skips(small, tmp_path):
+    rows = _cells(tmp_path)
+    ref_fields = _ref_lm_fields()
+    assert {"flops_per_device", "collectives", "roofline_fraction", "memory"} <= ref_fields
+    for (arch, shape), rec in rows.items():
+        ok, _ = configs.base.shape_supported(configs.get_config(arch), SHAPES[shape])
+        if not ok:
+            assert rec["status"] == "skip" and rec["skip_reason"].startswith("long_500k")
+            continue
+        assert rec["status"] == "ok", rec.get("trace")
+        assert set(rec) == ref_fields | PORT_FIELDS, set(rec) ^ (ref_fields | PORT_FIELDS)
+        assert rec["source"] == "fake" and rec["chips"] == 4
+        assert rec["memory"]["peak_bytes_per_device"] > rec["memory"]["argument_size_in_bytes"]
+        assert os.path.exists(tmp_path / "single" / "tables" / f"{arch}__{shape}.json")
+    assert rows[("qwen3-1.7b", "long_500k")]["status"] == "skip"
+    assert rows[("mamba2-130m", "long_500k")]["status"] == "ok"
+    # the prefill and decode rows' flops are the step's count (equal to the
+    # reference's: test_torch_hlo_flops_serve.py) over the chips
+    for arch in ARCHS:
+        for shape, kind in (("prefill_32k", "prefill"), ("decode_32k", "decode")):
+            assert rows[(arch, shape)]["flops_per_device"] * 4 == port_flops(arch, kind)[0]
+            assert rows[(arch, shape)]["t_collective"] == 0.0
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_long_context_skips_as_reference(arch):
+    """At the published configs: skip exactly where the reference does, with
+    its reason."""
+    got = configs.base.shape_supported(configs.get_config(arch), SHAPES["long_500k"])
+    want = ref_configs.base.shape_supported(ref_configs.get_config(arch),
+                                           ref_configs.base.SHAPES["long_500k"])
+    assert got == want
+
+
+def test_skip_row_written(tmp_path):
+    """A skipped cell measures nothing and is written as the reference's."""
+    rec = dryrun.run_lm_cell("qwen3-1.7b", "long_500k", True, str(tmp_path), verbose=False)
+    assert rec["status"] == "skip" and rec["mesh"] == "multi"
+    with open(tmp_path / "multi" / "qwen3-1.7b__long_500k.json") as f:
+        assert json.load(f) == rec
+
+
+@pytest.mark.parametrize("method", ["butterfly", "xla"])
+def test_grad_sync_record_equals_a_real_step(small, method):
+    """On a data-only mesh (no model axis), the dry run's gradient-sync
+    record equals the Communicator's after one real simulated-rank train
+    step of the same config; its wire bytes equal the byte model's sum."""
+    cfg = configs.get_config("qwen3-1.7b")
+    mesh = SimMesh((2,), ("data",))
+    rules = rules_for_mesh(mesh)
+    got = dryrun.grad_sync_stats(cfg, mesh, rules, method, 2)
+    comm = collectives.Communicator(mesh, "cpu")
+    model = api.init_params(cfg, 0, device="cpu")
+    fn = step_mod.build_train_step_butterfly(
+        cfg, mesh, rules, method="xla_psum" if method == "xla" else method, comm=comm)
+    batch = {k: torch.zeros((BATCH, SEQ), dtype=torch.int32) for k in ("tokens", "labels")}
+    fn(model, optim.get(cfg.optimizer).init(model), batch, 0)
+    assert got == hlo_stats.collective_stats(comm)
+    assert sum(v["wire_bytes"] for v in got.values()) == comm.bytes_sent[0]
+
+
+def test_reroof_summary_fill(small, tmp_path, capsys):
+    out = str(tmp_path / "dr")
+    rec = dryrun.run_lm_cell("qwen3-1.7b", "train_4k", False, out, mesh=MESH,
+                             grad_sync="butterfly", verbose=False)
+    dryrun.run_lm_cell("qwen3-1.7b", "long_500k", False, out, mesh=MESH, verbose=False)
+    dryrun.run_bfs_cell(False, out, scale=10, edge_factor=8, fanout=2, mesh=MESH,
+                        verbose=False)
+    assert rec["collectives"]["collective-permute"]["count"] > 0
+    jp = os.path.join(out, "single", "qwen3-1.7b__train_4k.json")
+    with open(jp) as f:
+        want = json.load(f)
+    clobbered = dict(want, t_compute=-1.0, dominant="?", flops_per_device=0.0,
+                     collectives={}, roofline_fraction=-1.0, memory={})
+    with open(jp, "w") as f:
+        json.dump(clobbered, f)
+    assert reroof.main(["--dir", out]) == 0
+    with open(jp) as f:
+        assert json.load(f) == want
+    # summary: the tables, with the H100's memory
+    assert summary.main(["--dir", out]) == 0
+    text = capsys.readouterr().out
+    assert "fits H100" in text and "| qwen3-1.7b" in text and "permutes/level" in text
+    # fill_experiments: the markers replaced, idempotent
+    md = tmp_path / "notes.md"
+    md.write_text("# notes\n\n<!-- DRYRUN_TABLES -->\n\ntext\n\n<!-- ROOFLINE_TABLES -->\n")
+    assert fill_experiments.main(["--dir", out, "--file", str(md)]) == 0
+    once = md.read_text()
+    assert "BEGIN DRYRUN" in once and "BEGIN ROOFLINE" in once and "fits H100" in once
+    assert fill_experiments.main(["--dir", out, "--file", str(md)]) == 0
+    assert md.read_text() == once
+
+
+def test_cli_exit_codes(small, tmp_path, monkeypatch):
+    out = str(tmp_path / "cli")
+    assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k,long_500k",
+                        "--mesh", "single", "--out", out, "--override",
+                        "ring_local_cache=True"]) == 0
+    with open(os.path.join(out, "single", "qwen3-1.7b__decode_32k.json")) as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["overrides"] == {"ring_local_cache": True}
+    assert dryrun._parse_overrides("a=True,b=8,c='x'") == {"a": True, "b": 8, "c": "x"}
+    # --no-analysis: memory only
+    assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "prefill_32k", "--mesh",
+                        "multi", "--out", out, "--no-analysis"]) == 0
+    with open(os.path.join(out, "multi", "qwen3-1.7b__prefill_32k.json")) as f:
+        rec = json.load(f)
+    assert rec["analysis"] is False and rec["chips"] == 512 and "flops_per_device" not in rec
+
+    def broken(*a, **k):
+        raise RuntimeError("broken step")
+
+    monkeypatch.setattr(dryrun, "fake_step", broken)
+    assert dryrun.main(["--arch", "mamba2-130m", "--shape", "train_4k", "--mesh", "single",
+                        "--out", out]) == 1
+    with open(os.path.join(out, "single", "mamba2-130m__train_4k.json")) as f:
+        rec = json.load(f)
+    assert rec["status"] == "fail" and "broken step" in rec["error"] and rec["trace"]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "jamba-v0.1-52b", "whisper-medium"])
+def test_input_specs_match_reference(mesh_dm, arch, shape):
+    """``input_specs`` at a published config on (data 2, model 4): every
+    input's and cache entry's shard shape and dtype equal the reference's
+    sharded ``ShapeDtypeStruct`` on ``mesh_dm``."""
+    import jax
+
+    from repro.dist import sharding as ref_shd
+    from repro.models import api as ref_api
+    from repro_torch.dist import sharding as shd
+
+    rcfg, rshape = ref_configs.get_config(arch), ref_configs.base.SHAPES[shape]
+    rules = ref_shd.rules_for_mesh(mesh_dm, rcfg.fsdp)
+    want = {"inputs": ref_shd.tree_structs(ref_api.input_defs(rcfg, rshape),
+                                           rcfg.compute_dtype, rules, mesh_dm)}
+    if rshape.kind == "decode":
+        want["cache"] = ref_shd.tree_structs(ref_api.cache_defs(rcfg, rshape),
+                                             rcfg.compute_dtype, rules, mesh_dm)
+    mesh = SimMesh((2, 4), ("data", "model"))
+    got = dryrun.input_specs(arch, shape, mesh,
+                             rules_for_mesh(mesh, configs.get_config(arch).fsdp))
+    flat = {path: s for path, s in shd.tree_leaves_with_path(got)}
+    ref_flat = {tuple(k.key for k in path): s for path, s in
+                jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert set(flat) == set(ref_flat)
+    for path, s in flat.items():
+        r = ref_flat[path]
+        assert s.shape == tuple(r.shape) and s.dtype.itemsize == r.dtype.itemsize
+        assert s.shard_shape == tuple(r.sharding.shard_shape(r.shape)), path

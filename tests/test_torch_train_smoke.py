@@ -53,6 +53,9 @@ def test_train_phase_rehearsed_on_the_cpu(cpu_train):
     pub = out["published"]
     assert len(pub["losses"]) == 3 and pub["losses"][-1] < pub["losses"][0]
     assert pub["model_flops"] == 6 * pub["remat_flops"] / 2 > 0
+    # phase 3d(a): the real step's flops == the fake step's, exactly
+    roof = pub["roofline"]
+    assert roof["flops"] == roof["fake_flops"] > 0 and roof["step_time_est_ms"] > 0
     assert pub["profile"]["launches"] == 0  # no graph kernel on this path
     sync = out["sync"]
     for method, fanout in chip_smoke.SYNC_CASES:
