@@ -78,6 +78,27 @@ account:
    for qwen3-1.7b's ``train_4k`` in a process of its own, started before
    the LM phases and read here: its row ``ok`` from fake tensors, and
    ``summary``'s tables of it;
+3e. the LM side's tensor parallelism, after phase 3c (its state freed
+   after): qwen3-1.7b sharded over (data 2, model 4) on simulated ranks
+   (heads, kv heads, ff and vocab on the model axis): (a) bfloat16
+   serving, ``generate(rules=, mesh=)`` of 8 prompts of 512 tokens and 32
+   greedy tokens, prefill and decode ms, every model-axis call and each
+   rank's bytes equal to the byte model (``lm.tp_calls``), the share of
+   tokens equal to the unsharded run's, peak memory; in float32 with TF32
+   off, prefill + teacher-forced decode against the unsharded forward at
+   the reference's tolerance; (b) one float32 step (TF32 off) of the
+   2-layer cut of phase 3b(c), 16 x 1024 tokens in the config's 4
+   microbatches: loss and every leaf's gradient within 1e-5 of its largest
+   against the unsharded step, the step's calls (remat's recompute, clip
+   and AdamW) equal to the byte model; (c) 8 bfloat16 steps at full width
+   through ``train.loop.train(mesh=)``: step ms, tokens a second, 6ND
+   share, peak (over 75 GB: again on data 1 x model 4); (d) the butterfly
+   step with the model axis inside in 4 gloo processes on the card on
+   (data 2, model 2), the 2-layer cut, against the simulated ranks
+   (records equal, every leaf within 1e-5); none of the four graph
+   kernels launched; in the default run, 3c(d) and then 3e(d) run beside
+   phase 4's host work (their processes hold the card; the Kronecker
+   graph goes on it after they end) and log when joined;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -200,14 +221,17 @@ BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.  ``--lm-only`` runs phases 1, 3, 3b and 3c alone, with 4 decode steps
+JSON.  ``--lm-only`` runs phases 1, 3, 3b, 3c and 3e alone, with 4 decode steps
 and one train step under ``torch.profiler`` after the timed runs (the full
 run profiles no LM step: a profiler session would precede the graph phases'
-timings); ``--train-only`` runs phases 1, 3b and 3c alone, the train step
-profiled.  ``--multi-card``, on a machine with several cards, runs phase
-3c(d) over nccl with one rank on each card, then ``launch.train`` under
-``torchrun`` with nccl, alone (NCCL refuses two ranks on one card, so the
-one-card run syncs over gloo).
+timings); ``--train-only`` runs phases 1, 3b, 3c and 3e alone, the train
+step profiled.  ``--multi-card``, on a
+machine with several cards, runs phase 3c(d) over nccl with one rank on
+each card, then ``launch.train`` under ``torchrun`` with nccl, then phase
+3e's serving (the float32 prefill logits and ``generate``'s greedy
+tokens) and a float32 GSPMD step of the 2-layer cut over nccl, one model
+rank on each card (data 1), against the simulated ranks on card 0, alone
+(NCCL refuses two ranks on one card, so the one-card run uses gloo).
 """
 
 from __future__ import annotations
@@ -222,6 +246,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -293,8 +318,47 @@ DEVICE_NAMES = {"frontier_gather_full": ("::gather_full",),
 SITE_ARG = {"frontier_gather_full": 1, "frontier_gather": 2, "frontier_scatter": 2}
 
 
+_HELD = threading.local()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg``; in a :class:`Beside` thread, hold it for its join."""
+    held = getattr(_HELD, "lines", None)
+    if held is not None:
+        held.append(msg)
+    else:
+        print(msg, flush=True)
+
+
+class Beside:
+    """``fn(*args)`` in a thread beside the phases that follow, its log
+    lines held until :meth:`join` prints them (so that they stay in one
+    block).  ``join`` waits, prints, and returns ``fn``'s result or raises
+    its exception; a second ``join`` returns the same at once."""
+
+    def __init__(self, fn, *args):
+        self.lines, self.result, self.error, self.printed = [], None, None, False
+        self.t0 = time.perf_counter()
+
+        def run():
+            _HELD.lines = self.lines
+            try:
+                self.result = fn(*args)
+            except BaseException as e:  # raised again by join
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if not self.printed:
+            self.printed = True
+            for line in self.lines:
+                print(line, flush=True)
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 
 def time_ms(fn, reps: int) -> float:
@@ -723,8 +787,10 @@ def validate(parts, root, d_owned) -> None:
                              f"have no neighbour one level up")
 
 
-def etl(label, make_graph, ranks, dev, mode):
-    """Generate, partition, lay out and place one graph; returns its parts."""
+def etl(label, make_graph, ranks, dev, mode, before_place=None):
+    """Generate, partition, lay out and place one graph; returns its parts.
+    ``before_place()`` is called before anything goes on the card (its
+    time is no stage's)."""
     import numpy as np
     import torch
 
@@ -741,10 +807,15 @@ def etl(label, make_graph, ranks, dev, mode):
     t.append(time.perf_counter())
     labels = csr.connected_components(g)
     t.append(time.perf_counter())
+    wait_s = 0.0
+    if before_place is not None:
+        before_place()
+        wait_s = time.perf_counter() - t[-1]
     arrays = bfs.place_arrays(pg, layout, device=dev)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     s = [b - a for a, b in zip(t, t[1:])]
+    s[-1] -= wait_s
     dev_bytes = nbytes(*arrays.values())
     # what validate() reads: the edges, the components, and the slot of each
     # vertex in the flat [P, vmax] distances
@@ -757,8 +828,9 @@ def etl(label, make_graph, ranks, dev, mode):
         f"{', weighted' if g.weighted else ''}, P={ranks}, "
         f"emax={pg.emax:,}, n_words={pg.n_words:,}; generate {s[0]:.1f} s, "
         f"partition {s[1]:.1f} s, layout {s[2]:.1f} s, components {s[3]:.1f} s, "
-        f"place {s[4]:.1f} s; {dev_bytes / 1e9:.2f} GB on the card; "
-        f"meta {layout.meta}")
+        f"place {s[4]:.1f} s"
+        f"{f' (after {wait_s:.1f} s waiting for the processes beside it)' if before_place else ''}"
+        f"; {dev_bytes / 1e9:.2f} GB on the card; meta {layout.meta}")
     return dict(g=g, pg=pg, layout=layout, labels=labels, arrays=arrays, check=check,
                 weights=weights, etl_s=s, device_bytes=dev_bytes, mode=mode)
 
@@ -2368,7 +2440,7 @@ PR_SLACK = 2 * 1e-5 * 0.85 / 0.15
 # the serving CLI: Kronecker scale, seconds and rate of open-loop load,
 # chaos, mutation batches a second and their undirected inserts
 CLI_SCALE = 20
-CLI_SECONDS = 10.0
+CLI_SECONDS = 5.0
 CLI_QPS = 10.0
 CLI_CHAOS = "kill-one@op=20"
 CLI_CHAOS_SEED = 7
@@ -2776,15 +2848,16 @@ def kv_bytes_per_token(cfg) -> int:
             * DTYPES[cfg.param_dtype].itemsize)
 
 
-def timed_generate(cfg, model, prompts, n_new):
+def timed_generate(cfg, model, prompts, n_new, rules=None, mesh=None):
     """``engine.generate``'s greedy loop step by step, each bracketed by CUDA
-    events: (tokens, prefill ms, decode ms of every step)."""
+    events: (tokens, prefill ms, decode ms of every step); ``rules`` and
+    ``mesh`` as ``generate`` takes them (a sharded model)."""
     import torch
 
     from repro_torch.models import api
     from repro_torch.serve import engine
 
-    prefill, decode = api.prefill_fn(cfg), api.decode_fn(cfg)
+    prefill, decode = api.prefill_fn(cfg, rules, mesh), api.decode_fn(cfg, rules, mesh)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 1)]
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -4013,6 +4086,33 @@ def bits_checksum(t) -> int:
     return total % (1 << 64)
 
 
+# The processes of phases 3c(d) and 3e(d) share one card and reach their
+# peaks together (each step's collectives keep them in step); in fixed
+# segments each holds more than it allocates, and 3c(d)'s four filled the
+# card at its butterfly step.  Expandable segments keep what each process
+# holds close to what it allocates (``CardWatch`` reads the card's use).
+CHILD_ALLOC_CONF = "expandable_segments:True"
+
+
+def run_children(fn, world, args, backend):
+    """``process.run_group`` of ``fn`` with the deadline ``DIST_TIMEOUT_S``;
+    under gloo (every process on one card) the children's allocator set to
+    ``CHILD_ALLOC_CONF`` unless ``PYTORCH_CUDA_ALLOC_CONF`` is set already (a
+    spawned child reads it at start; this process's allocator is set up
+    already and keeps its own).  Under nccl each process has a card."""
+    from repro_torch.dist import process
+
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    mine = backend == "gloo" and key not in os.environ
+    if mine:
+        os.environ[key] = CHILD_ALLOC_CONF
+    try:
+        return process.run_group(fn, world, args, timeout_s=DIST_TIMEOUT_S, backend=backend)
+    finally:
+        if mine:
+            del os.environ[key]
+
+
 def dist_sync_leaf(g, comm, method, fanout):
     from repro_torch.core import collectives
 
@@ -4140,7 +4240,7 @@ def dist_child(rank, world, out_dir, job):
         del synced
         if cuda:
             torch.cuda.empty_cache()
-    del stacks
+    del stacks, mine, leaves, shards  # the step's peak is the four processes' at once
     if cuda:
         torch.cuda.empty_cache()
     # one butterfly train step a process, against rank 0's simulated-rank step
@@ -4187,6 +4287,7 @@ def dist_child(rank, world, out_dir, job):
                                  f"{res['step']}")
     res["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
     res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    res["peak_reserved"] = torch.cuda.max_memory_reserved(dev) if cuda else 0
     res["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f, default=float)
@@ -4199,7 +4300,6 @@ def dist_sync(dev, seed, child=None, backend="gloo", world=DIST_WORLD):
     killed); then each method's seconds (the slowest rank's) with the host
     staging's share."""
     from repro_torch import configs
-    from repro_torch.dist import process
 
     job = dict(cfg=dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, step=TRAIN_STEPS + 1, lr_kw=TRAIN_LR,
@@ -4207,8 +4307,7 @@ def dist_sync(dev, seed, child=None, backend="gloo", world=DIST_WORLD):
     out_dir = tempfile.mkdtemp(prefix="repro_torch_dist_")
     try:
         t0 = time.perf_counter()
-        codes = process.run_group(child or dist_child, world, (out_dir, job),
-                                  timeout_s=DIST_TIMEOUT_S, backend=backend)
+        codes = run_children(child or dist_child, world, (out_dir, job), backend)
         wall_s = time.perf_counter() - t0
         if any(codes):
             raise AssertionError(f"dist: the processes exited with {codes}")
@@ -4223,10 +4322,12 @@ def dist_sync(dev, seed, child=None, backend="gloo", world=DIST_WORLD):
         raise AssertionError(f"dist: the processes launched graph kernels: {launched}")
     res = {"world": world, "backend": backend, "wall_s": wall_s,
            "setup_s": max(rk["setup_s"] for rk in ranks),
-           "peak_bytes": [rk["peak_bytes"] for rk in ranks], "methods": {}}
+           "peak_bytes": [rk["peak_bytes"] for rk in ranks],
+           "peak_reserved": [rk["peak_reserved"] for rk in ranks], "methods": {}}
     log(f"  {world} {backend} processes ({res['wall_s']:.1f} s in all; each "
         f"built the {RESTART_LAYERS}-layer cut and took its gradient in up to "
-        f"{res['setup_s']:.1f} s; peaks {[round(p / 1e9, 2) for p in res['peak_bytes']]} GB)")
+        f"{res['setup_s']:.1f} s; peaks {[round(p / 1e9, 2) for p in res['peak_bytes']]} GB, "
+        f"reserved {[round(p / 1e9, 2) for p in res['peak_reserved']]} GB)")
     for label, rec in ranks[0]["methods"].items():
         s = max(rk["methods"][label]["s"] for rk in ranks)
         stage = max(rk["methods"][label]["stage_s"] for rk in ranks)
@@ -4245,10 +4346,11 @@ def dist_sync(dev, seed, child=None, backend="gloo", world=DIST_WORLD):
     return res
 
 
-def run_multi(dev, seed, ck):
+def run_multi(dev, seed, ck, gloo=True):
     """Phase 3c: the LM side's multi-device half (module docstring, item
     3c). The graph kernels are not on this path: their counts stay 0, in
-    this process and in the gloo processes."""
+    this process and in the gloo processes. ``gloo=False`` leaves (d) to
+    the caller (:func:`gloo_phases`)."""
     import torch
 
     from repro_torch.kernels import build
@@ -4263,7 +4365,8 @@ def run_multi(dev, seed, ck):
     out["gpipe"] = gpipe(dev, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    out["dist"] = dist_sync(dev, seed)
+    if gloo:
+        out["dist"] = dist_sync(dev, seed)
     launched = {k: v for k, v in build.LAUNCHES.items() if v}
     if launched:
         raise AssertionError(f"the multi-device path launched graph kernels: {launched}")
@@ -4275,9 +4378,604 @@ def run_multi(dev, seed, ck):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM side's tensor parallelism (phase 3e)
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b sharded over (data 2, model 4) on simulated ranks: (a) serving
+# LM_BATCH prompts of TP_PROMPT tokens and TP_NEW greedy tokens in bfloat16,
+# and in float32 (TF32 off) prefill + teacher-forced decode at TP_CHECK
+# (batch, prompt, steps) against the unsharded forward at the reference's
+# tolerance; (b) one float32 step of the 2-layer cut (RESTART_LAYERS) of
+# TRAIN_BATCH x TRAIN_SEQ in the config's microbatches against the
+# unsharded step, each leaf within TP_REL_TOL of its largest; (c)
+# TRAIN_STEPS bfloat16 steps at full width through train.loop.train; (d) the
+# butterfly step with the model axis inside in TP_GLOO_WORLD gloo processes
+# on (data 2, model 2), TP_GLOO_BATCH x TP_GLOO_SEQ tokens of the 2-layer
+# cut, against the same step on simulated ranks
+TP_MESH = ((2, 4), ("data", "model"))
+TP_PROMPT, TP_NEW = 512, 32
+TP_CHECK = (2, 1024, 16)
+TP_REL_TOL = 1e-5
+TP_PEAK_LIMIT = 75e9
+TP_GLOO_WORLD, TP_GLOO_MESH = 4, ((2, 2), ("data", "model"))
+TP_GLOO_BATCH, TP_GLOO_SEQ = 4, 256
+
+
+def tp_bytes_check(label, model, calls, ordered=True):
+    """The model's ``TensorParallel`` record against the byte model's
+    ``calls`` (every call, in order; unordered for a step, whose backward
+    runs the layers in reverse) and each rank's bytes against their wire
+    bytes; returns the bytes a rank."""
+    size = model.tp.size
+    have, want_calls = list(model.tp.calls), list(calls)
+    if not ordered:
+        have, want_calls = sorted(have), sorted(want_calls)
+    if have != want_calls:
+        raise AssertionError(f"{label}: {len(model.tp.calls)} model-axis calls recorded, "
+                             f"the byte model has {len(calls)}")
+    want = sum((size - 1) * b for _, b in calls)
+    if set(int(b) for b in model.tp.bytes_sent) != {want}:
+        raise AssertionError(f"{label}: bytes a rank {model.tp.bytes_sent}, model {want}")
+    return want
+
+
+def tp_serve(dev, seed):
+    """(a) qwen3-1.7b at its published size, seeded, sharded over (data 2,
+    model 4): ``generate(rules=, mesh=)`` of LM_BATCH prompts, TP_NEW
+    greedy tokens, timed step by step, its model-axis calls and each
+    rank's bytes equal to the byte model; the share of its tokens equal to
+    the unsharded run's; peak memory. Then in float32 with TF32 off, the
+    sharded prefill and teacher-forced decode against the unsharded
+    forward's logits at LM_RTOL / LM_ATOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.serve import engine
+
+    cfg = configs.get_config(LM_ARCH)
+    mesh = SimMesh(*TP_MESH)
+    rules = rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    torch.cuda.reset_peak_memory_stats()
+    plain = api.init_params(cfg, seed, device=dev)
+    sharded = api.shard(plain, rules, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, TP_PROMPT), generator=gen, device=dev)
+    timed_generate(cfg, plain, prompts, 2)  # warm-up: cuBLAS, the allocator
+    want, p_ms, d_ms = timed_generate(cfg, plain, prompts, TP_NEW)
+    timed_generate(cfg, sharded, prompts, 2, rules, mesh)
+    sharded.tp.reset()
+    got, tp_p_ms, tp_d_ms = timed_generate(cfg, sharded, prompts, TP_NEW, rules, mesh)
+    rows = LM_BATCH // groups
+    calls = (lm.tp_calls(cfg, "prefill", rows, TP_PROMPT, size)
+             + lm.tp_calls(cfg, "decode", rows, TP_PROMPT, size) * (TP_NEW - 1))
+    per_rank = tp_bytes_check("sharded serving", sharded, calls)
+    prefill_bytes = sum((size - 1) * b for _, b in lm.tp_calls(cfg, "prefill", rows,
+                                                                   TP_PROMPT, size))
+    peak = torch.cuda.max_memory_allocated()
+    if not ((got >= 0) & (got < cfg.vocab)).all():
+        raise AssertionError("sharded generate: token ids outside the vocabulary")
+    share = float((got == want).mean())
+    first = float((got[:, 0] == want[:, 0]).mean())
+    res = dict(batch=LM_BATCH, prompt=TP_PROMPT, new=TP_NEW, mesh=TP_MESH,
+               prefill_ms=tp_p_ms, decode_ms_median=float(np.median(tp_d_ms)),
+               plain_prefill_ms=p_ms, plain_decode_ms_median=float(np.median(d_ms)),
+               bytes_per_rank=per_rank, prefill_bytes_per_rank=prefill_bytes,
+               decode_bytes_per_rank=(per_rank - prefill_bytes) / (TP_NEW - 1),
+               n_calls=len(calls), tokens_equal_share=share, first_tokens_equal=first,
+               peak_bytes=peak)
+    log(f"  {cfg.name} bf16 sharded over data {groups} x model {size}: prefill "
+        f"{tp_p_ms:.2f} ms (unsharded {p_ms:.2f}), decode {res['decode_ms_median']:.2f} ms "
+        f"a step median (unsharded {res['plain_decode_ms_median']:.2f}); {len(calls)} "
+        f"model-axis calls == the byte model, {per_rank / 1e6:.3f} MB a rank (prefill "
+        f"{prefill_bytes / 1e6:.3f} MB, a decode step {res['decode_bytes_per_rank'] / 1e6:.4f} "
+        f"MB); greedy tokens equal to the unsharded run's: {share:.1%} (first token "
+        f"{first:.0%}); peak {peak / 1e9:.2f} GB")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, p, s = TP_CHECK
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    with exact_float32(), torch.inference_mode():
+        plain = api.init_params(cfg32, seed, device=dev)
+        toks = torch.randint(0, cfg.vocab, (b, p + s), generator=gen, device=dev)
+        full = lm.lm_logits(cfg32, plain, lm.forward_hidden(cfg32, plain, toks))
+        sharded = api.shard(plain, rules, mesh)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits, cache, pos = api.prefill_fn(cfg32, rules, mesh)(sharded, {"tokens": toks[:, :p]})
+        cache = engine.prepare_decode_cache(cfg32, cache, p, p + s)
+        outs = [logits]
+        decode = api.decode_fn(cfg32, rules, mesh)
+        for i in range(s - 1):
+            logits, cache = decode(sharded, cache, toks[:, p + i:p + i + 1], p + i)
+            outs.append(logits)
+        got32 = torch.stack(outs, dim=1)
+        res["float32"] = check_close("sharded prefill + decode vs the unsharded forward",
+                                     got32, full[:, p - 1:p + s - 1], LM_RTOL, LM_ATOL)
+    log(f"  float32 (TF32 off), {b} x {p} prefill + {s - 1} teacher-forced decode steps "
+        f"sharded == the unsharded forward: max |err| {res['float32']['max_abs_err']:.3g}, "
+        f"{res['float32']['tol_share']:.1%} of rtol {LM_RTOL} atol {LM_ATOL}")
+    del sharded, full, cache, got32, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def leaf_rel_errs(got, want):
+    """Each leaf's largest absolute difference over its largest magnitude."""
+    from repro_torch.dist.sharding import sorted_leaves
+
+    g = dict(sorted_leaves(got))
+    out = {}
+    for path, w in sorted_leaves(want):
+        w = w.float()
+        scale = float(w.abs().max()) or 1.0
+        out["/".join(path)] = float((g[path].float().to(w.device) - w).abs().max()) / scale
+    return out
+
+
+def tp_step_check(dev, seed):
+    """(b) one float32 step (TF32 off) of the 2-layer cut at full width,
+    sharded over (data 2, model 4): the loss and every leaf's gradient
+    within TP_REL_TOL of its largest against the unsharded gradient of the
+    same microbatches; the step's model-axis calls (remat's recompute
+    included) equal to the byte model, then the whole GSPMD step's (clip
+    and AdamW added)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.train import optim, step as step_mod
+
+    base = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=RESTART_LAYERS, param_dtype="float32",
+                     compute_dtype="float32")
+    mesh = SimMesh(*TP_MESH)
+    rules = rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    mb = base.train_microbatches
+    batch = device_batch(SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ), 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with exact_float32():
+        plain = api.init_params(cfg, seed, device=dev)
+        loss0, g0 = step_mod._grads_of(api.train_loss_fn(cfg), plain, batch, mb)
+        sharded = api.shard(plain, rules, mesh)
+        del plain
+        sharded.tp.reset()
+        loss1, g1 = step_mod._grads_of(api.train_loss_fn(cfg, rules, mesh), sharded, batch, mb)
+        g1 = api.global_leaves(sharded, g1)
+        calls = lm.tp_calls(cfg, "train", TRAIN_BATCH // mb // groups, TRAIN_SEQ, size) * mb
+        grad_bytes = tp_bytes_check("sharded gradient", sharded, calls, ordered=False)
+        errs = leaf_rel_errs(g1, g0)
+        loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        del g0, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = max(errs, key=errs.get)
+        if loss_err > TP_REL_TOL or errs[worst] > TP_REL_TOL:
+            raise AssertionError(f"sharded step: loss rel err {loss_err:.3g}, gradient "
+                                 f"{worst} {errs[worst]:.3g} > {TP_REL_TOL}")
+        state = optim.get(cfg.optimizer).init(sharded)
+        sharded.tp.reset()
+        fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, microbatches=mb,
+                                       lr_kw=TRAIN_LR)
+        _, _, m = fn(sharded, state, batch, 1)
+        step_bytes = tp_bytes_check("sharded step", sharded, calls + optim.tp_calls(sharded),
+                                    ordered=False)
+    res = dict(layers=RESTART_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=mb,
+               loss=float(loss0), loss_rel_err=loss_err, worst_leaf=worst,
+               worst_rel_err=errs[worst], grad_bytes_per_rank=grad_bytes,
+               step_bytes_per_rank=step_bytes, n_calls=len(calls),
+               step_loss=float(m["loss"]), peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  float32 (TF32 off) {RESTART_LAYERS}-layer cut, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"in {mb} microbatches, sharded over data {groups} x model {size}: loss "
+        f"{float(loss1):.6f} (unsharded {float(loss0):.6f}, rel err {loss_err:.2e}), every "
+        f"leaf's gradient within {errs[worst]:.2e} of its largest (worst {worst}); "
+        f"{len(calls)} model-axis calls == the byte model (remat's recompute included), "
+        f"{grad_bytes / 1e9:.3f} GB a rank, the whole step {step_bytes / 1e9:.3f} GB")
+    del sharded, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_train(dev, seed, mesh_sizes=TP_MESH):
+    """(c) qwen3-1.7b at its published size, sharded over ``mesh_sizes``,
+    trained TRAIN_STEPS steps by ``train.loop.train`` (bfloat16, remat,
+    AdamW, the GSPMD step, the config's microbatches): every loss finite,
+    the last below the first; step ms, tokens a second, 6ND against the
+    bfloat16 peak, peak memory (over TP_PEAK_LIMIT the caller cuts the
+    data axis)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import SimMesh
+    from repro_torch.models import api
+    from repro_torch.train import loop
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    t0 = time.perf_counter()
+    out = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                     loop.LoopConfig(n_steps=TRAIN_STEPS, microbatches=cfg.train_microbatches,
+                                     lr_kw=TRAIN_LR, log_every=TRAIN_STEPS),
+                     seed=seed, on_metrics=lambda s, m: rows.append(m), device=dev,
+                     mesh=SimMesh(*mesh_sizes))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"sharded training: losses {losses}")
+    step_s = [r["step_time"] for r in rows]
+    med = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = api.model_flops(cfg, configs.ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    res = dict(mesh=mesh_sizes, steps=TRAIN_STEPS, losses=losses, step_s=step_s,
+               step_s_median=med, tokens_per_s=tokens / med, model_flops=flops,
+               peak_share=flops / med / H100_BF16_FLOPS, peak_bytes=peak, wall_s=wall_s)
+    log(f"  {cfg.name} sharded over {dict(zip(mesh_sizes[1], mesh_sizes[0]))}: "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step {med * 1e3:.1f} ms median of steps 2-{TRAIN_STEPS} "
+        f"(first {step_s[0] * 1e3:.1f} ms), {tokens / med:,.0f} tokens/s, 6ND "
+        f"{res['peak_share']:.1%} of the bf16 peak; peak {peak / 1e9:.2f} GB; "
+        f"{wall_s:.1f} s in all")
+    return res
+
+
+def tp_child(rank, world, out_dir, job):
+    """One process of phase 3e(d) (gloo, every process on the card) or of
+    ``--multi-card`` (nccl, card ``rank``): the ``job["cfg"]`` model seeded
+    and sharded over ``job["mesh"]`` through a ``DistCommunicator``. With
+    ``"serve"`` in ``job["parts"]``: the float32 prefill logits of its data
+    group's rows and, in the config's dtype, ``generate``'s greedy tokens;
+    with ``"step"``: one train step (``job["step_kind"]``) in float32, TF32
+    off. Rank 0 runs the same on simulated ranks on its card and holds each
+    process's results to it: logits and every gathered parameter within
+    TP_REL_TOL of each leaf's largest, the loss too, the model-axis record
+    equal. Writes ``rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.process import DistCommunicator
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+    from repro_torch.train import optim, step as step_mod
+    from repro_torch.core import collectives
+
+    t_start = time.perf_counter()
+    nccl = job["backend"] == "nccl"
+    dev = torch.device("cuda", rank) if nccl else torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    else:  # the processes share the host's cores
+        torch.set_num_threads(1)
+
+    def synchronize():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    torch.set_float32_matmul_precision("highest")
+    build.reset_launches()
+    mesh = SimMesh(*job["mesh"])
+    rules = rules_for_mesh(mesh)
+    groups = mesh.shape["data"]
+    group = int(mesh.coords([rank])[0][0])
+    comm = DistCommunicator(dev, mesh)
+    res = {"rank": rank}
+
+    def programs():
+        """(this process's, rank 0's simulated) or (this process's,)."""
+        yield comm, "dist"
+        if rank == 0:
+            yield collectives.Communicator(mesh, dev), "sim"
+
+    got = {}
+    if "serve" in job["parts"]:
+        cfg = job["serve_cfg"]
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(job["seed"])
+        toks = torch.randint(0, cfg.vocab, (job["serve_batch"], job["serve_prompt"]),
+                             generator=gen)
+        for c, name in programs():
+            mine = toks if name == "sim" else step_mod._split_batch({"t": toks}, groups)[group]["t"]
+            mine = mine.to(dev)
+            m32 = api.init_params(cfg32, job["seed"], device=dev, rules=rules, mesh=mesh, comm=c)
+            with torch.inference_mode():
+                logits, _, _ = api.prefill_fn(cfg32, rules, mesh)(m32, {"tokens": mine})
+            got[(name, "logits")] = logits.float().cpu()
+            del m32
+            m = api.init_params(cfg, job["seed"], device=dev, rules=rules, mesh=mesh, comm=c)
+            t0 = time.perf_counter()
+            out = engine.generate(cfg, m, mine, job["serve_new"], rules=rules, mesh=mesh)
+            synchronize()
+            got[(name, "tokens")] = out.tokens
+            got[(name, "serve_s")] = time.perf_counter() - t0
+            got[(name, "serve_stats")] = {k: dict(v) for k, v in m.tp.stats.items()}
+            del m
+            if cuda:
+                torch.cuda.empty_cache()
+    if "step" in job["parts"]:
+        cfg = job["step_cfg"]
+        batch = device_batch(SyntheticLM(cfg, job["batch"], job["seq"]), 1, dev)
+        real = optim.get(cfg.optimizer)
+        for c, name in programs():
+            m = api.init_params(cfg, job["seed"], device=dev, rules=rules, mesh=mesh, comm=c)
+            state = real.init(m)
+            caught = {}
+
+            def apply(model, grads, st, lr, caught=caught):
+                """The optimizer's update, the (clipped) gradient it takes
+                kept whole (an all-gather over the model group under
+                torch.distributed)."""
+                caught["grads"], caught["lr"] = api.global_leaves(model, grads), lr
+                return real.apply(model, grads, st, lr)
+
+            hooked = dataclasses.replace(real, apply=apply)
+            get, optim.get = optim.get, lambda _name: hooked
+            try:
+                if job["step_kind"] == "butterfly":
+                    fn = step_mod.build_train_step_butterfly(
+                        cfg, mesh, rules, lr_kw=TRAIN_LR, comm=c if name == "dist" else None)
+                else:
+                    fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, lr_kw=TRAIN_LR)
+            finally:
+                optim.get = get
+            m.tp.reset()
+            t0 = time.perf_counter()
+            m, state, met = fn(m, state, batch, 1)
+            synchronize()
+            got[(name, "step_s")] = time.perf_counter() - t0
+            got[(name, "loss")] = float(met["loss"])
+            got[(name, "step_stats")] = {k: dict(v) for k, v in m.tp.stats.items()}
+            params = api.to_reference(m)  # collective under dist: every process gathers
+            if rank == 0:
+                got[(name, "params")] = params
+                got[(name, "grads")], got[(name, "lr")] = caught["grads"], caught["lr"]
+            del m, state, params, caught
+            if cuda:
+                torch.cuda.empty_cache()
+    # rank 0 holds every process to its simulated run
+    mine = {k[1]: v for k, v in got.items() if k[0] == "dist" and k[1] != "params"}
+    everyone = [None] * world
+    dist.all_gather_object(everyone, {k: v for k, v in mine.items()})
+    if rank == 0:
+        checks = {}
+        for r, theirs in enumerate(everyone):
+            g = int(mesh.coords([r])[0][0])
+            if "logits" in theirs:
+                want = step_mod._split_batch({"x": got[("sim", "logits")]}, groups)[g]["x"]
+                err = float((theirs["logits"] - want).abs().max()) / float(want.abs().max())
+                toks_w = step_mod._split_batch({"x": torch.from_numpy(got[("sim", "tokens")])},
+                                               groups)[g]["x"].numpy()
+                checks[f"rank{r}_logits_rel_err"] = err
+                checks[f"rank{r}_tokens_equal"] = float((theirs["tokens"] == toks_w).mean())
+                if err > TP_REL_TOL or theirs["serve_stats"] != got[("sim", "serve_stats")]:
+                    raise AssertionError(f"rank {r}: prefill logits rel err {err:.3g} or its "
+                                         f"record differs from the simulated ranks'")
+            if "loss" in theirs:
+                lerr = abs(theirs["loss"] - got[("sim", "loss")]) / abs(got[("sim", "loss")])
+                checks[f"rank{r}_loss_rel_err"] = lerr
+                if lerr > TP_REL_TOL or theirs["step_stats"] != got[("sim", "step_stats")]:
+                    raise AssertionError(f"rank {r}: loss rel err {lerr:.3g} or its record "
+                                         f"differs from the simulated ranks'")
+        if ("dist", "params") in got:
+            errs = leaf_rel_errs(got[("dist", "grads")], got[("sim", "grads")])
+            worst = max(errs, key=errs.get)
+            checks.update(grads_worst=worst, grads_rel_err=errs[worst])
+            if errs[worst] > TP_REL_TOL:
+                raise AssertionError(f"dist step: gradient {worst} rel err {errs[worst]:.3g}")
+            # the parameters after the update, reported: AdamW's first
+            # update g / (|g| + eps) is ill-conditioned wherever the clipped
+            # |g| nears eps (most elements here), so a gradient's last bits
+            # move a parameter by up to 2 lr
+            pairs = list(zip(_flat_items(got[("dist", "params")]),
+                             _flat_items(got[("sim", "params")])))
+            moved = max(float(np.abs(a - b).max()) for (_, a), (_, b) in pairs)
+            rel = max(float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
+                      for (_, a), (_, b) in pairs)
+            checks.update(params_worst_rel_err=rel, params_max_abs_err=moved,
+                          update_bound=2 * got[("sim", "lr")])
+            if moved > 2 * got[("sim", "lr")]:
+                raise AssertionError(f"dist step: a parameter moved {moved:.3g} from the "
+                                     f"simulated step's, over the update's bound")
+        res["checks"] = checks
+        res["sim"] = {k[1]: v for k, v in got.items() if k[0] == "sim"
+                      and k[1] in ("step_s", "serve_s", "loss")}
+    res["dist"] = {k: v for k, v in mine.items() if k in ("step_s", "serve_s", "loss")}
+    res["stage_s"], res["wire_s"] = comm.stage_s, comm.wire_s
+    res["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    res["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=float)
+
+
+def _flat_items(tree, path=()):
+    """(path, leaf) of a nested dict, sorted keys (the reference's order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def tp_group(dev, seed, job, world, backend):
+    """``tp_child`` in ``world`` processes of a ``backend`` group, joined with a
+    deadline; each process's record, rank 0's checks."""
+    job = dict(job, seed=seed, device=str(dev), backend=backend)
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_tp_")
+    try:
+        t0 = time.perf_counter()
+        codes = run_children(tp_child, world, (out_dir, job), backend)
+        wall_s = time.perf_counter() - t0
+        if any(codes):
+            raise AssertionError(f"tp: the processes exited with {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launched = [rk["launches"] for rk in ranks if rk["launches"]]
+    if launched:
+        raise AssertionError(f"tp: the processes launched graph kernels: {launched}")
+    res = dict(world=world, backend=backend, mesh=job["mesh"], wall_s=wall_s,
+               checks=ranks[0]["checks"], sim=ranks[0]["sim"],
+               dist=[rk["dist"] for rk in ranks],
+               stage_s=[rk["stage_s"] for rk in ranks],
+               peak_bytes=[rk["peak_bytes"] for rk in ranks])
+    log(f"  {world} {backend} processes on {dict(zip(job['mesh'][1], job['mesh'][0]))} "
+        f"({wall_s:.1f} s in all): == the simulated ranks within {TP_REL_TOL} of each "
+        f"leaf's largest, records equal: {json.dumps(res['checks'], default=float)}")
+    log(f"  per process {json.dumps(res['dist'], default=float)}; simulated "
+        f"{json.dumps(res['sim'], default=float)}; host staging "
+        f"{[round(s, 2) for s in res['stage_s']]} s; peaks "
+        f"{[round(p / 1e9, 2) for p in res['peak_bytes']]} GB")
+    return res
+
+
+def tp_gloo(dev, seed):
+    """(d) the butterfly step with the model axis inside, in TP_GLOO_WORLD
+    gloo processes on the card on (data 2, model 2), the 2-layer cut in
+    float32, against the simulated ranks."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS,
+                     param_dtype="float32", compute_dtype="float32")
+    job = dict(parts=("step",), step_cfg=cfg, step_kind="butterfly", mesh=TP_GLOO_MESH,
+               batch=TP_GLOO_BATCH, seq=TP_GLOO_SEQ)
+    return tp_group(dev, seed, job, TP_GLOO_WORLD, "gloo")
+
+
+def run_tp(dev, seed, gloo=True):
+    """Phase 3e: the LM side's tensor parallelism (module docstring, item
+    3e). The graph kernels are not on this path: their counts stay 0.
+    ``gloo=False`` leaves (d) to the caller (:func:`gloo_phases`)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = {"serve": tp_serve(dev, seed)}
+    out["step"] = tp_step_check(dev, seed)
+    out["train"] = tp_train(dev, seed)
+    if out["train"]["peak_bytes"] > TP_PEAK_LIMIT:
+        log(f"  peak over {TP_PEAK_LIMIT / 1e9:.0f} GB: again on data 1 x model 4")
+        out["train_data1"] = tp_train(dev, seed, ((1, 4), ("data", "model")))
+    if gloo:
+        out["gloo"] = tp_gloo(dev, seed)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the tensor-parallel path launched graph kernels: {launched}")
+    log("  the tensor-parallel path launched none of the four graph kernels")
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
+class CardWatch:
+    """``nvidia-smi``'s memory.used of ``dev``'s card every ``every`` s in
+    a thread (none off the card, or without ``nvidia-smi``); ``take()``
+    returns the most MiB seen since the last ``take()`` (None if none)."""
+
+    def __init__(self, dev, every=0.5):
+        self.peak = self.total = None
+        self.done = threading.Event()
+        self.thread = None
+        if dev.type == "cuda":
+            self.thread = threading.Thread(target=self.run, args=(dev.index or 0, every),
+                                           daemon=True)
+            self.thread.start()
+
+    def run(self, index, every):
+        cmd = ["nvidia-smi", "-i", str(index), "--query-gpu=memory.used,memory.total",
+               "--format=csv,noheader,nounits"]
+        while not self.done.is_set():
+            try:
+                text = subprocess.run(cmd, capture_output=True, text=True, timeout=30).stdout
+                used, self.total = (int(x) for x in text.split(","))
+            except (OSError, ValueError, subprocess.SubprocessError):
+                return
+            self.peak = used if self.peak is None else max(self.peak, used)
+            self.done.wait(every)
+
+    def take(self):
+        peak, self.peak = self.peak, None
+        return peak
+
+    def stop(self):
+        self.done.set()
+        if self.thread is not None:
+            self.thread.join()
+
+
+def gloo_phases(dev, seed):
+    """Phases 3c(d) and 3e(d), one after the other: their processes hold
+    the card while this process does only host work (the default run
+    starts them beside phase 4's ETL, which places nothing on the card
+    until they have ended). Each records the most of the card in use
+    while it ran (``card_used_mib``, of ``card_total_mib``)."""
+    log(f"[3c/27 (d) and 3e/27 (d)] the gradient sync and the tensor-parallel "
+        f"butterfly step in {DIST_WORLD} gloo processes each, beside phase 4's host work")
+    watch = CardWatch(dev)
+    try:
+        out = {"dist": dist_sync(dev, seed)}
+        out["dist"]["card_used_mib"] = watch.take()
+        out["gloo"] = tp_gloo(dev, seed)
+        out["gloo"]["card_used_mib"] = watch.take()
+    finally:
+        watch.stop()
+    for key in ("dist", "gloo"):
+        out[key]["card_total_mib"] = watch.total
+    if watch.total is not None:
+        log(f"  the card's memory in use (nvidia-smi, every 0.5 s): at most "
+            f"{out['dist']['card_used_mib']} MiB in 3c(d), {out['gloo']['card_used_mib']} "
+            f"MiB in 3e(d), of {watch.total} MiB")
+    return out
+
+
+def tp_multi_card(dev, seed, world, backend="nccl"):
+    """``--multi-card``'s phase 3e: (a) serving and (b) a float32 train step
+    over nccl, one model rank a card on (data 1, model ``world``), against
+    the simulated ranks on card 0 (``backend`` gloo rehearses it on the
+    CPU)."""
+    from repro_torch import configs
+
+    base = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=RESTART_LAYERS, param_dtype="float32",
+                     compute_dtype="float32")
+    job = dict(parts=("serve", "step"), serve_cfg=base, serve_batch=LM_BATCH,
+               serve_prompt=TP_PROMPT, serve_new=TP_NEW, step_cfg=cfg, step_kind="gspmd",
+               mesh=((1, world), ("data", "model")), batch=TRAIN_BATCH // 4, seq=TRAIN_SEQ)
+    return tp_group(dev, seed, job, world, backend)
+
+
 def run_multi_card(args, dev, card, phase, t_start) -> int:
     """``--multi-card``: phase 3c(d) over nccl, one rank on each card, then
-    ``launch.train`` under ``torchrun`` with nccl on as many processes."""
+    ``launch.train`` under ``torchrun`` with nccl on as many processes,
+    then phase 3e's serving and step over nccl (``tp_multi_card``)."""
     import torch
 
     world = torch.cuda.device_count()
@@ -4305,6 +5003,9 @@ def run_multi_card(args, dev, card, phase, t_start) -> int:
         raise AssertionError(f"torchrun launch.train: rc {run.returncode}, {done}, "
                              f"{run.stderr[-3000:]}")
     log(f"  {done[0]} ({out['cli_s']:.1f} s)")
+    phase(f"[3e/27] serving and a float32 train step over nccl, one model rank on each "
+          f"of {world} cards")
+    out["tp"] = tp_multi_card(dev, args.seed, world)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4400,6 +5101,8 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
         lm_out["train"] = run_train(dev, args.seed, profile=True, tmp=ck_tmp)
         phase("[3c/27] the LM multi-device half (alone)")
         lm_out["multi"] = run_multi(dev, args.seed, ck)
+        phase("[3e/27] the LM's tensor parallelism (alone)")
+        lm_out["tp"] = run_tp(dev, args.seed)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
             f"{time.perf_counter() - t_start:.0f} s")
         if args.out:
@@ -4459,23 +5162,37 @@ def run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli, dry_d
         f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     phase(f"[3c/27] the LM multi-device half: {LM_ARCH}'s placement on the production "
-          f"meshes and data 2 x model 4, the elastic restore, GPipe, the gradient sync in "
-          f"{DIST_WORLD} gloo processes")
-    lm_out["multi"] = run_multi(dev, args.seed, ck)
+          f"meshes and data 2 x model 4, the elastic restore, GPipe (the gradient sync in "
+          f"{DIST_WORLD} gloo processes beside phase 4)")
+    lm_out["multi"] = run_multi(dev, args.seed, ck, gloo=False)
     shutil.rmtree(ck_tmp, ignore_errors=True)
     log(f"  released the multi-device state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    phase(f"[3e/27] the LM's tensor parallelism: {LM_ARCH} sharded over data 2 x model 4 "
+          f"(serving, a float32 step, training; the butterfly step in {TP_GLOO_WORLD} gloo "
+          f"processes beside phase 4)")
+    lm_out["tp"] = run_tp(dev, args.seed, gloo=False)
+    log(f"  released the tensor-parallel state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
 
+    # 3c(d) and 3e(d) hold the card in processes of their own while the
+    # Kronecker graph is made on the host; it goes on the card after them
+    beside = Beside(gloo_phases, dev, args.seed)
     phase("[4/27] ETL")
     kcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly",
                          mode="direction_optimizing", use_kernels=True)
     tcfg = bfs.BFSConfig(fanout=args.fanout, sync="butterfly", mode="top_down",
                          use_kernels=True)
-    kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}, weights 1..{WEIGHT}",
-               lambda: generators.kronecker(args.scale, args.edge_factor, seed=args.seed,
-                                            max_weight=WEIGHT),
-               args.ranks, dev, kcfg.mode)
+    try:
+        kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}, weights 1..{WEIGHT}",
+                   lambda: generators.kronecker(args.scale, args.edge_factor, seed=args.seed,
+                                                max_weight=WEIGHT),
+                   args.ranks, dev, kcfg.mode, before_place=beside.join)
+    finally:
+        gloo = beside.join()
+    lm_out["multi"]["dist"], lm_out["tp"]["gloo"] = gloo["dist"], gloo["gloo"]
     torus = etl(f"torus {args.torus_side}x{args.torus_side}",
                 lambda: generators.torus_2d(args.torus_side), args.ranks, dev,
                 tcfg.mode)

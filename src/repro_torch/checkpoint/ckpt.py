@@ -18,7 +18,10 @@ so a checkpoint crosses between the packages in both directions:
   crash mid-save never corrupts the latest checkpoint.
 * **Elastic reshard**: ``restore(mesh=, pspecs=)`` places the stored full
   arrays onto any :class:`~repro_torch.dist.sharding.SimMesh`, whatever
-  mesh wrote them (a checkpoint holds no mesh).
+  mesh wrote them (a checkpoint holds no mesh). A model sharded over the
+  model axis saves its gathered tree (``api.to_reference``), the file the
+  unsharded model writes, and a sharded template restores its blocks
+  (``optim.local_state`` / ``optim.from_placed`` for the state).
 """
 
 from __future__ import annotations

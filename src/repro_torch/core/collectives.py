@@ -24,6 +24,12 @@ rank's buffer to its partner, and it counts the bytes each rank sends.
 * :func:`tree_sync` / :func:`tree_sync_int8` — the train step's gradient
   sync: each ``[P, ...]`` leaf summed by one of the dense methods above
   (or by the butterfly with int8 on the wire) and divided by P.
+* :class:`TensorParallel` — the LM's tensor-parallel collectives over the
+  ``model`` axis (all-reduce, its conjugate copy, all-gather, split, max
+  all-reduce), differentiable and recorded by kind; the communicator's
+  :meth:`Communicator.axis_sum` / ``axis_max`` / ``axis_cat`` are their
+  wire (a sum over the held blocks here, ``torch.distributed`` over a
+  process subgroup in ``DistCommunicator``).
 
 Every sync takes the reference's merge op or monoid.  ``"min"`` and
 ``"max"`` order int32 words as the uint32 values they hold
@@ -71,6 +77,7 @@ from repro_torch.core import butterfly
 from repro_torch.core import frontier as fr
 from repro_torch.core import monoid as mono
 from repro_torch.core.monoid import Monoid
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import SimMesh
 from repro_torch.kernels import bitmap_merge, ref as kref
 
@@ -247,6 +254,21 @@ class Communicator:
         table = np.empty((self.p // size, size), dtype=np.int64)
         table[other, gi] = g
         return [tuple(int(d) for d in table[other, (gi + s) % size]) for s in range(1, size)]
+
+    def axis_sum(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``t[n, ...]``, the blocks of the ranks held of one group over
+        ``axes`` in group order, summed into one (the wire of
+        :class:`TensorParallel`; unrecorded here)."""
+        return t.sum(0)
+
+    def axis_max(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """As :meth:`axis_sum`, the elementwise max."""
+        return t.amax(0)
+
+    def axis_cat(self, t: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
+        """As :meth:`axis_sum`, the blocks laid end to end along ``dim`` of
+        the result in group order."""
+        return _sim_cat(t, dim)
 
     def pmean(self, values: torch.Tensor) -> torch.Tensor:
         """The mean over all ranks of one scalar a rank (``values[i]`` is
@@ -761,3 +783,320 @@ def grad_sync_bytes(method: str, p, fanout: int, n: int, itemsize: int,
     if method == "xla_psum":
         return butterfly.bytes_per_node_allgather(sizes, n * itemsize)
     raise ValueError(f"unknown grad-sync method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _axis_dim(dim: int, ndim: int) -> int:
+    """``dim`` of a replicated tensor of ``ndim`` dims, as a non-negative index."""
+    return dim % ndim
+
+
+def _sim_cat(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``[M, ..., n, ...]`` -> ``[..., M * n, ...]``: the M blocks laid end to
+    end along ``dim`` (of the result) in model order."""
+    d = _axis_dim(dim, t.dim() - 1)
+    return t.movedim(0, d).flatten(d, d + 1)
+
+
+def _sim_split(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
+    """The inverse of :func:`_sim_cat`: ``x``'s ``m`` blocks along ``dim``
+    stacked on a new leading axis."""
+    d = _axis_dim(dim, x.dim())
+    return x.unflatten(d, (m, x.shape[d] // m)).movedim(d, 0)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, rows):
+        ctx.tp, ctx.rows = tp, rows
+        return x.unsqueeze(0).expand((tp.n_local,) + tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._sum(g.contiguous(), ctx.rows), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.n = t.shape[0]
+        return tp._sum(t, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(0).expand((ctx.n,) + tuple(g.shape)), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward; backward keeps each rank's own block of the
+    (complete) gradient."""
+
+    @staticmethod
+    def forward(ctx, t, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp._cat(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._own(g, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    """Each rank's own block forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp._own(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._cat(g.contiguous(), ctx.dim), None, None
+
+
+class _BatchSum(torch.autograd.Function):
+    """Sum over the data axes forward (a no-op where every data group's rows
+    are already in the batch), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.data_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel:
+    """Tensor parallelism over ``axes`` (the mesh's ``model`` axis) of a
+    communicator's ranks.
+
+    **Layout.** A tensor *sharded* over the model axis carries a leading axis
+    of the model ranks this program holds, in model order: ``[M, ...]`` on
+    simulated ranks (the :class:`Communicator` holds every rank),
+    ``[1, ...]`` under a ``DistCommunicator`` (this process's rank). A
+    *replicated* tensor has no such axis: on simulated ranks one copy stands
+    for the M identical ones (so autograd sees it, and the loss, once);
+    under ``torch.distributed`` every process holds its own. The same model
+    code runs on both.
+
+    **Rows.** The data axes split the batch. With ``group=None`` the batch
+    holds the rows of every data group the communicator holds (all of them
+    on simulated ranks, the process's own under ``torch.distributed``): a
+    collective's per-rank bytes are its buffer's bytes over the number of
+    groups folded in. ``group=g`` holds data group ``g``'s rows alone (the
+    butterfly step runs each data rank in turn); only the first group's
+    calls are recorded in ``collectives``, as every group runs the same
+    program, and each rank's ``bytes_sent`` counts its own group's calls.
+
+    **Collectives**, each differentiable and recorded (in :attr:`stats`,
+    :attr:`bytes_sent` and the communicator's record) under its HLO kind,
+    with one rank's buffer as its operand bytes and the ``(M - 1)`` buffers
+    a rank sends as its wire bytes (as :func:`xla_allreduce`):
+
+    * :meth:`copy` — identity forward, all-reduce backward: a replicated
+      tensor entering sharded compute;
+    * :meth:`reduce` — all-reduce forward, identity backward: the partial
+      sums of row-parallel compute;
+    * :meth:`gather` — an all-gather along a dimension (backward keeps the
+      rank's own block);
+    * :meth:`split` — the rank's own block (backward all-gathers);
+    * :meth:`max` — a max all-reduce, no gradient (the vocab-parallel
+      log-sum-exp's shift)."""
+
+    def __init__(self, comm: Communicator, axes: Axes = ("model",), *,
+                 group: Optional[int] = None):
+        axes = _as_axes(axes)
+        missing = [a for a in axes if a not in comm.mesh.axis_names]
+        if missing:
+            raise ValueError(f"mesh {comm.mesh.axis_names} has no axis {missing}")
+        self.comm, self.axes = comm, axes
+        self.size = comm.group_size(axes)
+        self.rest = tuple(a for a in comm.mesh.axis_names if a not in axes)
+        model_idx = comm.mesh.group_index(comm.ranks, axes)
+        data_idx = comm.mesh.group_index(comm.ranks, self.rest)
+        held = sorted(set(int(g) for g in data_idx))
+        if group is not None and group not in held:
+            raise ValueError(f"data group {group} is not held (held: {held})")
+        self.mask = np.ones(len(comm.ranks), bool) if group is None else data_idx == group
+        self.local = np.unique(model_idx[self.mask])
+        self.n_local = len(self.local)
+        self.rows = len(held) if group is None else 1
+        self.recording = group is None or group == held[0]
+        # the batch is one share of the global batch's rows: other processes
+        # hold the other data groups' (under torch.distributed)
+        self.split_rows = group is None and len(held) < comm.p // self.size
+        self.stats = empty_stats()
+        self.calls: List[Tuple[str, int]] = []  # (kind, operand bytes) in order
+        self.bytes_sent = np.zeros(len(comm.ranks), dtype=np.int64)
+        if hasattr(comm, "subgroup"):
+            comm.subgroup(axes)
+            if self.rest:
+                comm.subgroup(self.rest)
+
+    def for_group(self, group: int) -> "TensorParallel":
+        """The same axes with data group ``group``'s rows alone, sharing this
+        object's record."""
+        tp = TensorParallel(self.comm, self.axes, group=group)
+        tp.stats, tp.calls, tp.bytes_sent = self.stats, self.calls, self.bytes_sent
+        return tp
+
+    def reset(self) -> None:
+        """Zero the record (:attr:`stats`, :attr:`calls`, :attr:`bytes_sent`)."""
+        self.stats.update(empty_stats())
+        self.calls.clear()
+        self.bytes_sent[:] = 0
+
+    # -- parameters --------------------------------------------------------
+
+    @property
+    def model_mesh(self) -> SimMesh:
+        """The model axes alone: a parameter's blocks are its ``place``
+        on this mesh."""
+        return SimMesh(tuple(self.comm.mesh.shape[a] for a in self.axes), self.axes)
+
+    def split_dim(self, pd: shd.PD) -> Optional[int]:
+        """The dimension of ``pd`` split over the model axes (the rules'
+        divisibility fallback applied), or None: replicated."""
+        spec = shd.spec_for(pd, shd.MeshRules(model=self.axes), self.comm.mesh)
+        for i, entry in enumerate(spec):
+            if entry is not None:
+                return i
+        return None
+
+    def param_shape(self, pd: shd.PD) -> Tuple[int, ...]:
+        """The held blocks of ``pd``: ``[n_local, *block]`` when split, else
+        its shape."""
+        d = self.split_dim(pd)
+        if d is None:
+            return tuple(pd.shape)
+        block = list(pd.shape)
+        block[d] //= self.size
+        return (self.n_local,) + tuple(block)
+
+    def _spec(self, ndim: int, dim: int) -> shd.Spec:
+        axes = self.axes[0] if len(self.axes) == 1 else self.axes
+        return (None,) * dim + (axes,) + (None,) * (ndim - dim - 1)
+
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A global tensor split along ``dim`` -> the held blocks
+        ``[n_local, *block]``: :func:`~repro_torch.dist.sharding.place` on
+        the model axes, the held ranks kept."""
+        blocks = shd.place(x, self._spec(x.dim(), dim), self.model_mesh)
+        if self.n_local == self.size:
+            return blocks
+        return blocks[torch.as_tensor(self.local, device=x.device)]
+
+    def unshard(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The inverse of :meth:`shard`: the global tensor, by
+        :func:`~repro_torch.dist.sharding.gather` when every block is held,
+        else by an all-gather over the model axes (unrecorded: it moves a
+        checkpoint, not a step)."""
+        if self.n_local == self.size:
+            return shd.gather(t, self._spec(t.dim() - 1, dim), self.model_mesh)
+        return self.comm.axis_cat(t.contiguous(), self.axes, dim)
+
+    def local_index(self, device) -> torch.Tensor:
+        """int64[n_local]: the model rank of each held block."""
+        return torch.as_tensor(self.local, dtype=torch.int64, device=device)
+
+    # -- recording ---------------------------------------------------------
+
+    def _record(self, kind: str, nbytes: int, wire: int) -> None:
+        if self.recording:
+            self.calls.append((kind, nbytes))
+            rec = self.stats[kind]
+            rec["count"] += 1
+            rec["operand_bytes"] += float(nbytes)
+            rec["wire_bytes"] += float(wire)
+            self.comm.record(kind, nbytes, wire)
+        self.bytes_sent[self.mask] += wire
+        self.comm.bytes_sent[self.mask] += wire
+
+    def _rank_bytes(self, numel: int, itemsize: int, rows: bool) -> int:
+        n = numel * itemsize
+        if rows:
+            if n % self.rows:
+                raise ValueError(f"{n} bytes do not split over {self.rows} data groups")
+            n //= self.rows
+        return n
+
+    # -- primitives (differentiable wrappers below) ------------------------
+
+    def _sum(self, t: torch.Tensor, rows: bool) -> torch.Tensor:
+        nbytes = self._rank_bytes(t[0].numel(), t.element_size(), rows)
+        self._record("all-reduce", nbytes, (self.size - 1) * nbytes)
+        return self.comm.axis_sum(t, self.axes)
+
+    def _cat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        nbytes = self._rank_bytes(t[0].numel(), t.element_size(), True)
+        self._record("all-gather", nbytes, (self.size - 1) * nbytes)
+        return self.comm.axis_cat(t, self.axes, dim)
+
+    def _own(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        blocks = _sim_split(x, self.size, dim)
+        if self.n_local == self.size:
+            return blocks
+        return blocks[torch.as_tensor(self.local, device=x.device)]
+
+    # -- the collectives ---------------------------------------------------
+
+    def copy(self, x: torch.Tensor, rows: bool = True) -> torch.Tensor:
+        """Replicated ``x`` -> ``[n_local, *x.shape]``; all-reduce backward
+        (``rows=False``: ``x`` holds no batch rows, e.g. a parameter)."""
+        return _Copy.apply(x, self, rows)
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``[n_local, ...]`` partial sums -> their replicated sum."""
+        return _Reduce.apply(t, self)
+
+    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``[n_local, ..., n, ...]`` blocks -> replicated ``[..., M * n, ...]``."""
+        return _Gather.apply(t, self, dim)
+
+    def split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Replicated ``x`` -> each held rank's block along ``dim``."""
+        return _Split.apply(x, self, dim)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """``[n_local, ...]`` -> the replicated elementwise max (no gradient)."""
+        t = t.detach()
+        nbytes = self._rank_bytes(t[0].numel(), t.element_size(), True)
+        self._record("all-reduce", nbytes, (self.size - 1) * nbytes)
+        return self.comm.axis_max(t, self.axes)
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated scalar summed over the data axes where other
+        processes hold other groups' rows (identity backward); else ``x``."""
+        return _BatchSum.apply(x, self)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axes where other processes hold the
+        other data groups' rows (the GSPMD step's gradient and loss
+        all-reduces), recorded in the communicator's record only (not a
+        model-axis call); else ``t``."""
+        if not self.split_rows:
+            return t
+        nbytes = t.numel() * t.element_size()
+        groups = self.comm.group_size(self.rest)
+        self.comm.record("all-reduce", nbytes, (groups - 1) * nbytes)
+        self.comm.bytes_sent[self.mask] += (groups - 1) * nbytes
+        return self.comm.axis_sum(t.unsqueeze(0), self.rest)
+
+    def sum_stat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """An optimizer statistic ``t`` (the model axis at ``dim``, size
+        ``n_local``) summed over the model ranks, every rank's copy kept:
+        an all-reduce of one rank's slice, recorded without rows."""
+        moved = t.movedim(dim, 0).contiguous()
+        nbytes = moved[0].numel() * moved.element_size()
+        self._record("all-reduce", nbytes, (self.size - 1) * nbytes)
+        total = self.comm.axis_sum(moved, self.axes)
+        return total.unsqueeze(0).expand_as(moved).movedim(0, dim)

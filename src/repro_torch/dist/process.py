@@ -20,6 +20,12 @@ Backends:
 * **nccl**: CUDA tensors on the wire, one card a process (NCCL refuses two
   ranks on one card).
 
+The tensor-parallel collectives (``core.collectives.TensorParallel``) run
+over the process subgroup of each model group (:meth:`DistCommunicator.subgroup`,
+every group made once by every process): ``axis_sum`` and ``axis_max`` are
+``dist.all_reduce``, ``axis_cat`` is ``dist.all_gather``, staged through
+the host under gloo with CUDA tensors.
+
 :func:`run_group` starts ``world`` processes with the ``spawn`` method (CUDA
 in a child needs it), joins them into one group through a file
 rendezvous, and joins them with a deadline: the first process that fails
@@ -65,6 +71,82 @@ class DistCommunicator(Communicator):
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.stage_s = 0.0  # host time of the pinned staging copies
         self.wire_s = 0.0  # host time from posting a message to its arrival
+        self._subgroups = {}
+
+    def subgroup(self, axes) -> "dist.ProcessGroup":
+        """This rank's process group over ``axes``: the ranks that differ
+        from it only on those axes. The first call for an axis tuple
+        creates every group of the mesh (``dist.new_group`` is collective:
+        every process makes the same calls in the same order)."""
+        axes = tuple(axes)
+        if axes not in self._subgroups:
+            rest = tuple(a for a in self.mesh.axis_names if a not in axes)
+            every = np.arange(self.p, dtype=np.int64)
+            gid = self.mesh.group_index(every, rest)
+            order = np.argsort(self.mesh.group_index(every, axes), kind="stable")
+            mine = None
+            for g in range(int(gid.max()) + 1):
+                members = [int(r) for r in every[order] if gid[r] == g]
+                pg = dist.new_group(members)
+                if self.rank in members:
+                    mine = pg
+            self._subgroups[axes] = mine
+        return self._subgroups[axes]
+
+    def _on_wire(self, t: torch.Tensor, op) -> torch.Tensor:
+        """``op(t')`` on the tensor the backend takes: a host copy under
+        gloo with a CUDA tensor (staged, as :meth:`ppermute`), the result
+        brought back to ``t``'s device."""
+        if not self.staged:
+            t0 = time.perf_counter()
+            out = op(t)
+            self.wire_s += time.perf_counter() - t0
+            return out
+        t0 = time.perf_counter()
+        host = t.detach().to("cpu")
+        self.stage_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = op(host)
+        self.wire_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = out.to(t.device)
+        self.stage_s += time.perf_counter() - t0
+        return out
+
+    def _reduce(self, t: torch.Tensor, axes, op) -> torch.Tensor:
+        if t.shape[0] != 1:
+            raise ValueError(f"buffer has {t.shape[0]} rows, expected this rank's 1")
+        group = self.subgroup(axes)
+
+        def run(x):
+            x = x[0].clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(x, op=op, group=group)
+            return x
+
+        return self._on_wire(t, run)
+
+    def axis_sum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``dist.all_reduce`` (sum) of this rank's block over ``axes``."""
+        return self._reduce(t, axes, dist.ReduceOp.SUM)
+
+    def axis_max(self, t: torch.Tensor, axes) -> torch.Tensor:
+        return self._reduce(t, axes, dist.ReduceOp.MAX)
+
+    def axis_cat(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``dist.all_gather`` of this rank's block over ``axes``, the
+        blocks concatenated along ``dim`` in group order."""
+        if t.shape[0] != 1:
+            raise ValueError(f"buffer has {t.shape[0]} rows, expected this rank's 1")
+        group = self.subgroup(axes)
+        n = dist.get_world_size(group)
+
+        def run(x):
+            x = x[0].contiguous()
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+            return torch.cat(parts, dim=dim)
+
+        return self._on_wire(t, run)
 
     def pmean(self, values: torch.Tensor) -> torch.Tensor:
         total = values.detach().sum().to(torch.float64)

@@ -20,12 +20,16 @@ What each term of an LM row holds:
   the production mesh (:func:`repro_torch.dist.sharding.tree_structs`),
   and the temporaries, the global step's fake peak less its arguments,
   over the chips (``memory_source: "fake, ideal split"``).
-* collectives: what the port itself sends for the step on that mesh: the
-  gradient sync of each parameter leaf's model-axis shard over the data
-  axes, run on fake tensors on a Communicator over them (its bytes equal
-  :func:`repro_torch.core.collectives.grad_sync_bytes`).  Prefill and
-  decode send nothing (the port runs no tensor-parallel compute):
-  ``collectives_model: "port"``.
+* collectives: what the port itself sends for the step on that mesh
+  (``collectives_model: "port"``): on a mesh with a model axis, the
+  tensor-parallel collectives of the step sharded over it
+  (:func:`tp_step_stats`: the model built sharded on simulated ranks and
+  the step run once under fake tensors, its ``TensorParallel`` record, which
+  equals :func:`repro_torch.models.lm.tp_calls`), for the dense and MoE
+  families (the others run no tensor-parallel compute: none); for a train
+  step, also the gradient sync of each parameter leaf's model-axis shard
+  over the data axes, run on fake tensors on a Communicator over them
+  (its bytes equal :func:`repro_torch.core.collectives.grad_sync_bytes`).
 * ``compile_s`` holds the seconds of the fake step, and
   ``compile_runtime_cfg_s`` those of the memory-only step of
   ``--no-analysis`` (the reference's compile-proof mode).
@@ -138,6 +142,46 @@ def fake_step(cfg, shape, *, analysis: bool = True):
                                   shape.seq_len - 1, flops=analysis)
     m.out = None  # the step's outputs are not kept
     return m, time.perf_counter() - t0
+
+
+def tp_step_stats(cfg, shape, mesh, rules) -> Optional[Dict]:
+    """The model-axis collectives one rank makes in the step of ``shape``'s
+    kind at ``cfg`` on ``mesh``, sharded over ``rules.model``: the model
+    built on simulated ranks and the step (the GSPMD train step, prefill,
+    or decode at ``pos = seq_len - 1``) run once under ``FakeTensorMode``;
+    the :class:`~repro_torch.core.collectives.TensorParallel` record in the
+    shape of ``hlo_stats.collective_stats``. None where the mesh has no
+    model axis or the family runs no tensor-parallel compute. FSDP's
+    gathers over the data axes are not modelled: the model axis's
+    collectives do not depend on them."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import collectives
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.models import api, lm
+    from repro_torch.train import optim, step as step_mod
+
+    axes = api.model_axes(rules, mesh)
+    if not axes or cfg.family not in lm.TP_FAMILIES:
+        return None
+    rules = MeshRules(batch=rules.batch, model=rules.model)
+    with FakeTensorMode():
+        tp = collectives.TensorParallel(collectives.Communicator(mesh, "cpu"), axes)
+        model = api.build_model(cfg, torch.device("cpu"), tp)
+        ins = _fake_inputs(api.input_defs(cfg, shape), cfg.compute_dtype)
+        if shape.kind == "train":
+            state = optim.get(cfg.optimizer).init(model)
+            step_mod.build_train_step(cfg, mesh=mesh, rules=rules)(model, state, ins, 0)
+        elif shape.kind == "prefill":
+            with torch.no_grad():
+                api.prefill_fn(cfg, rules, mesh)(model, ins)
+        else:
+            cache = _fake_inputs(api.cache_defs(cfg, shape), cfg.compute_dtype)
+            with torch.no_grad():
+                api.decode_fn(cfg, rules, mesh)(model, cache, ins["token"], shape.seq_len - 1)
+    return {k: {"count": int(v["count"]), "operand_bytes": float(v["operand_bytes"]),
+                "wire_bytes": float(v["wire_bytes"])} for k, v in tp.stats.items()}
 
 
 def _sync_stats(method: str, batch_mesh, fanout: int, n: int, dtype) -> Dict:
@@ -334,10 +378,13 @@ def run_lm_cell(
             _write(out_dir, mesh_name, tag, rec)
             return rec
 
+        parts = []
         if shape.kind == "train":
-            cstats = grad_sync_stats(cfg, mesh, rules, grad_sync, fanout)
-        else:
-            cstats = collectives.empty_stats()
+            parts.append(grad_sync_stats(cfg, mesh, rules, grad_sync, fanout))
+        tp = tp_step_stats(cfg, shape, mesh, rules)
+        if tp is not None:
+            parts.append(tp)
+        cstats = hlo_stats.total_stats(parts) if parts else collectives.empty_stats()
         tables = dict(flops_by_op=m.flops_by_op, collectives=cstats, memory=mem)
         _save_tables(out_dir, mesh_name, tag, tables)
         rec.update(status="ok", chips=chips, compile_s=round(t_step, 1),

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.bfs import resolve_device
 from repro_torch.core.collectives import COLLECTIVE_KINDS, Communicator, empty_stats
 
 #: Dense bfloat16 tensor-core peak, 989 TFLOP/s.
@@ -218,11 +219,13 @@ def collective_stats(comm: Communicator) -> Dict[str, Dict[str, float]]:
             for k, v in comm.collectives.items()}
 
 
-def forcing_inputs(p: int, n_words: int, device="cpu") -> List[Tuple[str, torch.Tensor]]:
+def forcing_inputs(p: int, n_words: int, device="cuda") -> List[Tuple[str, torch.Tensor]]:
     """Bitmaps that force each branch of an adaptive OR sync, in the
     reference's branch order: every bit set on every rank forces the dense
     branch (its ``lax.cond`` False path, branch 0), an empty bitmap the
-    sparse one (branch 1)."""
+    sparse one (branch 1). On ``device``: the card by default (raises when
+    there is none)."""
+    device = resolve_device(device)
     return [("dense", torch.full((p, n_words), -1, dtype=torch.int32, device=device)),
             ("sparse", torch.zeros((p, n_words), dtype=torch.int32, device=device))]
 

@@ -16,7 +16,10 @@ from seeded ``torch.Generator``s, and ``from_reference(cfg, params,
 device=...)`` carries the JAX package's parameter tree (as numpy arrays)
 into it. Both default to the card and raise when there is none.
 ``to_reference(model)`` is the way back: the reference's tree, its layer
-axes stacked again. ``param_leaves`` lists the reference's leaves in its
+axes stacked again. With ``rules=`` and a ``mesh=`` that has a model axis
+the model is built sharded over it (:func:`tensor_parallel`): the entry
+points below then run tensor-parallel, and ``to_reference`` gathers the
+blocks. ``param_leaves`` lists the reference's leaves in its
 leaf order (sorted keys), each with the model's parameters it stacks; the
 optimizers, the gradient trees and the checkpoints work on those leaves.
 
@@ -27,16 +30,17 @@ an ``ml_dtypes.bfloat16`` leaf loads back as (``to_numpy``/``from_numpy``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import collectives
 from repro_torch.core.bfs import resolve_device
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.sharding import PD
+from repro_torch.dist.sharding import PD, MeshRules, SimMesh
 from repro_torch.models import encdec, lm
 
 
@@ -44,10 +48,52 @@ def param_defs(cfg: ModelConfig) -> Dict:
     return encdec.param_defs(cfg) if cfg.family == "audio" else lm.param_defs(cfg)
 
 
-def build_model(cfg: ModelConfig, device) -> nn.Module:
-    """The model's modules, parameters allocated and not yet initialised."""
-    mod = encdec.EncDec if cfg.family == "audio" else lm.LM
-    return mod(cfg, device)
+def build_model(cfg: ModelConfig, device, tp=None) -> nn.Module:
+    """The model's modules, parameters allocated and not yet initialised;
+    sharded over the model axis with ``tp`` (a
+    :class:`~repro_torch.core.collectives.TensorParallel`)."""
+    if cfg.family == "audio":
+        if tp is not None:
+            raise ValueError(f"{cfg.name}: the audio family does not run tensor-parallel")
+        return encdec.EncDec(cfg, device)
+    return lm.LM(cfg, device, tp)
+
+
+def model_axes(rules: Optional[MeshRules], mesh: Optional[SimMesh]) -> Tuple[str, ...]:
+    """The tensor-parallel axes of ``rules`` on ``mesh`` (none without both)."""
+    if rules is None or mesh is None:
+        return ()
+    return tuple(a for a in rules.model if a in mesh.axis_names)
+
+
+def tensor_parallel(rules: Optional[MeshRules], mesh: Optional[SimMesh], device,
+                    comm=None) -> Optional[collectives.TensorParallel]:
+    """The :class:`~repro_torch.core.collectives.TensorParallel` of
+    ``rules.model`` on ``mesh``: over ``comm`` (a ``DistCommunicator`` of
+    the mesh, one rank a process) or simulated ranks on ``device``; None
+    when the mesh has no model axis."""
+    axes = model_axes(rules, mesh)
+    if not axes:
+        return None
+    if rules.fsdp:
+        raise ValueError("tensor parallelism runs with non-FSDP rules only")
+    if comm is None:
+        comm = collectives.Communicator(mesh, device)
+    elif comm.mesh != mesh:
+        raise ValueError(f"the communicator's mesh {comm.mesh} is not {mesh}")
+    return collectives.TensorParallel(comm, axes)
+
+
+def check_sharding(model: nn.Module, rules: Optional[MeshRules],
+                   mesh: Optional[SimMesh]) -> None:
+    """Refuse a model whose layout is not ``rules`` on ``mesh``: a mesh with
+    a model axis needs a model sharded over it (:func:`shard`)."""
+    axes = model_axes(rules, mesh)
+    tp = getattr(model, "tp", None)
+    if axes and (tp is None or tp.axes != axes or tp.comm.mesh != mesh):
+        raise ValueError(f"the model is not sharded over {axes} of {mesh}: build it "
+                         f"with rules= and mesh= (api.init_params, api.from_reference) "
+                         f"or api.shard")
 
 
 def _param_index(model: nn.Module) -> Dict[Tuple[str, ...], list]:
@@ -74,6 +120,52 @@ def param_leaves(model: nn.Module) -> List[Leaf]:
         parts = sorted(parts, key=lambda t: t[0])
         lead = tuple(1 + max(i[a] for i, _ in parts) for a in range(len(parts[0][0])))
         out.append((path, lead, [prm for _, prm in parts]))
+    return out
+
+
+def local_param_defs(model: nn.Module) -> Dict:
+    """The PD tree of what ``model`` holds of each leaf (its stacked
+    shape): the reference's :func:`param_defs`, a sharded model's split
+    leaves as ``lead + [n_local, *block]`` (the held model ranks after the
+    layer axes, logical name None)."""
+    defs = param_defs(model.cfg)
+    if getattr(model, "tp", None) is None:
+        return defs
+    out: Dict = {}
+    for path, lead, prms in param_leaves(model):
+        pd = shd.tree_get(defs, path)
+        if prms[0].tp_dim is not None:
+            nl = len(lead)
+            pd = PD(lead + tuple(prms[0].shape), pd.logical[:nl] + (None,) + pd.logical[nl:],
+                    pd.init, pd.dtype)
+        shd.tree_set(out, path, pd)
+    return out
+
+
+def global_leaves(model: nn.Module, tree: Dict) -> Dict:
+    """A tree shaped as ``model``'s stacked leaves (gradients, say) in the
+    unsharded model's shapes: a sharded model's split leaves, held as
+    ``lead + [n_local, *block]``, gathered from their blocks."""
+    out: Dict = {}
+    for path, lead, prms in param_leaves(model):
+        t = shd.tree_get(tree, path)
+        d = getattr(prms[0], "tp_dim", None)
+        if d is not None:
+            t = model.tp.unshard(t.movedim(len(lead), 0), len(lead) + d)
+        shd.tree_set(out, path, t)
+    return out
+
+
+def held_leaves(model: nn.Module, tree: Dict) -> Dict:
+    """The inverse of :func:`global_leaves`: what a sharded ``model`` holds
+    of each leaf of an unsharded tree."""
+    out: Dict = {}
+    for path, lead, prms in param_leaves(model):
+        t = shd.tree_get(tree, path)
+        d = getattr(prms[0], "tp_dim", None)
+        if d is not None:
+            t = model.tp.shard(t, len(lead) + d).movedim(0, len(lead)).contiguous()
+        shd.tree_set(out, path, t)
     return out
 
 
@@ -106,16 +198,17 @@ def to_reference(model: nn.Module) -> Dict:
     """The reference's parameter tree of ``model``: nested dicts of numpy
     arrays keyed by its paths, the layer axes stacked again (the inverse of
     :func:`from_reference`)."""
-    tree: Dict = {}
+    stacked: Dict = {}
     for path, lead, prms in param_leaves(model):
-        shd.tree_set(tree, path, to_numpy(stack_leaf(lead, prms)))
-    return tree
+        shd.tree_set(stacked, path, stack_leaf(lead, prms))
+    return shd.tree_map(to_numpy, global_leaves(model, stacked))
 
 
 def _load(model: nn.Module, leaves) -> nn.Module:
     """Fill every parameter from ``leaves``, (path, full stacked array)
     pairs; refuse a tree that does not match the model leaf for leaf."""
     index = _param_index(model)
+    tp = getattr(model, "tp", None)
     name = f"{model.cfg.name} {type(model).__name__}"
     seen = set()
     for path, full in leaves:
@@ -128,16 +221,20 @@ def _load(model: nn.Module, leaves) -> nn.Module:
         targets = index[path]
         n_lead = len(targets[0][0])
         want = tuple(full.shape[n_lead:])
+        split = getattr(targets[0][1], "tp_dim", None)
+        have = tuple(targets[0][1].shape)
+        if split is not None:  # the global shape of the held blocks
+            have = have[1:split + 1] + (have[split + 1] * tp.size,) + have[split + 2:]
         if (tuple(full.shape[:n_lead]) != tuple(1 + max(i[a] for i, _ in targets)
                                                for a in range(n_lead))
                 or len(targets) != int(np.prod(full.shape[:n_lead]))
-                or want != tuple(targets[0][1].shape)):
+                or want != have):
             raise ValueError(f"leaf {key!r} has shape {tuple(full.shape)}; the "
-                             f"{name} model wants {len(targets)} x "
-                             f"{tuple(targets[0][1].shape)}")
+                             f"{name} model wants {len(targets)} x {have}")
         with torch.no_grad():
             for idx, prm in targets:
-                prm.copy_(full[idx] if idx else full)
+                x = (full[idx] if idx else full).to(prm.device)
+                prm.copy_(x if split is None else tp.shard(x, split))
         seen.add(path)
     missing = sorted("/".join(p) for p in index if p not in seen)
     if missing:
@@ -146,12 +243,16 @@ def _load(model: nn.Module, leaves) -> nn.Module:
     return model
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> nn.Module:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", rules=None, mesh=None,
+                comm=None) -> nn.Module:
     """A model with seeded weights on ``device`` (the card by default): the
     reference's laws, one ``torch.Generator`` a leaf seeded from ``seed``
-    and the leaf's path. Not bit-equal to ``jax.random``."""
+    and the leaf's path. Not bit-equal to ``jax.random``. With ``rules`` and
+    a ``mesh`` that has a model axis, sharded over it (:func:`tensor_parallel`;
+    ``comm`` a ``DistCommunicator`` of the mesh): every leaf is drawn whole
+    and its blocks kept, so the shards hold the unsharded model's values."""
     dev = resolve_device(device)
-    model = build_model(cfg, dev)
+    model = build_model(cfg, dev, tensor_parallel(rules, mesh, dev, comm))
     return _load(model, shd.iter_init(param_defs(cfg), seed, cfg.param_dtype, dev))
 
 
@@ -163,10 +264,26 @@ def load_reference(module: nn.Module, params) -> nn.Module:
     return _load(module, leaves)
 
 
-def from_reference(cfg: ModelConfig, params, *, device="cuda") -> nn.Module:
+def from_reference(cfg: ModelConfig, params, *, device="cuda", rules=None, mesh=None,
+                   comm=None) -> nn.Module:
     """The JAX package's parameter tree for ``cfg`` (nested dicts of numpy
-    arrays) as the port's model on ``device``."""
-    return load_reference(build_model(cfg, resolve_device(device)), params)
+    arrays) as the port's model on ``device``; sharded as
+    :func:`init_params` with ``rules`` and ``mesh``."""
+    dev = resolve_device(device)
+    return load_reference(build_model(cfg, dev, tensor_parallel(rules, mesh, dev, comm)),
+                          params)
+
+
+def shard(model: nn.Module, rules: MeshRules, mesh: SimMesh, comm=None) -> nn.Module:
+    """A copy of an unsharded ``model`` sharded over ``mesh``'s model axis
+    (the same values; ``model`` is left as it is)."""
+    dev = next(model.parameters()).device
+    tp = tensor_parallel(rules, mesh, dev, comm)
+    if tp is None:
+        raise ValueError(f"{mesh} has no model axis in {rules}")
+    out = build_model(model.cfg, dev, tp)
+    return _load(out, ((path, stack_leaf(lead, prms)) for path, lead, prms
+                       in param_leaves(model)))
 
 
 def input_defs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
@@ -211,33 +328,39 @@ def cache_defs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def train_loss_fn(cfg: ModelConfig):
+def train_loss_fn(cfg: ModelConfig, rules=None, mesh=None):
+    """The loss of a model on ``mesh`` under ``rules``; with a model axis
+    the model must be sharded over it (it then runs tensor-parallel)."""
     mod = encdec if cfg.family == "audio" else lm
 
     def f(model, batch):
+        check_sharding(model, rules, mesh)
         return mod.train_loss(cfg, model, batch)
 
     return f
 
 
-def prefill_fn(cfg: ModelConfig):
+def prefill_fn(cfg: ModelConfig, rules=None, mesh=None):
     if cfg.family == "audio":
 
         def f(model, inputs):
+            check_sharding(model, rules, mesh)
             return encdec.prefill(cfg, model, inputs["tokens"], frames=inputs["frames"])
 
     else:
 
         def f(model, inputs):
+            check_sharding(model, rules, mesh)
             return lm.prefill(cfg, model, inputs["tokens"], patches=inputs.get("patches"))
 
     return f
 
 
-def decode_fn(cfg: ModelConfig):
+def decode_fn(cfg: ModelConfig, rules=None, mesh=None):
     mod = encdec if cfg.family == "audio" else lm
 
     def f(model, cache, token, pos):
+        check_sharding(model, rules, mesh)
         return mod.decode_step(cfg, model, cache, token, pos)
 
     return f

@@ -33,18 +33,35 @@ from repro_torch.dist.sharding import PD, resolve_dtype
 NEG_INF = -1e30
 
 
+def tp_param(cfg: ModelConfig, pd: PD, device, tp=None) -> nn.Parameter:
+    """An uninitialised parameter of ``pd`` in the config's parameter dtype:
+    its global shape, or under tensor parallelism (``tp``, a
+    :class:`~repro_torch.core.collectives.TensorParallel`) the held blocks
+    ``[n_local, *block]`` of a leaf split over the model axis, its split
+    dimension in ``tp_dim`` (None: replicated)."""
+    shape = pd.shape if tp is None else tp.param_shape(pd)
+    prm = nn.Parameter(torch.empty(shape, dtype=resolve_dtype(pd, cfg.param_dtype),
+                                   device=device), requires_grad=False)
+    prm.tp_dim = None if tp is None else tp.split_dim(pd)
+    return prm
+
+
 class ParamModule(nn.Module):
     """A module whose parameters are the PD leaves of ``defs``, allocated
     (uninitialised) on ``device`` in the config's parameter dtype; the
-    weights come from ``api.init_params`` or ``api.from_reference``."""
+    weights come from ``api.init_params`` or ``api.from_reference``. With
+    ``tp`` a leaf split over the model axis holds its blocks
+    (:func:`tp_param`)."""
 
-    def __init__(self, cfg: ModelConfig, defs: Dict[str, PD], device):
+    def __init__(self, cfg: ModelConfig, defs: Dict[str, PD], device, tp=None):
         super().__init__()
         self.cfg = cfg
         for name, pd in defs.items():
-            t = torch.empty(pd.shape, dtype=resolve_dtype(pd, cfg.param_dtype),
-                            device=device)
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, tp_param(cfg, pd, device, tp))
+
+    def split(self, name: str) -> bool:
+        """Whether parameter ``name`` is split over the model axis."""
+        return getattr(self, name).tp_dim is not None
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +110,8 @@ def norm_defs(cfg: ModelConfig) -> Dict[str, PD]:
 
 
 class Norm(ParamModule):
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__(cfg, norm_defs(cfg), device)
+    def __init__(self, cfg: ModelConfig, device, tp=None):
+        super().__init__(cfg, norm_defs(cfg), device, tp)
 
     def forward(self, x):
         return apply_norm(self.cfg, self, x)
@@ -146,8 +163,8 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, PD]:
 
 
 class Attention(ParamModule):
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__(cfg, attn_defs(cfg), device)
+    def __init__(self, cfg: ModelConfig, device, tp=None):
+        super().__init__(cfg, attn_defs(cfg), device, tp)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -224,11 +241,19 @@ def self_attention(
     b, l, d = x.shape
     hk, hq, hd = cfg.n_kv_heads, cfg.n_heads, cfg.resolved_head_dim
     g = hq // hk
-    dev = x.device
-    positions = torch.arange(l, dtype=torch.int32, device=dev)[None, :]
+    positions = torch.arange(l, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _qk_project(cfg, p, x, positions)
-    qg = q.reshape(b, l, hk, g, hd)
+    out = _attend(cfg, q.reshape(b, l, hk, g, hd), k, v, window, causal)
+    y = _out(out.reshape(b, l, hq, hd), p.wo)
+    return y, (k, v)
 
+
+def _attend(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            window: Optional[int], causal: bool) -> torch.Tensor:
+    """The chunked attention of :func:`self_attention`: qg (B, L, Hk, G, D)
+    against k/v (B, L, Hk, D) -> (B, L, Hk, G, D)."""
+    b, l, hk, _, hd = qg.shape
+    dev = qg.device
     q_chunk, n_chunks, _ = attn_chunking(cfg, l, causal)
 
     use_window = window is not None and causal and window < l
@@ -261,9 +286,7 @@ def self_attention(
             if window is not None and causal:
                 valid &= (qpos[:, None] - kpos[None, :]) < window
             outs.append(_sdpa(qc, k, v, _mask(valid)))
-    out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
-    y = _out(out.reshape(b, l, hq, hd), p.wo)
-    return y, (k, v)
+    return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
 
 
 def cross_attention(
@@ -380,8 +403,8 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, PD]:
 
 
 class MLP(ParamModule):
-    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
-        super().__init__(cfg, mlp_defs(cfg, d_ff), device)
+    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None, tp=None):
+        super().__init__(cfg, mlp_defs(cfg, d_ff), device, tp)
 
 
 def mlp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -392,3 +415,150 @@ def mlp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(torch.matmul(x, p.wg))
     h = h * torch.matmul(x, p.wi)
     return torch.matmul(h, p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+#
+# ``tp`` is a :class:`~repro_torch.core.collectives.TensorParallel`. A
+# sharded tensor carries the held model ranks on a leading axis ``n``; a
+# replicated one has none (see its docstring). Attention is column-parallel
+# over heads in ``wq`` (and ``wk``/``wv`` when the kv heads divide the
+# model axis) and row-parallel in ``wo``; the MLP column-parallel in
+# ``wi``/``wg`` over ``ff`` and row-parallel in ``wo``. A replicated tensor
+# enters sharded compute through ``tp.copy`` (its gradient all-reduced), so
+# every replicated parameter's gradient is whole on every rank.
+
+
+def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (n, ..., k) @ w (n, k, m) -> (n, ..., m), one product a held rank."""
+    return torch.matmul(x.flatten(1, -2), w).unflatten(1, x.shape[1:-1])
+
+
+def _kv_of_heads(cfg: ModelConfig, tp, device) -> torch.Tensor:
+    """int64[n, hq/M]: the kv head of each held rank's query heads (for kv
+    heads replicated over the model axis)."""
+    hl = cfg.n_heads // tp.size
+    heads = tp.local_index(device)[:, None] * hl + torch.arange(hl, device=device)
+    return heads // (cfg.n_heads // cfg.n_kv_heads)
+
+
+def _qkv_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, positions: torch.Tensor, tp):
+    """x (B, L, d) replicated -> q (n, B, L, hq/M, D), the keys and values
+    each rank attends with (n, B, L, h', D) and their heads' group size,
+    and a function giving the replicated (B, L, Hk, D) k/v of the cache."""
+    xm = tp.copy(x)
+    q = torch.einsum("nbld,ndhk->nblhk", xm, p.wq)
+    if cfg.qk_norm:
+        q = rmsnorm(q, tp.copy(p.qnorm, rows=False)[:, None, None, None])
+    q = rope(q, positions, cfg.rope_theta)
+    if p.split("wk"):
+        k = torch.einsum("nbld,ndhk->nblhk", xm, p.wk)
+        v = torch.einsum("nbld,ndhk->nblhk", xm, p.wv)
+        if cfg.qk_norm:
+            k = rmsnorm(k, tp.copy(p.knorm, rows=False)[:, None, None, None])
+        k = rope(k, positions, cfg.rope_theta)
+        g = q.shape[3] // k.shape[3]
+        return q, k, v, g, lambda: (tp.gather(k, -2), tp.gather(v, -2))
+    # kv heads do not divide the model axis: wk/wv replicated, every rank
+    # computes all kv heads and keeps its own query heads' (group size 1)
+    k = _proj(x, p.wk)
+    v = _proj(x, p.wv)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p.knorm)
+    k = rope(k, positions, cfg.rope_theta)
+    idx = _kv_of_heads(cfg, tp, x.device)
+    shape = (idx.shape[0],) + tuple(k.shape[:-2]) + (idx.shape[1], k.shape[-1])
+    sel = idx.reshape((idx.shape[0],) + (1,) * (k.dim() - 2) + (idx.shape[1], 1)).expand(shape)
+    ks = torch.gather(tp.copy(k), -2, sel)
+    vs = torch.gather(tp.copy(v), -2, sel)
+    return q, ks, vs, 1, lambda: (k, v)
+
+
+def self_attention_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, tp, *,
+                      window: Optional[int] = None, causal: bool = True,
+                      want_kv: bool = False):
+    """:func:`self_attention` with the heads over the model axis: -> (out
+    (B, L, d) replicated, the replicated (k, v) of the cache when
+    ``want_kv``, else None). Split kv heads are all-gathered for the
+    cache only."""
+    if not p.split("wq"):
+        y, kv = self_attention(cfg, p, x, window=window, causal=causal)
+        return y, (kv if want_kv else None)
+    b, l, _ = x.shape
+    positions = torch.arange(l, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v, g, cache_kv = _qkv_tp(cfg, p, x, positions, tp)
+    n, hl, hd = q.shape[0], q.shape[3], q.shape[4]
+    hk = k.shape[3]
+    out = _attend(cfg, q.reshape(n * b, l, hk, g, hd), k.reshape(n * b, l, hk, hd),
+                  v.reshape(n * b, l, hk, hd), window, causal)
+    y = torch.einsum("nblhd,nhdk->nblk", out.reshape(n, b, l, hl, hd), p.wo)
+    return tp.reduce(y), (cache_kv() if want_kv else None)
+
+
+def _cache_heads(cfg: ModelConfig, p: nn.Module, cache: torch.Tensor, tp) -> torch.Tensor:
+    """The replicated cache (B, S, Hk, D) -> each held rank's heads, folded
+    into the batch: (n * B, S, h', D)."""
+    b, s, hk, hd = cache.shape
+    if p.split("wk"):
+        blocks = cache.unflatten(2, (tp.size, hk // tp.size)).movedim(2, 0)
+        if tp.n_local != tp.size:
+            blocks = blocks[tp.local_index(cache.device)]
+    else:
+        idx = _kv_of_heads(cfg, tp, cache.device)
+        blocks = cache.index_select(2, idx.flatten()).unflatten(2, idx.shape).movedim(2, 0)
+    return blocks.reshape((-1, s) + tuple(blocks.shape[-2:]))
+
+
+def decode_attention_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
+                        cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int, tp, *,
+                        window: Optional[int] = None, ring: bool = False) -> torch.Tensor:
+    """:func:`decode_attention` (``ring``: :func:`decode_attention_ring`)
+    with the heads over the model axis. The cache keeps the reference's
+    replicated layout: split kv heads' new entries are all-gathered into
+    it, then each rank attends with its own heads. Returns the replicated
+    (B, 1, d) output; the cache is written in place."""
+    if not p.split("wq"):
+        if ring:
+            return decode_attention_ring(cfg, p, x, cache_k, cache_v, pos)[0]
+        return decode_attention(cfg, p, x, cache_k, cache_v, pos, window=window)[0]
+    b = x.shape[0]
+    s = cache_k.shape[1]
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q, _, _, _, cache_kv = _qkv_tp(cfg, p, x, positions, tp)
+    k, v = cache_kv()
+    slot = pos % s if ring else pos
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    j = torch.arange(s, dtype=torch.int32, device=x.device)
+    if ring:
+        valid = pos - torch.remainder(pos - j, s) >= 0
+    else:
+        valid = j <= pos
+        if window is not None:
+            valid &= (pos - j) < window
+    kc = _cache_heads(cfg, p, cache_k, tp)
+    vc = _cache_heads(cfg, p, cache_v, tp)
+    n, hl, hd = q.shape[0], q.shape[3], q.shape[4]
+    hk = kc.shape[2]
+    out = _sdpa(q.reshape(n * b, 1, hk, hl // hk, hd), kc, vc, _mask(valid))
+    y = torch.einsum("nblhd,nhdk->nblk", out.reshape(n, b, 1, hl, hd), p.wo)
+    return tp.reduce(y)
+
+
+def mlp_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, tp,
+           partial: bool = False) -> torch.Tensor:
+    """:func:`mlp` over the model axis: column-parallel ``wi``/``wg``,
+    row-parallel ``wo``, the partial sums all-reduced (``partial``: the
+    ``[n, ...]`` partial sums returned instead). Replicated when ``ff``
+    does not divide the axis (then never partial)."""
+    if not p.split("wi"):
+        return mlp(cfg, p, x)
+    xm = tp.copy(x)
+    if not hasattr(p, "wg"):
+        h = F.gelu(bmm(xm, p.wi), approximate="tanh")
+    else:
+        h = F.silu(bmm(xm, p.wg)) * bmm(xm, p.wi)
+    y = bmm(h, p.wo)
+    return y if partial else tp.reduce(y)

@@ -21,6 +21,12 @@ Three entry points share the per-layer bodies: ``forward_hidden`` (train),
 ``prefill`` (returns the KV/SSM cache), ``decode_step`` (one token). With
 ``cfg.remat``, a pass that records gradients checkpoints each layer (each
 period of a periodic group) as the reference's ``jax.checkpoint`` does.
+
+A model built with a :class:`~repro_torch.core.collectives.TensorParallel`
+(``model.tp``; the dense and MoE families) runs every pass tensor-parallel
+over the model axis (the section at the end): heads, kv heads, ff, experts
+and the vocabulary split as the reference's rules split them;
+:func:`tp_calls` is the byte model of its collectives.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import DTYPES, PD, resolve_dtype, tree_map
+from repro_torch.dist.sharding import DTYPES, PD, tree_map
 from repro_torch.models import layers, mamba2, moe as moe_mod
 
 
@@ -153,16 +159,16 @@ def param_defs(cfg: ModelConfig) -> Dict:
 class AttnBlock(nn.Module):
     """Pre-norm attention + MLP (or MoE) block."""
 
-    def __init__(self, cfg: ModelConfig, device, use_moe: bool = False):
+    def __init__(self, cfg: ModelConfig, device, use_moe: bool = False, tp=None):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = layers.Norm(cfg, device)
-        self.attn = layers.Attention(cfg, device)
-        self.ln2 = layers.Norm(cfg, device)
+        self.ln1 = layers.Norm(cfg, device, tp)
+        self.attn = layers.Attention(cfg, device, tp)
+        self.ln2 = layers.Norm(cfg, device, tp)
         if use_moe:
-            self.moe = moe_mod.MoE(cfg, device)
+            self.moe = moe_mod.MoE(cfg, device, tp)
         else:
-            self.mlp = layers.MLP(cfg, device)
+            self.mlp = layers.MLP(cfg, device, tp=tp)
 
     def _ffn(self, x):
         cfg = self.cfg
@@ -187,6 +193,29 @@ class AttnBlock(nn.Module):
             h, ck, cv = layers.decode_attention(self.cfg, self.attn, ln, ck, cv, pos,
                                                 window=window)
         return self._ffn(x + h), ck, cv
+
+    def _ffn_tp(self, x, tp):
+        cfg = self.cfg
+        ln = layers.apply_norm(cfg, self.ln2, x)
+        if hasattr(self, "moe"):
+            return x + moe_mod.moe_block_tp(cfg, self.moe, ln, tp)
+        return x + layers.mlp_tp(cfg, self.mlp, ln, tp)
+
+    def forward_tp(self, x, tp, window: Optional[int] = None, want_kv: bool = False):
+        """:meth:`forward` over the model axis (``tp``): -> (x, the
+        replicated (k, v) when ``want_kv``, else None)."""
+        h, kv = layers.self_attention_tp(self.cfg, self.attn,
+                                         layers.apply_norm(self.cfg, self.ln1, x), tp,
+                                         window=window, want_kv=want_kv)
+        return self._ffn_tp(x + h, tp), kv
+
+    def decode_tp(self, x, ck, cv, pos: int, tp, window: Optional[int] = None,
+                  ring: bool = False):
+        """:meth:`decode` over the model axis."""
+        ln = layers.apply_norm(self.cfg, self.ln1, x)
+        h = layers.decode_attention_tp(self.cfg, self.attn, ln, ck, cv, pos, tp,
+                                       window=window, ring=ring)
+        return self._ffn_tp(x + h, tp)
 
 
 class SSMBlock(nn.Module):
@@ -290,13 +319,13 @@ class JambaPeriod(nn.Module):
         return self._run(x, mixer)
 
 
-def _group_module(cfg: ModelConfig, kind: str, device) -> nn.Module:
+def _group_module(cfg: ModelConfig, kind: str, device, tp=None) -> nn.Module:
     if kind in ("attn", "attn_local"):
-        return AttnBlock(cfg, device)
+        return AttnBlock(cfg, device, tp=tp)
     if kind == "attn_moe":
-        return AttnBlock(cfg, device, use_moe=True)
+        return AttnBlock(cfg, device, use_moe=True, tp=tp)
     if kind == "attn_period":
-        return nn.ModuleList(AttnBlock(cfg, device)
+        return nn.ModuleList(AttnBlock(cfg, device, tp=tp)
                              for _ in range(cfg.locals_per_global + 1))
     if kind == "ssm":
         return SSMBlock(cfg, device)
@@ -305,22 +334,32 @@ def _group_module(cfg: ModelConfig, kind: str, device) -> nn.Module:
     raise ValueError(kind)
 
 
+#: The families whose layers run tensor-parallel over the model axis.
+TP_FAMILIES = ("dense", "moe")
+
+
 class LM(nn.Module):
     """The decoder-only model: ``embed``, ``groups`` (a ``ModuleDict`` of
-    ``ModuleList``s in ``layer_groups`` order), ``final_norm``, ``head``."""
+    ``ModuleList``s in ``layer_groups`` order), ``final_norm``, ``head``.
 
-    def __init__(self, cfg: ModelConfig, device):
+    ``tp`` (a :class:`~repro_torch.core.collectives.TensorParallel`) builds
+    it sharded over the model axis: each leaf the spec splits holds its
+    blocks (``layers.tp_param``), and the passes run tensor-parallel."""
+
+    def __init__(self, cfg: ModelConfig, device, tp=None):
         super().__init__()
+        if tp is not None and cfg.family not in TP_FAMILIES:
+            raise ValueError(f"{cfg.name}: the {cfg.family} family does not run "
+                             f"tensor-parallel (only {TP_FAMILIES})")
         self.cfg = cfg
+        self.tp = tp
         defs = param_defs(cfg)
-        self.embed = layers.ParamModule(cfg, defs["embed"], device)
-        self.final_norm = layers.Norm(cfg, device)
+        self.embed = layers.ParamModule(cfg, defs["embed"], device, tp)
+        self.final_norm = layers.Norm(cfg, device, tp)
         if not cfg.tie_embeddings:
-            pd = defs["head"]
-            self.head = nn.Parameter(torch.empty(pd.shape, dtype=resolve_dtype(
-                pd, cfg.param_dtype), device=device), requires_grad=False)
+            self.head = layers.tp_param(cfg, defs["head"], device, tp)
         self.groups = nn.ModuleDict({
-            name: nn.ModuleList(_group_module(cfg, kind, device) for _ in range(n))
+            name: nn.ModuleList(_group_module(cfg, kind, device, tp) for _ in range(n))
             for name, n, kind in layer_groups(cfg)})
 
 
@@ -467,8 +506,15 @@ def forward_hidden(
     *,
     patches: Optional[torch.Tensor] = None,  # vlm: (B, n_patches, patch_dim)
     want_cache: bool = False,
+    tp=None,
 ):
-    """Full-sequence pass -> final hidden (B, L, d) (+ cache when asked)."""
+    """Full-sequence pass -> final hidden (B, L, d) (+ cache when asked).
+    A sharded model (``model.tp``) runs tensor-parallel; ``tp`` replaces its
+    :class:`~repro_torch.core.collectives.TensorParallel` for this pass
+    (e.g. one data group's view)."""
+    tp = tp if tp is not None else getattr(model, "tp", None)
+    if tp is not None:
+        return _forward_hidden_tp(cfg, model, tokens, tp, want_cache)
     x = embed_tokens(cfg, model, tokens)
     if cfg.family == "vlm":
         pe = torch.matmul(patches.to(x.dtype), model.embed.vit_proj)
@@ -518,10 +564,15 @@ def forward_hidden(
     return (x, caches) if want_cache else x
 
 
-def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
+               tp=None) -> torch.Tensor:
     """The mean next-token cross-entropy; differentiable in the model's
-    parameters (``train.step`` takes its gradients)."""
-    h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"))
+    parameters (``train.step`` takes its gradients). A sharded model's loss
+    is vocab-parallel (:func:`chunked_xent_tp`)."""
+    tp = tp if tp is not None else getattr(model, "tp", None)
+    h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"), tp=tp)
+    if tp is not None:
+        return chunked_xent_tp(cfg, model, h, batch["labels"], tp)
     labels = batch["labels"]
     if cfg.family == "vlm":  # prefix patch positions carry no labels
         pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
@@ -536,6 +587,9 @@ def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor]) -> t
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, patches=None):
     """Process the prompt; return (last-token logits, cache, pos)."""
     h, caches = forward_hidden(cfg, model, tokens, patches=patches, want_cache=True)
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        return lm_logits_tp(cfg, model, h[:, -1], tp), caches, h.shape[1]
     logits = lm_logits(cfg, model, h[:, -1])
     return logits, caches, h.shape[1]
 
@@ -552,6 +606,8 @@ def decode_step(
 ):
     """One decode step; returns (logits (B, V), cache). The cache's tensors
     are written in place and returned in the same dict."""
+    if getattr(model, "tp", None) is not None:
+        return _decode_step_tp(cfg, model, cache, token, pos, model.tp)
     x = embed_tokens(cfg, model, token).to(DTYPES[cfg.compute_dtype])
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
@@ -590,3 +646,300 @@ def decode_step(
     x = layers.apply_norm(cfg, model.final_norm, x)
     logits = lm_logits(cfg, model, x[:, 0])
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+#
+# A sharded model (``model.tp``, a
+# :class:`~repro_torch.core.collectives.TensorParallel`) splits the
+# vocabulary of the embedding and the head over the model axis: the
+# embedding looks up the rows its shard holds and the partial rows are
+# all-reduced; the logits are column-parallel (all-gathered for serving);
+# the loss takes a vocab-parallel log-sum-exp (a max all-reduce, then an
+# all-reduce of the shifted exponentials' sums and of the target logit,
+# which its owner alone holds). The padded vocabulary's dead columns fall
+# in the last shard and are masked there.
+
+
+def _vocab_cols(tp, width: int, device) -> torch.Tensor:
+    """int64[n, width]: the global vocabulary column of each held shard's
+    columns."""
+    return tp.local_index(device)[:, None] * width + torch.arange(width, device=device)
+
+
+def embed_tokens_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`embed_tokens` with the table split over the vocabulary: each
+    rank's rows for the tokens it holds (zeros elsewhere), all-reduced."""
+    if not model.embed.split("tok"):
+        return embed_tokens(cfg, model, tokens)
+    tab = model.embed.tok  # (n, V/M, d)
+    n, width = tab.shape[:2]
+    idx = tokens.long()[None] - tp.local_index(tokens.device)[:, None, None] * width
+    inside = (idx >= 0) & (idx < width)
+    rows = tab[torch.arange(n, device=tab.device)[:, None, None], idx.clamp(0, width - 1)]
+    x = tp.reduce(rows * inside[..., None].to(rows.dtype))
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+
+
+def _head_tp(cfg: ModelConfig, model: LM):
+    """The head's held blocks (n, d, V/M), or None when it is replicated."""
+    if cfg.tie_embeddings:
+        return model.embed.tok.transpose(-1, -2) if model.embed.split("tok") else None
+    return model.head if model.head.tp_dim is not None else None
+
+
+def lm_logits_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`lm_logits` column-parallel over the vocabulary, the shards
+    all-gathered: the replicated (..., V) logits."""
+    head = _head_tp(cfg, model)
+    if head is None:
+        return lm_logits(cfg, model, h)
+    logits = layers.bmm(tp.copy(h), head)  # (n, ..., V/M)
+    if cfg.padded_vocab != cfg.vocab:  # mask dead pad columns, in the last shard
+        n, width = head.shape[0], head.shape[-1]
+        dead = _vocab_cols(tp, width, h.device) >= cfg.vocab
+        logits = logits.masked_fill(dead.reshape((n,) + (1,) * (logits.dim() - 2) + (width,)),
+                                    -1e30)
+    return tp.gather(logits, -1)
+
+
+def chunked_xent_tp(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
+                    tp, chunk: int = 1024) -> torch.Tensor:
+    """:func:`chunked_xent` with a vocab-parallel log-sum-exp. Where other
+    processes hold other data groups' rows (``tp.split_rows``) the sums of
+    the losses and of the valid tokens are all-reduced over the data axes,
+    so the value and its gradient are the global batch's mean."""
+    b, l, d = h.shape
+    chunk = min(chunk, l)
+    while l % chunk:
+        chunk //= 2
+    head = _head_tp(cfg, model)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    if head is None:
+        full = _head(cfg, model)
+    else:
+        n, width = head.shape[0], head.shape[-1]
+        hm = tp.copy(h)
+        lo = tp.local_index(h.device)[:, None, None] * width
+        pad_mask = None
+        if cfg.padded_vocab != cfg.vocab:
+            pad_mask = torch.zeros((n, width), dtype=torch.float32, device=h.device)
+            pad_mask.masked_fill_(_vocab_cols(tp, width, h.device) >= cfg.vocab, -1e30)
+    for ci in range(l // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        yc = labels[:, sl].long()
+        y0 = torch.clamp_min(yc, 0)
+        if head is None:
+            logits = torch.matmul(h[:, sl], full).float()
+            if cfg.padded_vocab != cfg.vocab:
+                logits[..., cfg.vocab:] = -1e30
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, y0[..., None])[..., 0]
+        else:
+            logits = layers.bmm(hm[:, :, sl], head).float()  # (n, B, c, V/M)
+            if pad_mask is not None:
+                logits = logits + pad_mask[:, None, None, :]
+            mx = tp.max(logits.amax(dim=-1))
+            lse = torch.log(tp.reduce(torch.exp(logits - mx[..., None]).sum(dim=-1))) + mx
+            local = y0[None] - lo
+            inside = ((local >= 0) & (local < width)).to(logits.dtype)
+            picked = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+            gold = tp.reduce(picked * inside)
+        valid = (yc >= 0).float()
+        tot = tot + ((lse - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    tot, cnt = tp.batch_sum(tot), tp.batch_sum(cnt)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _period_fwd_tp(cfg: ModelConfig, period: nn.ModuleList, x, tp, want_kv: bool):
+    kvs = []
+    for j, blk in enumerate(period):
+        x, kv = blk.forward_tp(x, tp, _period_window(cfg, j), want_kv)
+        kvs.append(kv)
+    return x, kvs
+
+
+def _forward_hidden_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp,
+                       want_cache: bool):
+    """:func:`forward_hidden` over the model axis (dense and MoE groups)."""
+    x = embed_tokens_tp(cfg, model, tokens, tp).to(DTYPES[cfg.compute_dtype])
+    caches = {}
+    for name, n, kind in layer_groups(cfg):
+        blocks = model.groups[name]
+        kvs = []
+        if kind in ("attn", "attn_moe", "attn_local"):
+            window = cfg.local_window if kind == "attn_local" else None
+            for blk in blocks:
+                x, kv = remat(cfg, blk.forward_tp, x, tp, window, want_cache)
+                kvs.append(kv)
+            if want_cache:
+                caches[name] = _stack_kv(kvs)
+        elif kind == "attn_period":
+            for period in blocks:
+                x, inner = remat(cfg, _period_fwd_tp, cfg, period, x, tp, want_cache)
+                if want_cache:
+                    kvs.append(_stack_kv(inner))
+            if want_cache:
+                caches[name] = {c: torch.stack([kv[c] for kv in kvs]) for c in ("k", "v")}
+        else:
+            raise ValueError(f"{kind} layers do not run tensor-parallel")
+    x = layers.apply_norm(cfg, model.final_norm, x)
+    return (x, caches) if want_cache else x
+
+
+def _decode_step_tp(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tensor,
+                    pos: int, tp):
+    """:func:`decode_step` over the model axis; the cache keeps the
+    reference's (replicated) layout."""
+    x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
+    for name, n, kind in layer_groups(cfg):
+        blocks = model.groups[name]
+        gc = cache[name]
+        if kind in ("attn", "attn_moe", "attn_local"):
+            window = cfg.local_window if kind == "attn_local" else None
+            ring = cfg.ring_local_cache and kind == "attn_local"
+            for i, blk in enumerate(blocks):
+                x = blk.decode_tp(x, gc["k"][i], gc["v"][i], pos, tp, window, ring)
+        elif kind == "attn_period":
+            per = cfg.locals_per_global + 1
+            for i, period in enumerate(blocks):
+                jl = 0
+                for j in range(per):
+                    w = _period_window(cfg, j)
+                    if not cfg.ring_local_cache:
+                        x = period[j].decode_tp(x, gc["k"][i, j], gc["v"][i, j], pos, tp, w)
+                    elif w is None:
+                        loc = gc["global"]
+                        x = period[j].decode_tp(x, loc["k"][i, 0], loc["v"][i, 0], pos, tp)
+                    else:
+                        loc = gc["local"]
+                        x = period[j].decode_tp(x, loc["k"][i, jl], loc["v"][i, jl], pos, tp,
+                                                ring=True)
+                        jl += 1
+        else:
+            raise ValueError(f"{kind} layers do not run tensor-parallel")
+    x = layers.apply_norm(cfg, model.final_norm, x)
+    return lm_logits_tp(cfg, model, x[:, 0], tp), cache
+
+
+def _itemsize(name: str) -> int:
+    return torch.empty((), dtype=DTYPES[name]).element_size()
+
+
+def tp_calls(cfg: ModelConfig, kind: str, rows: int, seq: int, size: int,
+             chunk: int = 1024) -> List[Tuple[str, int]]:
+    """The byte model of a sharded pass: the model-axis collectives one rank
+    makes, as (HLO kind, operand bytes) in the order the pass makes them
+    (each one's wire bytes are ``(size - 1)`` times its operand's).
+
+    ``kind``: ``prefill`` (``seq`` prompt tokens), ``decode`` (one token),
+    or ``train`` (:func:`train_loss` and its gradient: the forward's calls,
+    then the backward's, remat's recomputed forward calls included, in
+    the order of the layers, not autograd's); ``rows`` is one data
+    group's batch rows. Mirrors the functions above call by call."""
+    a, pb = _itemsize(cfg.compute_dtype), _itemsize(cfg.param_dtype)
+    logit_b = torch.promote_types(DTYPES[cfg.compute_dtype], DTYPES[cfg.param_dtype]).itemsize
+    hq, hk, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    heads, kv = hq % size == 0, hk % size == 0
+    vocab = cfg.padded_vocab % size == 0
+    l = 1 if kind == "decode" else seq
+    x = rows * l * d * a  # one replicated activation
+    fwd: List[Tuple[str, int]] = []  # the forward's calls
+    bwd: List[Tuple[str, int]] = []  # the backward's (train)
+    train = kind == "train"
+
+    def mlp(ff: int, partial: bool = False):
+        if ff % size:
+            return []
+        if train:
+            bwd.append(("all-reduce", x))
+        return [] if partial else [("all-reduce", x)]
+
+    def layer(moe: bool) -> List[Tuple[str, int]]:
+        out: List[Tuple[str, int]] = []
+        if heads:
+            if train:
+                bwd.append(("all-reduce", x))
+                if cfg.qk_norm:
+                    bwd.append(("all-reduce", hd * pb))
+                    if kv:
+                        bwd.append(("all-reduce", hd * pb))
+                if not kv:
+                    bwd.extend([("all-reduce", rows * l * hk * hd * a)] * 2)
+            out.append(("all-reduce", x))
+            if kv and kind == "prefill":  # the cache's k/v, after the output
+                out.extend([("all-gather", rows * l * (hk // size) * hd * a)] * 2)
+            elif kv and kind == "decode":  # the new entry, before attending
+                out[-1:-1] = [("all-gather", rows * l * (hk // size) * hd * a)] * 2
+        if not moe:
+            return out + mlp(cfg.d_ff)
+        e, k = cfg.n_experts, cfg.experts_per_token
+        if e % size == 0:
+            out.append(("all-gather", rows * l * (e // size) * 4))
+            if train:
+                bwd.append(("all-reduce", rows * l * d * 4))
+                bwd.append(("all-gather", rows * (e // size) * moe_mod.capacity(cfg, l) * d * a))
+                bwd.append(("all-reduce", rows * l * k * 4))
+            shared = cfg.d_expert * cfg.n_shared_experts if cfg.n_shared_experts else 0
+            if shared:
+                mlp(shared, partial=True)
+            out.append(("all-reduce", x))
+        elif cfg.n_shared_experts:
+            out.extend(mlp(cfg.d_expert * cfg.n_shared_experts))
+        return out
+
+    if vocab:
+        fwd.append(("all-reduce", rows * l * d * pb))
+    for _, n, group in layer_groups(cfg):
+        per = cfg.locals_per_global + 1 if group == "attn_period" else 1
+        for _ in range(n):  # one remat unit: a layer, or a period
+            calls: List[Tuple[str, int]] = []
+            ffn = 0
+            for _ in range(per):
+                before = len(calls)
+                calls.extend(layer(group == "attn_moe"))
+                last = calls[before:][-1:] == [("all-reduce", x)]
+                ffn = 1 if last and _ffn_split(cfg, group == "attn_moe", size) else 0
+            fwd.extend(calls)
+            if train and cfg.remat:
+                # the recompute stops at the last op whose saved tensors the
+                # backward needs (checkpoint's early stop): a unit's trailing
+                # FFN all-reduce, whose output nothing saves, is not rerun
+                bwd.extend(calls[:len(calls) - ffn])
+    if vocab:
+        if train:
+            bwd.append(("all-reduce", x))
+            c = min(chunk, l)
+            while l % c:
+                c //= 2
+            for _ in range(l // c):
+                fwd.extend([("all-reduce", rows * c * 4)] * 3)
+        else:
+            fwd.append(("all-gather", rows * (cfg.padded_vocab // size) * logit_b))
+    return fwd + bwd
+
+
+def _ffn_split(cfg: ModelConfig, moe: bool, size: int) -> bool:
+    """Whether a layer's FFN ends in the model-axis all-reduce."""
+    if moe:
+        return cfg.n_experts % size == 0 or bool(
+            cfg.n_shared_experts and (cfg.d_expert * cfg.n_shared_experts) % size == 0)
+    return cfg.d_ff % size == 0
+
+
+def tp_stats(calls: List[Tuple[str, int]], size: int) -> Dict:
+    """``{kind: {count, operand_bytes, wire_bytes}}`` of :func:`tp_calls`'s
+    list, as ``TensorParallel.stats`` records them."""
+    from repro_torch.core.collectives import empty_stats
+
+    out = empty_stats()
+    for kind, nbytes in calls:
+        rec = out[kind]
+        rec["count"] += 1
+        rec["operand_bytes"] += float(nbytes)
+        rec["wire_bytes"] += float((size - 1) * nbytes)
+    return out

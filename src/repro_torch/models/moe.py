@@ -48,13 +48,13 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, PD]:
 
 
 class MoE(layers.ParamModule):
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, tp=None):
         defs = moe_defs(cfg)
         shared = defs.pop("shared", None)
-        super().__init__(cfg, defs, device)
+        super().__init__(cfg, defs, device, tp)
         if shared is not None:
             self.shared = layers.MLP(cfg, device,
-                                     d_ff=cfg.d_expert * cfg.n_shared_experts)
+                                     d_ff=cfg.d_expert * cfg.n_shared_experts, tp=tp)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -81,11 +81,19 @@ def _route_row(flat_e: torch.Tensor, k: int, cap: int):
 
 def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
     """x: (B, L, d) -> (B, L, d), every row routed on its own."""
+    logits = torch.einsum("bld,de->ble", x.float(), p.router)
+    out = _routed(cfg, p, x, logits)
+    if hasattr(p, "shared"):
+        out = out + layers.mlp(cfg, p.shared, x)
+    return out
+
+
+def _dispatch(cfg: ModelConfig, x: torch.Tensor, logits: torch.Tensor):
+    """The router's top-k and each row's dispatch: -> (buf (B, E, C, d),
+    the plan (tok, slot, valid, order) and the combine weights (B, L*k))."""
     b, l, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = capacity(cfg, l)
-
-    logits = torch.einsum("bld,de->ble", x.float(), p.router)
     probs = torch.softmax(logits, dim=-1)
     w, sel = top_k(probs, k)  # (B, L, k)
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
@@ -98,25 +106,78 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
     gathered = gathered * valid[..., None].to(x.dtype)
     buf = torch.zeros((b, e * cap, d), dtype=x.dtype, device=x.device)
     buf.scatter_add_(1, slot[..., None].expand(-1, -1, d), gathered)
-    buf = buf.reshape(b, e, cap, d)
+    return buf.reshape(b, e, cap, d), (tok, slot, valid, order), w.reshape(b, l * k)
+
+
+def _by_token(contrib: torch.Tensor, order: torch.Tensor, l: int, k: int) -> torch.Tensor:
+    """(..., B, L*k, d) contributions in sorted-assignment order -> each
+    token's k contributions summed in that order: (..., B, L, d)."""
+    d = contrib.shape[-1]
+    rank = torch.argsort(order, dim=-1)  # assignment -> its sorted position
+    by_tok = torch.sort(rank.reshape(rank.shape[:-1] + (l, k)), dim=-1).values
+    by_tok = by_tok.reshape(rank.shape).expand(contrib.shape[:-1])
+    parts = torch.gather(contrib, -2, by_tok[..., None].expand(contrib.shape))
+    parts = parts.reshape(contrib.shape[:-2] + (l, k, d))
+    out = torch.zeros(contrib.shape[:-2] + (l, d), dtype=contrib.dtype, device=contrib.device)
+    for j in range(k):
+        out = out + parts[..., j, :]
+    return out
+
+
+def _routed(cfg: ModelConfig, p: MoE, x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """The routed experts' output (B, L, d) of router ``logits``."""
+    b, l, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = capacity(cfg, l)
+    buf, (tok, slot, valid, order), w_flat = _dispatch(cfg, x, logits)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p.wg))
     h = h * torch.einsum("becd,edf->becf", buf, p.wi)
     y = torch.einsum("becf,efd->becd", h, p.wo).reshape(b, e * cap, d)
 
-    w_flat = w.reshape(b, l * k)
     scale = (torch.gather(w_flat, 1, order) * valid)[..., None].to(y.dtype)
     contrib = torch.gather(y, 1, slot[..., None].expand(-1, -1, d)) * scale
-    # each token's k contributions, in sorted-assignment order
-    rank = torch.argsort(order, dim=-1)  # assignment -> its sorted position
-    by_tok = torch.sort(rank.reshape(b, l, k), dim=-1).values.reshape(b, l * k)
-    parts = torch.gather(contrib, 1, by_tok[..., None].expand(-1, -1, d)).reshape(b, l, k, d)
-    out = torch.zeros((b, l, d), dtype=y.dtype, device=y.device)
-    for j in range(k):
-        out = out + parts[:, :, j]
-    if hasattr(p, "shared"):
-        out = out + layers.mlp(cfg, p.shared, x)
-    return out
+    return _by_token(contrib, order, l, k)
+
+
+def moe_block_tp(cfg: ModelConfig, p: MoE, x: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`moe_block` with the experts over the model axis (``tp``, a
+    :class:`~repro_torch.core.collectives.TensorParallel`). The router's
+    logits, split over experts, are all-gathered before the top-k; each
+    row's dispatch plan is computed whole on every rank; each rank runs its
+    own experts on its block of the dispatch buffer and combines their
+    contributions; the partial outputs (with a split shared expert's) are
+    summed by one all-reduce. Experts that do not divide the axis run
+    replicated."""
+    b, l, d = x.shape
+    k = cfg.experts_per_token
+    cap = capacity(cfg, l)
+    if p.split("router"):
+        logits = tp.gather(torch.einsum("nbld,nde->nble", tp.copy(x.float()), p.router), -1)
+    else:
+        logits = torch.einsum("bld,de->ble", x.float(), p.router)
+    shared = hasattr(p, "shared")
+    if not p.split("wi"):
+        out = _routed(cfg, p, x, logits)
+        return out + layers.mlp_tp(cfg, p.shared, x, tp) if shared else out
+    buf, (_, slot, valid, order), w_flat = _dispatch(cfg, x, logits)
+    mine = tp.split(buf, 1)  # (n, B, E/M, C, d)
+    h = F.silu(torch.einsum("nbecd,nedf->nbecf", mine, p.wg))
+    h = h * torch.einsum("nbecd,nedf->nbecf", mine, p.wi)
+    y = torch.einsum("nbecf,nefd->nbecd", h, p.wo)
+    n, width = y.shape[0], y.shape[2] * cap
+    y = y.reshape(n, b, width, d)
+    # each rank's own slots of the (E*C) buffer
+    lo = tp.local_index(x.device) * width
+    local = slot[None] - lo[:, None, None]  # (n, B, L*k)
+    own = (local >= 0) & (local < width) & valid[None]
+    scale = (tp.copy(torch.gather(w_flat, 1, order)) * own)[..., None].to(y.dtype)
+    idx = local.clamp(0, width - 1)[..., None].expand(-1, -1, -1, d)
+    out = _by_token(torch.gather(y, 2, idx) * scale, order[None].expand(n, -1, -1), l, k)
+    if shared and p.shared.split("wi"):
+        return tp.reduce(out + layers.mlp_tp(cfg, p.shared, x, tp, partial=True))
+    out = tp.reduce(out)
+    return out + layers.mlp(cfg, p.shared, x) if shared else out
 
 
 def aux_load_loss(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:

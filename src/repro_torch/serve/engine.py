@@ -95,14 +95,19 @@ def generate(
     temperature: float = 0.0,
     top_k: int = 0,
     seed: int = 0,
+    rules=None,
+    mesh=None,
 ) -> GenerateResult:
     """Prefill the prompts then decode ``n_new`` tokens (greedy or sampled)
-    on the model's device."""
+    on the model's device. With ``rules`` and a ``mesh`` that has a model
+    axis the model must be sharded over it (``api.init_params(...,
+    rules=, mesh=)``): it runs tensor-parallel, and each token comes from
+    the full (all-gathered) logits."""
     dev = model.embed.tok.device
     b, lp = prompts.shape
     inputs = {k: v.to(dev) for k, v in {"tokens": prompts, **(extra_inputs or {})}.items()}
-    prefill = api.prefill_fn(cfg)
-    decode = api.decode_fn(cfg)
+    prefill = api.prefill_fn(cfg, rules, mesh)
+    decode = api.decode_fn(cfg, rules, mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.inference_mode():

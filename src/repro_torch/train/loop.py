@@ -16,6 +16,13 @@ simulated failures (the port of ``repro.train.loop``).
 loop runs one rank a process: the butterfly step over the process group
 (``"xla"`` becomes its ``xla_psum``), every process restoring from the
 checkpoint and rank 0 alone writing it and printing.
+
+Given a ``mesh`` with a model axis, the model is sharded over it and
+trains tensor-parallel: ``"xla"`` is the GSPMD step, any other method the
+butterfly step with the model axis inside, on simulated ranks or, with
+``comm`` (a ``DistCommunicator`` of ``mesh``), one rank a process. Its
+checkpoint is the unsharded run's file (every process gathers the shards,
+rank 0 writes), and a restore shards it again.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ def train(
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     device="cuda",
     comm=None,
+    mesh: Optional[shd.SimMesh] = None,
 ) -> Dict:
     """Train ``loop.n_steps`` steps on ``device`` (the card by default;
     raises when there is none). Returns the model under "params", the
@@ -74,7 +82,16 @@ def train(
     opt = optim.get(cfg.optimizer)
     data = SyntheticLM(cfg, batch_size, seq_len)
     lead = comm is None or comm.rank == 0
-    if loop.grad_sync == "xla" and comm is None:
+    rules = rules or (shd.rules_for_mesh(mesh) if mesh is not None else None)
+    tp = api.tensor_parallel(rules, mesh, dev, comm)
+    if tp is not None and loop.grad_sync == "xla":
+        fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules,
+                                       microbatches=loop.microbatches, lr_kw=loop.lr_kw)
+    elif tp is not None:
+        fn = step_mod.build_train_step_butterfly(
+            cfg, mesh, rules, method=loop.grad_sync, fanout=loop.fanout,
+            microbatches=loop.microbatches, lr_kw=loop.lr_kw, comm=comm)
+    elif loop.grad_sync == "xla" and comm is None:
         fn = step_mod.build_train_step(cfg, microbatches=loop.microbatches,
                                        lr_kw=loop.lr_kw)
     else:
@@ -90,15 +107,17 @@ def train(
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
         start, trees = ckpt.restore(
             loop.ckpt_dir,
-            {"params": api.build_model(cfg, dev),
+            {"params": api.build_model(cfg, dev, tp),
              "opt_state": opt.state_defs(api.param_defs(cfg))},
             device=dev,
         )
-        model, opt_state = trees["params"], trees["opt_state"]
+        model = trees["params"]
+        opt_state = optim.local_state(model, trees["opt_state"])
         if lead:
             print(f"[restart] resumed from step {start}")
     if model is None:
-        model = api.init_params(cfg, seed, device=dev)
+        model = (api.init_params(cfg, seed, device=dev) if tp is None else
+                 api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh, comm=comm))
         opt_state = opt.init(model)
 
     ewma = None
@@ -124,13 +143,16 @@ def train(
             print(f"[straggler] step {step}: {dt:.2f}s vs ewma {ewma:.2f}s")
         if step % loop.log_every == 0 and lead:
             print(f"step {step:5d} loss {loss:.4f} ({dt:.2f}s)")
-        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0 and lead:
-            if pending is not None:
-                pending.join()  # one in-flight async save at a time
-            pending = ckpt.save(
-                loop.ckpt_dir, step + 1, {"params": model, "opt_state": opt_state},
-                async_=loop.async_ckpt, meta={"arch": cfg.name},
-            )
+        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
+            trees = {"params": model, "opt_state": opt_state}
+            if tp is not None:  # every process gathers the shards
+                trees = {"params": api.to_reference(model),
+                         "opt_state": optim.global_state(model, opt_state)}
+            if lead:
+                if pending is not None:
+                    pending.join()  # one in-flight async save at a time
+                pending = ckpt.save(loop.ckpt_dir, step + 1, trees,
+                                    async_=loop.async_ckpt, meta={"arch": cfg.name})
     if pending is not None:
         pending.join()
     return {"params": model, "opt_state": opt_state, "losses": losses,

@@ -4,7 +4,8 @@ Two distribution paths:
 
 * ``build_train_step`` — the whole batch on one device: the reference's
   GSPMD step, whose compiler-scheduled all-reduce has no second device to
-  sync with here.
+  sync with here; with ``mesh=`` and ``rules=`` whose model axis shards
+  the model, tensor-parallel over it.
 * ``build_train_step_butterfly`` — the paper's communication pattern as
   the gradient sync over the ``rules.batch`` axes of a
   :class:`~repro_torch.dist.sharding.SimMesh` (hierarchically when there
@@ -25,7 +26,10 @@ Two distribution paths:
   ``torch.distributed`` and applies its own copy; ``rank_spread`` is then
   left out (a comparison across processes would ship every gradient once
   more; compare the processes' parameters instead). Requires non-FSDP
-  rules (refused).
+  rules (refused). With a model axis in ``rules`` the model axis stays
+  inside, as the reference's ``shard_map`` keeps it: each data group's
+  backward runs tensor-parallel and each model rank's shard is synced
+  over the data axes (``_butterfly_tp``).
 
 Gradients are trees keyed by the reference's parameter paths, in its
 stacked shapes (``api.param_leaves``). With ``microbatches == 1`` they are
@@ -40,15 +44,17 @@ the model and the state are updated in place.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import DTYPES, MeshRules, SimMesh, sorted_leaves, tree_get, tree_set
-from repro_torch.models import api
+from repro_torch.models import api, lm
 from repro_torch.train import optim
 
 
@@ -120,17 +126,33 @@ def _grads_of(loss_fn, model, batch: Dict, microbatches: int, accum_dtype=torch.
     return loss, out
 
 
-def build_train_step(cfg: ModelConfig, *, microbatches: int = 1, clip_norm: float = 1.0,
-                     lr_kw: Optional[Dict] = None):
-    """One-device train step: (model, opt_state, batch, step_idx) -> ..."""
-    loss_fn = api.train_loss_fn(cfg)
+def build_train_step(cfg: ModelConfig, *, mesh: Optional[SimMesh] = None,
+                     rules: Optional[MeshRules] = None, microbatches: int = 1,
+                     clip_norm: float = 1.0, lr_kw: Optional[Dict] = None):
+    """The GSPMD train step: (model, opt_state, batch, step_idx) -> ...
+
+    Without a model axis the whole batch runs on the model's device. With
+    ``mesh`` and ``rules`` whose model axis splits the model (built with
+    them, ``api.init_params(..., rules=, mesh=)``), the step runs
+    tensor-parallel: on simulated ranks the global batch passes at once
+    (the data axes' gradient all-reduce is then the sum autograd takes),
+    under a ``DistCommunicator`` each process its own data group's rows,
+    each process takes its data group's rows of the global batch, the
+    loss's sums and every gradient all-reduced over the data axes."""
+    loss_fn = api.train_loss_fn(cfg, rules, mesh)
     opt = optim.get(cfg.optimizer)
     lr_kw = lr_kw or {}
     accum = DTYPES[cfg.grad_accum_dtype]
 
     def step(model, opt_state, batch, step_idx):
+        tp = getattr(model, "tp", None)
+        if tp is not None and tp.split_rows:  # this process's data group's rows
+            group = int(tp.comm.mesh.group_index(tp.comm.ranks, tp.rest)[0])
+            batch = _split_batch(batch, tp.comm.group_size(tp.rest))[group]
         loss, grads = _grads_of(loss_fn, model, batch, microbatches, accum)
-        grads, gnorm = optim.clip_by_global_norm(grads, clip_norm)
+        if tp is not None and tp.split_rows:
+            grads = shd.tree_map(tp.data_sum, grads)
+        grads, gnorm = optim.clip_by_global_norm(grads, clip_norm, model)
         lr = optim.cosine_lr(step_idx, **lr_kw)
         model, opt_state = opt.apply(model, grads, opt_state, lr)
         return model, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -163,6 +185,10 @@ def build_train_step_butterfly(
         raise ValueError("the butterfly grad-sync path requires non-FSDP params")
     if compress not in (None, "int8"):
         raise ValueError(f"unknown compression {compress!r}")
+    if api.model_axes(rules, mesh):
+        return _butterfly_tp(cfg, mesh, rules, method=method, fanout=fanout,
+                             microbatches=microbatches, clip_norm=clip_norm,
+                             compress=compress, lr_kw=lr_kw, comm=comm)
     axes = tuple(rules.batch)
     batch_mesh = SimMesh(tuple(mesh.shape[a] for a in axes), axes)
     p = batch_mesh.ranks
@@ -204,6 +230,80 @@ def build_train_step_butterfly(
             tree_set(grads, path, synced[0].clone())
             del synced
         grads, gnorm = optim.clip_by_global_norm(grads, clip_norm)
+        lr = optim.cosine_lr(step_idx, **lr_kw)
+        model, opt_state = opt.apply(model, grads, opt_state, lr)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   "bytes_per_rank": int(c.bytes_sent[0]) - sent}
+        if comm is None:
+            metrics["rank_spread"] = spread
+        return model, opt_state, metrics
+
+    return step
+
+
+def _butterfly_tp(cfg: ModelConfig, mesh: SimMesh, rules: MeshRules, *, method: str,
+                  fanout: int, microbatches: int, clip_norm: float,
+                  compress: Optional[str], lr_kw: Optional[Dict], comm):
+    """The butterfly step with the model axis inside: each data group's
+    backward runs tensor-parallel (its model ranks' blocks), then every
+    rank's gradient of its block (and of each replicated leaf) is synced
+    over ``rules.batch``'s axes within its model column. ``comm`` (a
+    ``DistCommunicator`` of the whole mesh) or the model's simulated
+    communicator carries both."""
+    axes = tuple(rules.batch)
+    opt = optim.get(cfg.optimizer)
+    lr_kw = lr_kw or {}
+    accum = DTYPES[cfg.grad_accum_dtype]
+    n_groups = math.prod(mesh.shape[a] for a in axes)
+
+    def sync(g, c):
+        if compress == "int8":
+            return collectives.sync_leaf_int8(g, c, fanout=fanout, axes=axes)
+        return collectives.sync_leaf(g, c, method=method, fanout=fanout, axes=axes)
+
+    def step(model, opt_state, batch, step_idx):
+        api.check_sharding(model, rules, mesh)
+        tp = model.tp
+        c = tp.comm
+        if comm is not None and comm is not c:
+            raise ValueError("the model is sharded over another communicator")
+        sent = int(c.bytes_sent[0])
+        group = c.mesh.group_index(c.ranks, tp.rest)
+        column = c.mesh.group_index(c.ranks, tp.axes)
+        held = sorted(set(int(g) for g in group))
+        shards = _split_batch(batch, n_groups)
+        losses, grads_of = {}, {}
+        for g in held:
+            view = tp.for_group(g)
+            losses[g], grads_of[g] = _grads_of(
+                lambda m, b, v=view: lm.train_loss(cfg, m, b, tp=v), model,
+                shards[g], microbatches, accum)
+        loss = c.pmean(torch.stack([losses[int(g)] for g in group]))
+        # each held rank's row: its data group's gradient of its block
+        pos = {int(m): i for i, m in enumerate(tp.local)}
+        first = np.array([np.flatnonzero((group == held[0]) & (column == m))[0]
+                          for m in column])
+        axis = optim.shard_axes(model)
+        grads: Dict = {}
+        spread = torch.zeros((), dtype=torch.float32, device=c.device)
+        for path, ax in sorted(axis.items()):
+            rows = []
+            for g, m in zip(group, column):
+                leaf = tree_get(grads_of[int(g)], path)
+                rows.append(leaf if ax is None else leaf.select(ax, pos[int(m)]))
+            synced = sync(torch.stack(rows), c)
+            del rows
+            for i in range(len(c.ranks)):
+                spread = torch.maximum(
+                    spread, (synced[i] - synced[first[i]]).abs().max().float())
+            if ax is None:
+                tree_set(grads, path, synced[0].clone())
+            else:
+                own = [synced[first[i]] for i in range(len(c.ranks)) if group[i] == held[0]]
+                tree_set(grads, path, torch.stack(own, dim=ax))
+            del synced
+        del grads_of
+        grads, gnorm = optim.clip_by_global_norm(grads, clip_norm, model)
         lr = optim.cosine_lr(step_idx, **lr_kw)
         model, opt_state = opt.apply(model, grads, opt_state, lr)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,

@@ -4,7 +4,8 @@
 published ones: the rows carry the reference's field names, ``long_500k``
 skips exactly where the reference's ``shape_supported`` skips, a row's
 flops equal the step's count, its gradient-sync
-record equals a real simulated-rank train step's Communicator, ``reroof``
+record equals a real simulated-rank train step's Communicator, its
+tensor-parallel record a real sharded step's (on (data 2, model 4)), ``reroof``
 restores overwritten fields from the saved tables, ``fill_experiments``
 run twice gives the same file, and a failing cell fails the CLI."""
 
@@ -19,9 +20,10 @@ from repro import configs as ref_configs
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.core import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import SimMesh, rules_for_mesh
 from repro_torch.launch import dryrun, fill_experiments, hlo_stats, reroof, summary
-from repro_torch.models import api
+from repro_torch.models import api, lm
 from repro_torch.train import optim, step as step_mod
 from test_torch_hlo_common import BATCH, SEQ, port_flops
 
@@ -87,11 +89,23 @@ def test_rows_fields_and_skips(small, tmp_path):
     assert rows[("qwen3-1.7b", "long_500k")]["status"] == "skip"
     assert rows[("mamba2-130m", "long_500k")]["status"] == "ok"
     # the prefill and decode rows' flops are the step's count (equal to the
-    # reference's: test_torch_hlo_flops_serve.py) over the chips
+    # reference's: test_torch_hlo_flops_serve.py) over the chips; their
+    # collectives are the sharded step's model-axis calls (none for the SSM,
+    # which runs no tensor-parallel compute)
     for arch in ARCHS:
+        cfg = configs.get_config(arch)
         for shape, kind in (("prefill_32k", "prefill"), ("decode_32k", "decode")):
-            assert rows[(arch, shape)]["flops_per_device"] * 4 == port_flops(arch, kind)[0]
-            assert rows[(arch, shape)]["t_collective"] == 0.0
+            row = rows[(arch, shape)]
+            assert row["flops_per_device"] * 4 == port_flops(arch, kind)[0]
+            if arch == "mamba2-130m":
+                assert row["t_collective"] == 0.0
+                continue
+            size = MESH.shape["model"]
+            seq = SHAPES[shape].seq_len
+            rows_per_rank = SHAPES[shape].global_batch // MESH.shape["data"]
+            assert row["collectives"] == lm.tp_stats(
+                lm.tp_calls(cfg, kind, rows_per_rank, seq, size), size)
+            assert row["t_collective"] > 0.0
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
@@ -129,6 +143,74 @@ def test_grad_sync_record_equals_a_real_step(small, method):
     fn(model, optim.get(cfg.optimizer).init(model), batch, 0)
     assert got == hlo_stats.collective_stats(comm)
     assert sum(v["wire_bytes"] for v in got.values()) == comm.bytes_sent[0]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "kimi-k2-1t-a32b"])
+def test_tp_record_equals_a_real_sharded_step(arch, kind):
+    """On (data 2, model 4): the dry run's model-axis record of a step,
+    taken under fake tensors, equals a real reduced sharded step's
+    ``TensorParallel`` record (and the byte model)."""
+    cfg = configs.reduced(configs.get_config(arch))
+    mesh = SimMesh((2, 4), ("data", "model"))
+    rules = rules_for_mesh(mesh)
+    shape = ShapeConfig("cell", SEQ, BATCH, kind)
+    got = dryrun.tp_step_stats(cfg, shape, mesh, rules)
+    model = api.init_params(cfg, 0, device="cpu", rules=rules, mesh=mesh)
+    toks = torch.zeros((BATCH, SEQ), dtype=torch.int32)
+    with torch.no_grad():
+        if kind == "prefill":
+            api.prefill_fn(cfg, rules, mesh)(model, {"tokens": toks})
+        elif kind == "decode":
+            cache = shd.tree_map(lambda pd: torch.zeros(pd.shape),
+                                 api.cache_defs(cfg, shape))
+            api.decode_fn(cfg, rules, mesh)(model, cache, toks[:, :1], SEQ - 1)
+    extra = []
+    if kind == "train":
+        fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules)
+        fn(model, optim.get(cfg.optimizer).init(model), {"tokens": toks, "labels": toks}, 0)
+        extra = optim.tp_calls(model)
+    assert got == hlo_stats.total_stats([model.tp.stats])
+    assert got == lm.tp_stats(lm.tp_calls(cfg, kind, BATCH // 2, SEQ, 4) + extra, 4)
+    assert got["all-reduce"]["count"] > 0
+    # a mesh without a model axis, or the SSM family: no tensor-parallel term
+    assert dryrun.tp_step_stats(cfg, shape, SimMesh(2), rules_for_mesh(SimMesh(2))) is None
+    ssm = configs.reduced(configs.get_config("mamba2-130m"))
+    assert dryrun.tp_step_stats(ssm, shape, mesh, rules) is None
+
+
+def test_tp_record_against_the_reference_hlo(mesh_dm):
+    """The remaining difference against the reference's count (ROADMAP
+    Queue 3): reduced qwen3-1.7b's prefill, 4 x 32 tokens on (data 2,
+    model 4). XLA's partitioner, from the same specs, emits 3 all-reduces
+    of 32,768 B; the port's Megatron-style pass makes 5 (the vocab-parallel
+    embedding's and each layer's two) and all-gathers the last position's
+    logits. The activations' all-reduce operand is the same 32,768 B."""
+    import jax
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.dist import sharding as ref_shd
+    from repro.launch import hlo_stats as ref_hlo
+    from repro.models import api as ref_api
+
+    ref_cfg = ref_configs.reduced(ref_configs.get_config("qwen3-1.7b"))
+    cfg = configs.reduced(configs.get_config("qwen3-1.7b"))
+    rules = ref_shd.rules_for_mesh(mesh_dm)
+    specs = ref_shd.tree_pspecs(ref_api.param_defs(ref_cfg), rules, mesh_dm)
+    params = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh_dm, s)),
+                          ref_api.init_params(ref_cfg, jax.random.PRNGKey(0)), specs)
+    toks = {"tokens": jax.device_put(np.zeros((4, 32), np.int32),
+                                     NamedSharding(mesh_dm, P("data")))}
+    text = jax.jit(ref_api.prefill_fn(ref_cfg, rules, mesh_dm)).lower(
+        params, toks).compile().as_text()
+    ref = {k: (v["count"], v["operand_bytes"])
+           for k, v in ref_hlo.collective_stats(text).items() if v["count"]}
+    port = {k: (v["count"], v["operand_bytes"])
+            for k, v in lm.tp_stats(lm.tp_calls(cfg, "prefill", 2, 32, 4), 4).items()
+            if v["count"]}
+    assert ref == {"all-reduce": (3, 98304.0)}
+    assert port == {"all-reduce": (5, 163840.0), "all-gather": (1, 1024.0)}
 
 
 def test_reroof_summary_fill(small, tmp_path, capsys):

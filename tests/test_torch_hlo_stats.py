@@ -126,7 +126,7 @@ def test_branch_stats_match_reference():
     got = hlo_stats.branch_stats(
         lambda x, c: collectives.butterfly_or_adaptive(x, c, fanout=2, capacity=cap,
                                                        density_threshold=0.01),
-        hlo_stats.forcing_inputs(P8, nw), P8)
+        hlo_stats.forcing_inputs(P8, nw, device="cpu"), P8)
     assert len(got) == len(want) == 1
     assert [name for name, _ in got[0]] == ["dense", "sparse"]
     assert [st for _, st in got[0]] == [st for _, st in want[0]]
