@@ -18,7 +18,7 @@ account:
 3. the LM serving path, before the graph phases (its state freed after):
    qwen3-1.7b at its published size (28 layers, d 2048, 1,720,837,120
    parameters) in bfloat16 with seeded weights, ``serve.engine.generate``
-   of 8 prompts of 512 tokens, 128 greedy new tokens, twice (identical, ids
+   of 8 prompts of 512 tokens, 64 greedy new tokens, twice (identical, ids
    in the vocabulary, the first token the forward's argmax), the same loop
    timed step by step against the decode step's least time over HBM, a
    sampled run (temperature 0.8, top-k 50) twice (repeatable); in float32
@@ -28,7 +28,7 @@ account:
    card against the port on the CPU (same weights, 1e-4); none of the four
    graph kernels launched;
 3b. the LM training path, after phase 3 (its state freed after): (a)
-   qwen3-1.7b at its published size trained 8 steps by
+   qwen3-1.7b at its published size trained 4 steps by
    ``train.loop.train`` (bfloat16, remat, AdamW, 16 x 1024 tokens in the
    config's 4 microbatches): every loss finite, the last below the first;
    step time, tokens a second, model FLOPs against the bfloat16 peak, peak
@@ -90,7 +90,7 @@ account:
    2-layer cut of phase 3b(c), 16 x 1024 tokens in the config's 4
    microbatches: loss and every leaf's gradient within 1e-5 of its largest
    against the unsharded step, the step's calls (remat's recompute, clip
-   and AdamW) equal to the byte model; (c) 8 bfloat16 steps at full width
+   and AdamW) equal to the byte model; (c) 4 bfloat16 steps at full width
    through ``train.loop.train(mesh=)``: step ms, tokens a second, 6ND
    share, peak (over 75 GB: again on data 1 x model 4); (d) the butterfly
    step with the model axis inside in 4 gloo processes on the card on
@@ -99,6 +99,30 @@ account:
    kernels launched; in the default run, 3c(d) and then 3e(d) run beside
    phase 4's host work (their processes hold the card; the Kronecker
    graph goes on it after they end) and log when joined;
+3f. tensor parallelism for the other four families, after phase 3e (its
+   state freed), on (data 2, model 4) simulated ranks: (a) mamba2-130m at
+   its published size (24 SSM heads, 6 a rank), (b) whisper-medium at its
+   published size (1500 seeded frames), (c) internvl2-26b at full width cut
+   to 2 layers (256 seeded patches of 3200), each: bfloat16
+   ``generate(rules=, mesh=)`` against the unsharded run of the same
+   seeded weights (8 prompts; mamba2 1024 tokens, the others 256; 32 greedy
+   tokens), prefill and decode ms, every model-axis call and each rank's
+   bytes equal to ``lm.tp_calls``, the share of tokens equal, peak; in
+   float32 with TF32 off, prefill + 15 teacher-forced decode steps against
+   the unsharded forward at the reference's tolerance (mamba2 also on data
+   1 x model 16, where its heads straddle the ranks); one float32 step of
+   4 rows in 2 microbatches: loss and every leaf's gradient within 1e-5 of
+   its largest against the unsharded gradient (mamba2's ``A_log``,
+   ``dt_bias`` and ``wo`` within 2.5e-5: their float32 gradient moves
+   about 1e-5 of its largest between one microbatch and two), the calls
+   then the whole GSPMD step's equal to the byte model; (d) jamba-v0.1-52b
+   at full width cut to one 8-layer period (13.3 B parameters), bfloat16
+   serving of 4 prompts of 512 tokens and 16 new, the unsharded run first
+   and on the host (the two are never on the card together): calls and
+   bytes equal to the byte model; in every family's serving, every row's
+   first greedy token equal to the unsharded run's and the prefill logits
+   within 0.125, the share of all tokens equal logged; (e) none of the
+   four graph kernels launched;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -221,11 +245,11 @@ BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.  ``--lm-only`` runs phases 1, 3, 3b, 3c and 3e alone, with 4 decode steps
+JSON.  ``--lm-only`` runs phases 1, 3, 3b, 3c, 3e and 3f's serving alone, with 4 decode steps
 and one train step under ``torch.profiler`` after the timed runs (the full
 run profiles no LM step: a profiler session would precede the graph phases'
-timings); ``--train-only`` runs phases 1, 3b, 3c and 3e alone, the train
-step profiled.  ``--multi-card``, on a
+timings); ``--train-only`` runs phases 1, 3b, 3c, 3e and 3f's float32
+steps alone, the train step profiled.  ``--multi-card``, on a
 machine with several cards, runs phase 3c(d) over nccl with one rank on
 each card, then ``launch.train`` under ``torchrun`` with nccl, then phase
 3e's serving (the float32 prefill logits and ``generate``'s greedy
@@ -241,6 +265,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2796,7 +2821,7 @@ def run_profiler(parts, fanout, dev, root, single):
 # the served model at its published size, bfloat16: prompts, new tokens and
 # the sampled run's settings
 LM_ARCH = "qwen3-1.7b"
-LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 128
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
 LM_TEMPERATURE, LM_TOP_K = 0.8, 50
 # float32 consistency: (arch, batch, prefill tokens, teacher-forced steps);
 # qwen3-1.7b's prefill runs 3 query chunks of 1024, its forward over 3136
@@ -2848,10 +2873,11 @@ def kv_bytes_per_token(cfg) -> int:
             * DTYPES[cfg.param_dtype].itemsize)
 
 
-def timed_generate(cfg, model, prompts, n_new, rules=None, mesh=None):
+def timed_generate(cfg, model, prompts, n_new, rules=None, mesh=None, extra=None):
     """``engine.generate``'s greedy loop step by step, each bracketed by CUDA
     events: (tokens, prefill ms, decode ms of every step); ``rules`` and
-    ``mesh`` as ``generate`` takes them (a sharded model)."""
+    ``mesh`` as ``generate`` takes them (a sharded model), ``extra`` its
+    ``extra_inputs`` (patches, frames)."""
     import torch
 
     from repro_torch.models import api
@@ -2862,7 +2888,7 @@ def timed_generate(cfg, model, prompts, n_new, rules=None, mesh=None):
     with torch.inference_mode():
         torch.cuda.synchronize()
         marks[0].record()
-        logits, cache, pos = prefill(model, {"tokens": prompts})
+        logits, cache, pos = prefill(model, dict(extra or {}, tokens=prompts))
         cache = engine.prepare_decode_cache(cfg, cache, pos, pos + n_new)
         tok = engine.sample(logits)
         marks[1].record()
@@ -3150,8 +3176,9 @@ def run_lm(dev, seed, profile_decode):
 # ---------------------------------------------------------------------------
 
 # qwen3-1.7b at its published size trained by train.loop.train: bfloat16,
-# remat, AdamW, the whole batch on the card, the config's 4 microbatches
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
+# remat, AdamW, the whole batch on the card, the config's 4 microbatches;
+# 4 steps, the last 3 timed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 4
 TRAIN_LR = {"peak": 3e-4, "warmup": 2, "total": 8}
 H100_BF16_FLOPS = 989e12  # dense bfloat16 peak (data sheet, SXM, 700 W)
 # the butterfly gradient sync at full width: P ranks of 4 rows, one row a
@@ -4389,7 +4416,7 @@ def run_multi(dev, seed, ck, gloo=True):
 # tolerance; (b) one float32 step of the 2-layer cut (RESTART_LAYERS) of
 # TRAIN_BATCH x TRAIN_SEQ in the config's microbatches against the
 # unsharded step, each leaf within TP_REL_TOL of its largest; (c)
-# TRAIN_STEPS bfloat16 steps at full width through train.loop.train; (d) the
+# TP_TRAIN_STEPS bfloat16 steps at full width through train.loop.train; (d) the
 # butterfly step with the model axis inside in TP_GLOO_WORLD gloo processes
 # on (data 2, model 2), TP_GLOO_BATCH x TP_GLOO_SEQ tokens of the 2-layer
 # cut, against the same step on simulated ranks
@@ -4400,6 +4427,8 @@ TP_REL_TOL = 1e-5
 TP_PEAK_LIMIT = 75e9
 TP_GLOO_WORLD, TP_GLOO_MESH = 4, ((2, 2), ("data", "model"))
 TP_GLOO_BATCH, TP_GLOO_SEQ = 4, 256
+# (c)'s steps at full width: 3b times the unsharded step already
+TP_TRAIN_STEPS = 4
 
 
 def tp_bytes_check(label, model, calls, ordered=True):
@@ -4521,6 +4550,11 @@ def leaf_rel_errs(got, want):
     return out
 
 
+def worst_leaf(errs):
+    """The leaf of the largest error, a NaN first (NaN compares false)."""
+    return max(errs, key=lambda k: float("inf") if math.isnan(errs[k]) else errs[k])
+
+
 def tp_step_check(dev, seed):
     """(b) one float32 step (TF32 off) of the 2-layer cut at full width,
     sharded over (data 2, model 4): the loss and every leaf's gradient
@@ -4560,8 +4594,8 @@ def tp_step_check(dev, seed):
         del g0, g1
         gc.collect()
         torch.cuda.empty_cache()
-        worst = max(errs, key=errs.get)
-        if loss_err > TP_REL_TOL or errs[worst] > TP_REL_TOL:
+        worst = worst_leaf(errs)
+        if not (loss_err <= TP_REL_TOL and errs[worst] <= TP_REL_TOL):
             raise AssertionError(f"sharded step: loss rel err {loss_err:.3g}, gradient "
                                  f"{worst} {errs[worst]:.3g} > {TP_REL_TOL}")
         state = optim.get(cfg.optimizer).init(sharded)
@@ -4590,7 +4624,7 @@ def tp_step_check(dev, seed):
 
 def tp_train(dev, seed, mesh_sizes=TP_MESH):
     """(c) qwen3-1.7b at its published size, sharded over ``mesh_sizes``,
-    trained TRAIN_STEPS steps by ``train.loop.train`` (bfloat16, remat,
+    trained TP_TRAIN_STEPS steps by ``train.loop.train`` (bfloat16, remat,
     AdamW, the GSPMD step, the config's microbatches): every loss finite,
     the last below the first; step ms, tokens a second, 6ND against the
     bfloat16 peak, peak memory (over TP_PEAK_LIMIT the caller cuts the
@@ -4608,8 +4642,9 @@ def tp_train(dev, seed, mesh_sizes=TP_MESH):
     rows = []
     t0 = time.perf_counter()
     out = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
-                     loop.LoopConfig(n_steps=TRAIN_STEPS, microbatches=cfg.train_microbatches,
-                                     lr_kw=TRAIN_LR, log_every=TRAIN_STEPS),
+                     loop.LoopConfig(n_steps=TP_TRAIN_STEPS,
+                                     microbatches=cfg.train_microbatches,
+                                     lr_kw=TRAIN_LR, log_every=TP_TRAIN_STEPS),
                      seed=seed, on_metrics=lambda s, m: rows.append(m), device=dev,
                      mesh=SimMesh(*mesh_sizes))
     wall_s = time.perf_counter() - t0
@@ -4624,12 +4659,12 @@ def tp_train(dev, seed, mesh_sizes=TP_MESH):
     med = float(np.median(step_s[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = api.model_flops(cfg, configs.ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train"))
-    res = dict(mesh=mesh_sizes, steps=TRAIN_STEPS, losses=losses, step_s=step_s,
+    res = dict(mesh=mesh_sizes, steps=TP_TRAIN_STEPS, losses=losses, step_s=step_s,
                step_s_median=med, tokens_per_s=tokens / med, model_flops=flops,
                peak_share=flops / med / H100_BF16_FLOPS, peak_bytes=peak, wall_s=wall_s)
     log(f"  {cfg.name} sharded over {dict(zip(mesh_sizes[1], mesh_sizes[0]))}: "
-        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}; step {med * 1e3:.1f} ms median of steps 2-{TRAIN_STEPS} "
+        f"{TP_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step {med * 1e3:.1f} ms median of steps 2-{TP_TRAIN_STEPS} "
         f"(first {step_s[0] * 1e3:.1f} ms), {tokens / med:,.0f} tokens/s, 6ND "
         f"{res['peak_share']:.1%} of the bf16 peak; peak {peak / 1e9:.2f} GB; "
         f"{wall_s:.1f} s in all")
@@ -4895,6 +4930,321 @@ def run_tp(dev, seed, gloo=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism for the SSM, hybrid, VLM and encoder-decoder families
+# (phase 3f)
+# ---------------------------------------------------------------------------
+
+# arch: (layers, or None for the published depth; serving batch, prompt
+# tokens, new tokens); jamba runs its least depth, one 8-layer period
+TPF_SERVE = {"mamba2-130m": (None, 8, 1024, 32), "whisper-medium": (None, 8, 256, 32),
+             "internvl2-26b": (2, 8, 256, 32), "jamba-v0.1-52b": (8, 4, 512, 16)}
+# float32 (TF32 off): the prefill + teacher-forced decode check (batch,
+# prompt, steps) and the step (batch, text tokens, microbatches)
+TPF_CHECK = {"mamba2-130m": (2, 1024, 16), "whisper-medium": (2, 256, 16),
+             "internvl2-26b": (2, 256, 16)}
+TPF_STEP = {"mamba2-130m": (4, 1024, 2), "whisper-medium": (4, 256, 2),
+            "internvl2-26b": (4, 256, 2)}
+# mamba2-130m's 24 SSM heads on the production mesh's model 16: 1.5 a rank
+TPF_STRADDLE = ((1, 16), ("data", "model"))
+# bfloat16 serving against the unsharded run: the prefill logits within 8
+# bf16 ulps of a logit in [2, 4) (an H100 read 0.0156-0.0547 for the four
+# families; their largest logits are 3-16)
+TPF_LOGIT_TOL = 0.125
+# the float32 step: each leaf's gradient within TP_REL_TOL of its largest,
+# these leaves within their own bound: an H100 read mamba2's sharded error
+# at 1.18e-5, 1.25e-5 and 1.06e-5 of the largest, and the unsharded
+# gradient itself moving 1.05e-5, 1.03e-5 and 9.81e-6 between one
+# microbatch and two (a 1024-token scan's float32 sums in another order)
+TPF_LEAF_TOL = {"groups/blocks/ssm/A_log": 2.5e-5, "groups/blocks/ssm/dt_bias": 2.5e-5,
+                "groups/blocks/ssm/wo": 2.5e-5}
+
+
+def tpf_config(arch, dtype=None):
+    import dataclasses as dc
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    layers = TPF_SERVE[arch][0]
+    if layers:
+        cfg = dc.replace(cfg, n_layers=layers)
+    if dtype:
+        cfg = dc.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def tpf_inputs(cfg, batch, n_tokens, gen, dev):
+    """Seeded prompts and the family's other inputs (patches, frames)."""
+    import torch
+
+    toks = torch.randint(0, cfg.vocab, (batch, n_tokens), generator=gen, device=dev)
+    extra = {}
+    dt = torch.float32
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn((batch, cfg.n_patches, cfg.patch_dim), generator=gen,
+                                       device=dev, dtype=dt)
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn((batch, cfg.n_frames, cfg.d_model), generator=gen,
+                                      device=dev, dtype=dt)
+    return toks, extra
+
+
+def full_logits(cfg, model, toks, extra):
+    """The unsharded forward's logits at every position (the VLM's prefix
+    included), (B, L, V)."""
+    from repro_torch.models import encdec, lm
+
+    if cfg.family == "audio":
+        h, _ = encdec._decoder(cfg, model, toks, encdec.encode(cfg, model, extra["frames"]))
+    else:
+        h = lm.forward_hidden(cfg, model, toks, patches=extra.get("patches"))
+    return lm.lm_logits(cfg, model, h)
+
+
+def tpf_serve(arch, dev, seed):
+    """bfloat16 serving on TP_MESH: ``generate(rules=, mesh=)`` timed step
+    by step against the unsharded run of the same seeded weights (jamba:
+    the two never on the card together; the unsharded tokens and prefill
+    logits kept on the host), the record and each rank's bytes equal to
+    the byte model, every row's first greedy token equal and the prefill
+    logits within TPF_LOGIT_TOL of the unsharded run's; the share of all
+    tokens equal, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+
+    cfg = tpf_config(arch)
+    _, b, p, new = TPF_SERVE[arch]
+    mesh = SimMesh(*TP_MESH)
+    rules = rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    apart = cfg.family == "hybrid"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    toks, extra = tpf_inputs(cfg, b, p, gen, dev)
+    ins = dict(extra, tokens=toks)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = api.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(q.numel() for q in plain.parameters())
+    if n_params != api.param_counts(cfg)["total"]:
+        raise AssertionError(f"{arch}: {n_params} parameters, the config has "
+                             f"{api.param_counts(cfg)['total']}")
+    timed_generate(cfg, plain, toks, 2, extra=extra)  # warm-up
+    want, p_ms, d_ms = timed_generate(cfg, plain, toks, new, extra=extra)
+    with torch.inference_mode():
+        want_logits = api.prefill_fn(cfg)(plain, ins)[0].float().cpu()
+    if apart:
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+    else:
+        sharded = api.shard(plain, rules, mesh)
+        del plain
+        gc.collect()
+    timed_generate(cfg, sharded, toks, 2, rules, mesh, extra=extra)
+    sharded.tp.reset()
+    got, tp_p_ms, tp_d_ms = timed_generate(cfg, sharded, toks, new, rules, mesh, extra=extra)
+    rows = b // groups
+    calls = (lm.tp_calls(cfg, "prefill", rows, p, size)
+             + lm.tp_calls(cfg, "decode", rows, p, size) * (new - 1))
+    per_rank = tp_bytes_check(f"{arch} sharded serving", sharded, calls)
+    with torch.inference_mode():
+        got_logits = api.prefill_fn(cfg, rules, mesh)(sharded, ins)[0].float().cpu()
+    peak = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(got_logits).all() and ((got >= 0) & (got < cfg.vocab)).all()):
+        raise AssertionError(f"{arch} sharded serving: non-finite logits or ids outside "
+                             f"the vocabulary")
+    share = float((got == want).mean())
+    first = float((got[:, 0] == want[:, 0]).mean())
+    diff = float((got_logits - want_logits).abs().max())
+    if not (diff <= TPF_LOGIT_TOL and first == 1.0):
+        top = want_logits[:, :cfg.vocab].topk(2, dim=-1).values
+        raise AssertionError(f"{arch} sharded serving: prefill logits within {diff:.3g} "
+                             f"(bound {TPF_LOGIT_TOL}); first tokens {got[:, 0]} against "
+                             f"{want[:, 0]} (the unsharded run's top-2 gaps "
+                             f"{(top[:, 0] - top[:, 1]).tolist()})")
+    res = dict(layers=cfg.n_layers, params=n_params, init_s=init_s, batch=b, prompt=p,
+               new=new, mesh=TP_MESH, prefill_ms=tp_p_ms,
+               decode_ms_median=float(np.median(tp_d_ms)), plain_prefill_ms=p_ms,
+               plain_decode_ms_median=float(np.median(d_ms)), bytes_per_rank=per_rank,
+               n_calls=len(calls), tokens_equal_share=share, first_tokens_equal=first,
+               prefill_logits_max_abs_diff=diff, apart=apart, peak_bytes=peak)
+    log(f"  {arch} ({cfg.n_layers} layers, {n_params:,} parameters, seeded in {init_s:.1f} s) "
+        f"bf16 on data {groups} x model {size}, {b} x {p} + {new}: prefill {tp_p_ms:.2f} ms "
+        f"(unsharded {p_ms:.2f}), decode {res['decode_ms_median']:.2f} ms a step median "
+        f"(unsharded {res['plain_decode_ms_median']:.2f}); {len(calls)} model-axis calls == "
+        f"the byte model, {per_rank / 1e6:.3f} MB a rank; greedy tokens equal: {share:.1%} "
+        f"(first {first:.0%}); prefill logits within {diff:.3g} of {TPF_LOGIT_TOL}"
+        f"{' (the unsharded run on the host)' if apart else ''}; peak {peak / 1e9:.2f} GB")
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tpf_float32(arch, dev, seed, serve=True, train=True):
+    """float32 with TF32 off on TP_MESH: (serve) the sharded prefill and
+    teacher-forced decode against the unsharded forward at the reference's
+    tolerance, and for mamba2 the prefill on TPF_STRADDLE, whose heads
+    straddle the ranks; (train) one step's loss within TP_REL_TOL and every
+    leaf's gradient within TP_REL_TOL (TPF_LEAF_TOL's leaves their own) of
+    its largest against the unsharded gradient, the calls equal to the byte
+    model, then the whole GSPMD step's."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.serve import engine
+    from repro_torch.train import optim, step as step_mod
+
+    cfg = tpf_config(arch, "float32")
+    mesh = SimMesh(*TP_MESH)
+    rules = rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with exact_float32():
+        plain = api.init_params(cfg, seed, device=dev)
+        if serve:
+            b, p, s = TPF_CHECK[arch]
+            with torch.inference_mode():
+                toks, extra = tpf_inputs(cfg, b, p + s, gen, dev)
+                off = cfg.n_patches if cfg.family == "vlm" else 0
+                want = full_logits(cfg, plain, toks, extra)[:, off + p - 1:off + p + s - 1]
+                sharded = api.shard(plain, rules, mesh)
+                logits, cache, pos = api.prefill_fn(cfg, rules, mesh)(
+                    sharded, dict(extra, tokens=toks[:, :p]))
+                cache = engine.prepare_decode_cache(cfg, cache, pos, pos + s)
+                outs = [logits]
+                decode = api.decode_fn(cfg, rules, mesh)
+                for i in range(s - 1):
+                    logits, cache = decode(sharded, cache, toks[:, p + i:p + i + 1], pos + i)
+                    outs.append(logits)
+                res["serve"] = check_close(f"{arch} sharded prefill + decode vs the forward",
+                                           torch.stack(outs, dim=1), want, LM_RTOL, LM_ATOL)
+                del sharded, cache, outs
+                log(f"  {arch} float32, {b} x {p} prefill + {s - 1} teacher-forced decode "
+                    f"steps sharded == the unsharded forward: max |err| "
+                    f"{res['serve']['max_abs_err']:.3g}, {res['serve']['tol_share']:.1%} of "
+                    f"rtol {LM_RTOL} atol {LM_ATOL}")
+                if cfg.family == "ssm":
+                    wide = SimMesh(*TPF_STRADDLE)
+                    wrules = rules_for_mesh(wide)
+                    w = wide.shape["model"]
+                    sharded = api.shard(plain, wrules, wide)
+                    logits, _, _ = api.prefill_fn(cfg, wrules, wide)(
+                        sharded, {"tokens": toks[:, :p]})
+                    wcalls = lm.tp_calls(cfg, "prefill", b, p, w)
+                    tp_bytes_check(f"{arch} prefill on model {w}", sharded, wcalls)
+                    res["straddle"] = dict(mesh=TPF_STRADDLE, heads_a_rank=cfg.n_ssm_heads / w,
+                                           n_calls=len(wcalls), **check_close(
+                                               f"{arch} prefill on model {w} vs the forward",
+                                               logits, want[:, 0], LM_RTOL, LM_ATOL))
+                    del sharded
+                    log(f"  {arch} float32 prefill on data 1 x model {w} ({cfg.n_ssm_heads} "
+                        f"heads, {cfg.n_ssm_heads / w} a rank: the scan replicated behind an "
+                        f"all-gather) == the forward: max |err| "
+                        f"{res['straddle']['max_abs_err']:.3g}; {len(wcalls)} calls == the "
+                        f"byte model")
+                del want
+                gc.collect()
+                torch.cuda.empty_cache()
+        if train:
+            b, text, mb = TPF_STEP[arch]
+            seq = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+            batch = device_batch(SyntheticLM(cfg, b, seq), 1, dev)
+            loss0, g0 = step_mod._grads_of(api.train_loss_fn(cfg), plain, batch, mb)
+            sharded = api.shard(plain, rules, mesh)
+            del plain
+            sharded.tp.reset()
+            loss1, g1 = step_mod._grads_of(api.train_loss_fn(cfg, rules, mesh), sharded,
+                                           batch, mb)
+            g1 = api.global_leaves(sharded, g1)
+            calls = lm.tp_calls(cfg, "train", b // mb // groups, text, size) * mb
+            grad_bytes = tp_bytes_check(f"{arch} sharded gradient", sharded, calls,
+                                        ordered=False)
+            errs = leaf_rel_errs(g1, g0)
+            loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+            del g0, g1
+            gc.collect()
+            torch.cuda.empty_cache()
+            worst = worst_leaf(errs)
+            bound = {k: TPF_LEAF_TOL.get(k, TP_REL_TOL) for k in errs}
+            over = {k: (errs[k], bound[k]) for k in errs if not errs[k] <= bound[k]}
+            own = {k: errs[k] for k in TPF_LEAF_TOL if k in errs}
+            if not loss_err <= TP_REL_TOL or over:
+                raise AssertionError(f"{arch} sharded step: loss rel err {loss_err:.3g}, "
+                                     f"leaves over their bound (error, bound): {over}")
+            state = optim.get(cfg.optimizer).init(sharded)
+            sharded.tp.reset()
+            fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, microbatches=mb,
+                                           lr_kw=TRAIN_LR)
+            _, _, m = fn(sharded, state, batch, 1)
+            step_bytes = tp_bytes_check(f"{arch} sharded step", sharded,
+                                        calls + optim.tp_calls(sharded), ordered=False)
+            res["step"] = dict(batch=b, tokens=seq, microbatches=mb, loss=float(loss0),
+                               loss_rel_err=loss_err, worst_leaf=worst,
+                               worst_rel_err=errs[worst], own_bound_leaves=own,
+                               n_calls=len(calls),
+                               grad_bytes_per_rank=grad_bytes, step_bytes_per_rank=step_bytes,
+                               step_loss=float(m["loss"]))
+            log(f"  {arch} float32 step, {b} x {seq} tokens in {mb} microbatches: loss "
+                f"{float(loss1):.6f} (unsharded {float(loss0):.6f}, rel err {loss_err:.2e}), "
+                f"every leaf's gradient within {errs[worst]:.2e} of its largest (worst "
+                f"{worst}); the leaves held to their own bound (TPF_LEAF_TOL): "
+                f"{json.dumps(own)}; {len(calls)} model-axis calls == the byte model, "
+                f"{grad_bytes / 1e9:.3f} GB a rank, the whole step {step_bytes / 1e9:.3f} GB")
+            del sharded, state
+        else:
+            del plain
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tp_families(dev, seed, serve=True, train=True):
+    """Phase 3f: tensor parallelism for the SSM, VLM, encoder-decoder and
+    hybrid families (module docstring, item 3f). The graph kernels are not
+    on this path: their counts stay 0."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = {}
+    for arch in TPF_SERVE:
+        t0 = time.perf_counter()
+        out[arch] = {}
+        if serve:
+            out[arch]["serve"] = tpf_serve(arch, dev, seed)
+        if arch in TPF_CHECK and (serve or train):
+            out[arch]["float32"] = tpf_float32(arch, dev, seed, serve=serve, train=train)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"phase 3f launched graph kernels: {launched}")
+    spent = ", ".join(f"{a} {o['seconds']:.1f} s" for a, o in out.items())
+    log(f"  phase 3f launched none of the four graph kernels; {spent}")
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
 class CardWatch:
     """``nvidia-smi``'s memory.used of ``dev``'s card every ``every`` s in
     a thread (none off the card, or without ``nvidia-smi``); ``take()``
@@ -5103,6 +5453,12 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
         lm_out["multi"] = run_multi(dev, args.seed, ck)
         phase("[3e/27] the LM's tensor parallelism (alone)")
         lm_out["tp"] = run_tp(dev, args.seed)
+        phase(f"[3f/27] tensor parallelism for the other families ("
+              f"{'serving' if args.lm_only else ''}"
+              f"{' and ' if args.lm_only and args.train_only else ''}"
+              f"{'training' if args.train_only else ''}, alone)")
+        lm_out["tp_families"] = run_tp_families(dev, args.seed, serve=args.lm_only,
+                                                train=args.train_only)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
             f"{time.perf_counter() - t_start:.0f} s")
         if args.out:
@@ -5174,6 +5530,13 @@ def run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli, dry_d
           f"processes beside phase 4)")
     lm_out["tp"] = run_tp(dev, args.seed, gloo=False)
     log(f"  released the tensor-parallel state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    phase("[3f/27] tensor parallelism for the other families on data 2 x model 4: "
+          "mamba2-130m and whisper-medium at their published sizes, internvl2-26b at full "
+          "width (2 layers), jamba-v0.1-52b at full width (one 8-layer period)")
+    lm_out["tp_families"] = run_tp_families(dev, args.seed)
+    log(f"  released the state of 3f: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
 

@@ -67,6 +67,7 @@ over ``torch.distributed``; the per-rank index arithmetic is built from
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -947,6 +948,18 @@ class TensorParallel:
         object's record."""
         tp = TensorParallel(self.comm, self.axes, group=group)
         tp.stats, tp.calls, tp.bytes_sent = self.stats, self.calls, self.bytes_sent
+        return tp
+
+    def for_batch(self, batch: int) -> "TensorParallel":
+        """This object, or, where ``batch`` rows do not split over the data
+        groups it folds in (fewer rows than groups: the reference's spec
+        then replicates the batch over the data axes), a view that counts
+        the whole batch on every data group, sharing this object's
+        record."""
+        if batch % self.rows == 0:
+            return self
+        tp = copy.copy(self)
+        tp.rows = 1
         return tp
 
     def reset(self) -> None:

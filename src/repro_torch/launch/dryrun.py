@@ -25,9 +25,8 @@ What each term of an LM row holds:
   tensor-parallel collectives of the step sharded over it
   (:func:`tp_step_stats`: the model built sharded on simulated ranks and
   the step run once under fake tensors, its ``TensorParallel`` record, which
-  equals :func:`repro_torch.models.lm.tp_calls`), for the dense and MoE
-  families (the others run no tensor-parallel compute: none); for a train
-  step, also the gradient sync of each parameter leaf's model-axis shard
+  equals :func:`repro_torch.models.lm.tp_calls`), for every family; for a
+  train step, also the gradient sync of each parameter leaf's model-axis shard
   over the data axes, run on fake tensors on a Communicator over them
   (its bytes equal :func:`repro_torch.core.collectives.grad_sync_bytes`).
 * ``compile_s`` holds the seconds of the fake step, and
@@ -151,19 +150,18 @@ def tp_step_stats(cfg, shape, mesh, rules) -> Optional[Dict]:
     or decode at ``pos = seq_len - 1``) run once under ``FakeTensorMode``;
     the :class:`~repro_torch.core.collectives.TensorParallel` record in the
     shape of ``hlo_stats.collective_stats``. None where the mesh has no
-    model axis or the family runs no tensor-parallel compute. FSDP's
-    gathers over the data axes are not modelled: the model axis's
-    collectives do not depend on them."""
+    model axis. FSDP's gathers over the data axes are not modelled: the
+    model axis's collectives do not depend on them."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.core import collectives
     from repro_torch.dist.sharding import MeshRules
-    from repro_torch.models import api, lm
+    from repro_torch.models import api
     from repro_torch.train import optim, step as step_mod
 
     axes = api.model_axes(rules, mesh)
-    if not axes or cfg.family not in lm.TP_FAMILIES:
+    if not axes:
         return None
     rules = MeshRules(batch=rules.batch, model=rules.model)
     with FakeTensorMode():
@@ -177,7 +175,8 @@ def tp_step_stats(cfg, shape, mesh, rules) -> Optional[Dict]:
             with torch.no_grad():
                 api.prefill_fn(cfg, rules, mesh)(model, ins)
         else:
-            cache = _fake_inputs(api.cache_defs(cfg, shape), cfg.compute_dtype)
+            cache = api.held_cache(model, _fake_inputs(api.cache_defs(cfg, shape),
+                                                       cfg.compute_dtype))
             with torch.no_grad():
                 api.decode_fn(cfg, rules, mesh)(model, cache, ins["token"], shape.seq_len - 1)
     return {k: {"count": int(v["count"]), "operand_bytes": float(v["operand_bytes"]),

@@ -18,8 +18,9 @@ into it. Both default to the card and raise when there is none.
 ``to_reference(model)`` is the way back: the reference's tree, its layer
 axes stacked again. With ``rules=`` and a ``mesh=`` that has a model axis
 the model is built sharded over it (:func:`tensor_parallel`): the entry
-points below then run tensor-parallel, and ``to_reference`` gathers the
-blocks. ``param_leaves`` lists the reference's leaves in its
+points below then run tensor-parallel, ``to_reference`` gathers the
+blocks, and ``global_cache`` puts a sharded decode cache in the
+reference's layout (``held_cache`` the way back). ``param_leaves`` lists the reference's leaves in its
 leaf order (sorted keys), each with the model's parameters it stacks; the
 optimizers, the gradient trees and the checkpoints work on those leaves.
 
@@ -41,7 +42,7 @@ from repro_torch.core import collectives
 from repro_torch.core.bfs import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import PD, MeshRules, SimMesh
-from repro_torch.models import encdec, lm
+from repro_torch.models import encdec, lm, mamba2
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
@@ -53,9 +54,7 @@ def build_model(cfg: ModelConfig, device, tp=None) -> nn.Module:
     sharded over the model axis with ``tp`` (a
     :class:`~repro_torch.core.collectives.TensorParallel`)."""
     if cfg.family == "audio":
-        if tp is not None:
-            raise ValueError(f"{cfg.name}: the audio family does not run tensor-parallel")
-        return encdec.EncDec(cfg, device)
+        return encdec.EncDec(cfg, device, tp)
     return lm.LM(cfg, device, tp)
 
 
@@ -76,7 +75,8 @@ def tensor_parallel(rules: Optional[MeshRules], mesh: Optional[SimMesh], device,
     if not axes:
         return None
     if rules.fsdp:
-        raise ValueError("tensor parallelism runs with non-FSDP rules only")
+        raise ValueError("tensor parallelism runs with non-FSDP rules only: FSDP's "
+                         "compute over the data axes is not ported yet")
     if comm is None:
         comm = collectives.Communicator(mesh, device)
     elif comm.mesh != mesh:
@@ -167,6 +167,51 @@ def held_leaves(model: nn.Module, tree: Dict) -> Dict:
             t = model.tp.shard(t, len(lead) + d).movedim(0, len(lead)).contiguous()
         shd.tree_set(out, path, t)
     return out
+
+
+def _cache_leaves(model: nn.Module, cache: Dict, fn) -> Dict:
+    """``cache`` with each split SSM leaf (``state``, ``conv_x``: the only
+    decode-cache leaves a sharded model holds as blocks; the KV caches are
+    replicated) replaced by ``fn(leaf, split dim, per-layer ndim)``."""
+    tp = getattr(model, "tp", None)
+    if tp is None or model.cfg.family not in ("ssm", "hybrid"):
+        return cache
+    dims = mamba2.cache_split_dims(model.cfg, tp)
+    ndims = {k: len(pd.shape) for k, pd in mamba2.ssm_cache_defs(model.cfg, 1).items()}
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif dims.get(k) is not None:
+                out[k] = fn(v, dims[k], ndims[k])
+            else:
+                out[k] = v
+        return out
+
+    return walk(cache)
+
+
+def global_cache(model: nn.Module, cache: Dict) -> Dict:
+    """A sharded model's decode cache in the reference's layout: the SSM
+    leaves held as blocks (``lead + [n_local, *block]``, ``lead`` the layer
+    axes) gathered (``TensorParallel.unshard``)."""
+    def fn(t, d, nd):
+        nl = t.dim() - 1 - nd
+        return model.tp.unshard(t.movedim(nl, 0), nl + d)
+
+    return _cache_leaves(model, cache, fn)
+
+
+def held_cache(model: nn.Module, cache: Dict) -> Dict:
+    """The inverse of :func:`global_cache`: what a sharded model holds of a
+    decode cache in the reference's layout."""
+    def fn(t, d, nd):
+        nl = t.dim() - nd
+        return model.tp.shard(t, nl + d).movedim(0, nl).contiguous()
+
+    return _cache_leaves(model, cache, fn)
 
 
 def stack_leaf(lead: Tuple[int, ...], prms: List[torch.Tensor]) -> torch.Tensor:

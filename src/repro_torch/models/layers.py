@@ -468,12 +468,17 @@ def _qkv_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, positions: torch.Te
     if cfg.qk_norm:
         k = rmsnorm(k, p.knorm)
     k = rope(k, positions, cfg.rope_theta)
-    idx = _kv_of_heads(cfg, tp, x.device)
+    ks, vs = _select_kv_tp(cfg, k, v, tp)
+    return q, ks, vs, 1, lambda: (k, v)
+
+
+def _select_kv_tp(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, tp):
+    """Replicated k/v (B, S, Hk, D) -> each held rank's query heads' kv
+    heads (n, B, S, hq/M, D), through ``tp.copy`` (gradient all-reduced)."""
+    idx = _kv_of_heads(cfg, tp, k.device)
     shape = (idx.shape[0],) + tuple(k.shape[:-2]) + (idx.shape[1], k.shape[-1])
     sel = idx.reshape((idx.shape[0],) + (1,) * (k.dim() - 2) + (idx.shape[1], 1)).expand(shape)
-    ks = torch.gather(tp.copy(k), -2, sel)
-    vs = torch.gather(tp.copy(v), -2, sel)
-    return q, ks, vs, 1, lambda: (k, v)
+    return torch.gather(tp.copy(k), -2, sel), torch.gather(tp.copy(v), -2, sel)
 
 
 def self_attention_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, tp, *,
@@ -544,6 +549,56 @@ def decode_attention_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
     hk = kc.shape[2]
     out = _sdpa(q.reshape(n * b, 1, hk, hl // hk, hd), kc, vc, _mask(valid))
     y = torch.einsum("nblhd,nhdk->nblk", out.reshape(n, b, 1, hl, hd), p.wo)
+    return tp.reduce(y)
+
+
+def cross_kv_tp(cfg: ModelConfig, p: nn.Module, enc: torch.Tensor, tp, want_kv: bool = False):
+    """:func:`cross_kv` over the model axis: -> (the keys and values each
+    held rank attends with, (n, B, F, h', D), the replicated (k, v) of the
+    cross cache when ``want_kv``, else None). Split kv heads project from
+    the encoder's output through ``tp.copy`` and are all-gathered for the
+    cache only; kv heads that do not divide the axis are computed whole and
+    each rank selects its query heads' (as :func:`_qkv_tp`). Unsplit query
+    heads: the unsharded (k, v) twice."""
+    if not p.split("wq"):
+        kv = cross_kv(cfg, p, enc)
+        return kv, (kv if want_kv else None)
+    if not p.split("wk"):
+        k, v = cross_kv(cfg, p, enc)
+        return _select_kv_tp(cfg, k, v, tp), ((k, v) if want_kv else None)
+    em = tp.copy(enc)
+    k = torch.einsum("nbld,ndhk->nblhk", em, p.wk)
+    v = torch.einsum("nbld,ndhk->nblhk", em, p.wv)
+    if cfg.qk_norm:
+        k = rmsnorm(k, tp.copy(p.knorm, rows=False)[:, None, None, None])
+    return (k, v), ((tp.gather(k, -2), tp.gather(v, -2)) if want_kv else None)
+
+
+def cross_heads_tp(cfg: ModelConfig, p: nn.Module, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, tp):
+    """The replicated cross cache (B, F, Hk, D) -> :func:`cross_kv_tp`'s
+    per-rank keys and values (no collective)."""
+    if not p.split("wq"):
+        return cache_k, cache_v
+    n = tp.n_local
+    return tuple(_cache_heads(cfg, p, c, tp).unflatten(0, (n, -1)) for c in (cache_k, cache_v))
+
+
+def cross_attention_tp(cfg: ModelConfig, p: nn.Module, x: torch.Tensor, kv, tp) -> torch.Tensor:
+    """:func:`cross_attention` with the heads over the model axis: ``kv``
+    from :func:`cross_kv_tp` or :func:`cross_heads_tp`; the output
+    row-parallel, all-reduced: the replicated (B, Lq, d)."""
+    if not p.split("wq"):
+        return cross_attention(cfg, p, x, kv)
+    b, lq, _ = x.shape
+    q = torch.einsum("nbld,ndhk->nblhk", tp.copy(x), p.wq)
+    if cfg.qk_norm:
+        q = rmsnorm(q, tp.copy(p.qnorm, rows=False)[:, None, None, None])
+    k, v = kv
+    n, hl, hd = q.shape[0], q.shape[3], q.shape[4]
+    hk = k.shape[3]
+    out = _sdpa(q.reshape(n * b, lq, hk, hl // hk, hd), k.flatten(0, 1), v.flatten(0, 1), None)
+    y = torch.einsum("nblhd,nhdk->nblk", out.reshape(n, b, lq, hl, hd), p.wo)
     return tp.reduce(y)
 
 

@@ -23,9 +23,9 @@ Three entry points share the per-layer bodies: ``forward_hidden`` (train),
 period of a periodic group) as the reference's ``jax.checkpoint`` does.
 
 A model built with a :class:`~repro_torch.core.collectives.TensorParallel`
-(``model.tp``; the dense and MoE families) runs every pass tensor-parallel
-over the model axis (the section at the end): heads, kv heads, ff, experts
-and the vocabulary split as the reference's rules split them;
+(``model.tp``; every family) runs every pass tensor-parallel over the
+model axis (the section at the end): heads, kv heads, ff, experts,
+``d_inner`` and the vocabulary split as the reference's rules split them;
 :func:`tp_calls` is the byte model of its collectives.
 """
 
@@ -201,12 +201,13 @@ class AttnBlock(nn.Module):
             return x + moe_mod.moe_block_tp(cfg, self.moe, ln, tp)
         return x + layers.mlp_tp(cfg, self.mlp, ln, tp)
 
-    def forward_tp(self, x, tp, window: Optional[int] = None, want_kv: bool = False):
+    def forward_tp(self, x, tp, window: Optional[int] = None, want_kv: bool = False,
+                   causal: bool = True):
         """:meth:`forward` over the model axis (``tp``): -> (x, the
         replicated (k, v) when ``want_kv``, else None)."""
         h, kv = layers.self_attention_tp(self.cfg, self.attn,
                                          layers.apply_norm(self.cfg, self.ln1, x), tp,
-                                         window=window, want_kv=want_kv)
+                                         window=window, causal=causal, want_kv=want_kv)
         return self._ffn_tp(x + h, tp), kv
 
     def decode_tp(self, x, ck, cv, pos: int, tp, window: Optional[int] = None,
@@ -219,11 +220,11 @@ class AttnBlock(nn.Module):
 
 
 class SSMBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, tp=None):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = layers.Norm(cfg, device)
-        self.ssm = mamba2.SSM(cfg, device)
+        self.ln1 = layers.Norm(cfg, device, tp)
+        self.ssm = mamba2.SSM(cfg, device, tp)
 
     def forward(self, x, want_cache: bool = False):
         h, cache = mamba2.ssm_block(self.cfg, self.ssm,
@@ -236,33 +237,47 @@ class SSMBlock(nn.Module):
         h, st = mamba2.ssm_decode_step(self.cfg, self.ssm, ln, st)
         return x + h, st
 
+    def forward_tp(self, x, tp, want_cache: bool = False):
+        """:meth:`forward` over the model axis."""
+        h, cache = mamba2.ssm_block_tp(self.cfg, self.ssm,
+                                       layers.apply_norm(self.cfg, self.ln1, x), tp,
+                                       want_cache=want_cache)
+        return x + h, cache
+
+    def decode_tp(self, x, st: Dict, tp):
+        """:meth:`decode` over the model axis."""
+        ln = layers.apply_norm(self.cfg, self.ln1, x)
+        h, st = mamba2.ssm_decode_step_tp(self.cfg, self.ssm, ln, st, tp)
+        return x + h, st
+
 
 class Sub(nn.Module):
     """One jamba sublayer: a norm ``ln`` and its mixer or MLP ``p``."""
 
-    def __init__(self, cfg: ModelConfig, device, p: nn.Module):
+    def __init__(self, cfg: ModelConfig, device, p: nn.Module, tp=None):
         super().__init__()
-        self.ln = layers.Norm(cfg, device)
+        self.ln = layers.Norm(cfg, device, tp)
         self.p = p
 
 
 class JambaPeriod(nn.Module):
     """attn at ``attn_offset``, mamba elsewhere; MoE on the MoE sublayers."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, tp=None):
         super().__init__()
         self.cfg = cfg
         n_mamba, n_dense, n_moe = _jamba_counts(cfg)
-        self.attn = Sub(cfg, device, layers.Attention(cfg, device))
-        self.mamba = nn.ModuleList(Sub(cfg, device, mamba2.SSM(cfg, device))
+        self.attn = Sub(cfg, device, layers.Attention(cfg, device, tp), tp)
+        self.mamba = nn.ModuleList(Sub(cfg, device, mamba2.SSM(cfg, device, tp), tp)
                                    for _ in range(n_mamba))
-        self.mlp = nn.ModuleList(Sub(cfg, device, layers.MLP(cfg, device))
+        self.mlp = nn.ModuleList(Sub(cfg, device, layers.MLP(cfg, device, tp=tp), tp)
                                  for _ in range(n_dense))
-        self.moe = nn.ModuleList(Sub(cfg, device, moe_mod.MoE(cfg, device))
+        self.moe = nn.ModuleList(Sub(cfg, device, moe_mod.MoE(cfg, device, tp), tp)
                                  for _ in range(n_moe))
 
-    def _run(self, x, mixer):
-        """The period's sublayers; ``mixer(j, sub, ln_x)`` runs mixer j."""
+    def _run(self, x, mixer, tp=None):
+        """The period's sublayers; ``mixer(j, sub, ln_x)`` runs mixer j; the
+        FFNs over the model axis with ``tp``."""
         cfg = self.cfg
         jm = jd = jmo = 0
         for j in range(cfg.attn_period):
@@ -274,11 +289,15 @@ class JambaPeriod(nn.Module):
             x = x + mixer(j, sub, layers.apply_norm(cfg, sub.ln, x))
             if cfg.is_moe_layer(j):
                 sp = self.moe[jmo]
-                x = x + moe_mod.moe_block(cfg, sp.p, layers.apply_norm(cfg, sp.ln, x))
+                ln = layers.apply_norm(cfg, sp.ln, x)
+                x = x + (moe_mod.moe_block(cfg, sp.p, ln) if tp is None
+                         else moe_mod.moe_block_tp(cfg, sp.p, ln, tp))
                 jmo += 1
             else:
                 sp = self.mlp[jd]
-                x = x + layers.mlp(cfg, sp.p, layers.apply_norm(cfg, sp.ln, x))
+                ln = layers.apply_norm(cfg, sp.ln, x)
+                x = x + (layers.mlp(cfg, sp.p, ln) if tp is None
+                         else layers.mlp_tp(cfg, sp.p, ln, tp))
                 jd += 1
         return x
 
@@ -318,6 +337,43 @@ class JambaPeriod(nn.Module):
 
         return self._run(x, mixer)
 
+    def forward_tp(self, x, tp, want_cache: bool = False):
+        """:meth:`forward` over the model axis: the attention's cache
+        replicated, the mamba states' split leaves as held blocks."""
+        cfg = self.cfg
+        kv, states = [None], []
+
+        def mixer(j, sub, ln):
+            if j == cfg.attn_offset:
+                h, kv[0] = layers.self_attention_tp(cfg, sub.p, ln, tp, want_kv=want_cache)
+                return h
+            h, s = mamba2.ssm_block_tp(cfg, sub.p, ln, tp, want_cache=want_cache)
+            states.append(s)
+            return h
+
+        x = self._run(x, mixer, tp)
+        if want_cache:
+            return x, (kv[0], {k: torch.stack([s[k] for s in states]) for k in states[0]})
+        return x, None
+
+    def decode_tp(self, x, ck, cv, cm: Dict, pos: int, tp):
+        """:meth:`decode` over the model axis."""
+        cfg = self.cfg
+        jm = [0]
+
+        def mixer(j, sub, ln):
+            if j == cfg.attn_offset:
+                return layers.decode_attention_tp(cfg, sub.p, ln, ck, cv, pos, tp)
+            i = jm[0]
+            h, st = mamba2.ssm_decode_step_tp(cfg, sub.p, ln,
+                                              {k: v[i] for k, v in cm.items()}, tp)
+            for k, v in st.items():
+                cm[k][i] = v
+            jm[0] += 1
+            return h
+
+        return self._run(x, mixer, tp)
+
 
 def _group_module(cfg: ModelConfig, kind: str, device, tp=None) -> nn.Module:
     if kind in ("attn", "attn_local"):
@@ -328,14 +384,10 @@ def _group_module(cfg: ModelConfig, kind: str, device, tp=None) -> nn.Module:
         return nn.ModuleList(AttnBlock(cfg, device, tp=tp)
                              for _ in range(cfg.locals_per_global + 1))
     if kind == "ssm":
-        return SSMBlock(cfg, device)
+        return SSMBlock(cfg, device, tp)
     if kind == "jamba":
-        return JambaPeriod(cfg, device)
+        return JambaPeriod(cfg, device, tp)
     raise ValueError(kind)
-
-
-#: The families whose layers run tensor-parallel over the model axis.
-TP_FAMILIES = ("dense", "moe")
 
 
 class LM(nn.Module):
@@ -348,9 +400,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, tp=None):
         super().__init__()
-        if tp is not None and cfg.family not in TP_FAMILIES:
-            raise ValueError(f"{cfg.name}: the {cfg.family} family does not run "
-                             f"tensor-parallel (only {TP_FAMILIES})")
         self.cfg = cfg
         self.tp = tp
         defs = param_defs(cfg)
@@ -499,6 +548,15 @@ def _period_fwd(cfg: ModelConfig, period: nn.ModuleList, x):
     return x, kvs
 
 
+def _with_prefix(cfg: ModelConfig, model: LM, x: torch.Tensor, patches) -> torch.Tensor:
+    """The embedded tokens in the compute dtype, the VLM's patch prefix
+    (``vit_proj``, replicated over the model axis) before them."""
+    if cfg.family == "vlm":
+        pe = torch.matmul(patches.to(x.dtype), model.embed.vit_proj)
+        x = torch.cat([pe, x], dim=1)
+    return x.to(DTYPES[cfg.compute_dtype])
+
+
 def forward_hidden(
     cfg: ModelConfig,
     model: LM,
@@ -514,12 +572,8 @@ def forward_hidden(
     (e.g. one data group's view)."""
     tp = tp if tp is not None else getattr(model, "tp", None)
     if tp is not None:
-        return _forward_hidden_tp(cfg, model, tokens, tp, want_cache)
-    x = embed_tokens(cfg, model, tokens)
-    if cfg.family == "vlm":
-        pe = torch.matmul(patches.to(x.dtype), model.embed.vit_proj)
-        x = torch.cat([pe, x], dim=1)
-    x = x.to(DTYPES[cfg.compute_dtype])
+        return _forward_hidden_tp(cfg, model, tokens, tp, want_cache, patches)
+    x = _with_prefix(cfg, model, embed_tokens(cfg, model, tokens), patches)
     caches = {}
 
     for name, n, kind in layer_groups(cfg):
@@ -571,13 +625,13 @@ def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     is vocab-parallel (:func:`chunked_xent_tp`)."""
     tp = tp if tp is not None else getattr(model, "tp", None)
     h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"), tp=tp)
-    if tp is not None:
-        return chunked_xent_tp(cfg, model, h, batch["labels"], tp)
     labels = batch["labels"]
     if cfg.family == "vlm":  # prefix patch positions carry no labels
         pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
                          device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
+    if tp is not None:
+        return chunked_xent_tp(cfg, model, h, labels, tp.for_batch(h.shape[0]))
     return chunked_xent(cfg, model, h, labels)
 
 
@@ -589,7 +643,7 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, patches=None):
     h, caches = forward_hidden(cfg, model, tokens, patches=patches, want_cache=True)
     tp = getattr(model, "tp", None)
     if tp is not None:
-        return lm_logits_tp(cfg, model, h[:, -1], tp), caches, h.shape[1]
+        return lm_logits_tp(cfg, model, h[:, -1], tp.for_batch(h.shape[0])), caches, h.shape[1]
     logits = lm_logits(cfg, model, h[:, -1])
     return logits, caches, h.shape[1]
 
@@ -680,6 +734,8 @@ def embed_tokens_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp) -> to
     inside = (idx >= 0) & (idx < width)
     rows = tab[torch.arange(n, device=tab.device)[:, None, None], idx.clamp(0, width - 1)]
     x = tp.reduce(rows * inside[..., None].to(rows.dtype))
+    if cfg.family == "audio":  # the decoder's embedding is not scaled
+        return x
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
@@ -764,9 +820,10 @@ def _period_fwd_tp(cfg: ModelConfig, period: nn.ModuleList, x, tp, want_kv: bool
 
 
 def _forward_hidden_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp,
-                       want_cache: bool):
-    """:func:`forward_hidden` over the model axis (dense and MoE groups)."""
-    x = embed_tokens_tp(cfg, model, tokens, tp).to(DTYPES[cfg.compute_dtype])
+                       want_cache: bool, patches=None):
+    """:func:`forward_hidden` over the model axis."""
+    tp = tp.for_batch(tokens.shape[0])
+    x = _with_prefix(cfg, model, embed_tokens_tp(cfg, model, tokens, tp), patches)
     caches = {}
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
@@ -785,16 +842,30 @@ def _forward_hidden_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp,
                     kvs.append(_stack_kv(inner))
             if want_cache:
                 caches[name] = {c: torch.stack([kv[c] for kv in kvs]) for c in ("k", "v")}
-        else:
-            raise ValueError(f"{kind} layers do not run tensor-parallel")
+        elif kind == "ssm":
+            for blk in blocks:
+                x, st = remat(cfg, blk.forward_tp, x, tp, want_cache)
+                kvs.append(st)
+            if want_cache:
+                caches[name] = {k: torch.stack([st[k] for st in kvs]) for k in kvs[0]}
+        elif kind == "jamba":
+            for period in blocks:
+                x, c = remat(cfg, period.forward_tp, x, tp, want_cache)
+                kvs.append(c)
+            if want_cache:
+                caches[name] = {
+                    "attn": _stack_kv([c[0] for c in kvs]),
+                    "mamba": {k: torch.stack([c[1][k] for c in kvs]) for k in kvs[0][1]},
+                }
     x = layers.apply_norm(cfg, model.final_norm, x)
     return (x, caches) if want_cache else x
 
 
 def _decode_step_tp(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tensor,
                     pos: int, tp):
-    """:func:`decode_step` over the model axis; the cache keeps the
-    reference's (replicated) layout."""
+    """:func:`decode_step` over the model axis; the KV cache keeps the
+    reference's (replicated) layout, the SSM states their held blocks."""
+    tp = tp.for_batch(token.shape[0])
     x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
@@ -820,8 +891,16 @@ def _decode_step_tp(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tenso
                         x = period[j].decode_tp(x, loc["k"][i, jl], loc["v"][i, jl], pos, tp,
                                                 ring=True)
                         jl += 1
-        else:
-            raise ValueError(f"{kind} layers do not run tensor-parallel")
+        elif kind == "ssm":
+            for i, blk in enumerate(blocks):
+                x, st = blk.decode_tp(x, {k: v[i] for k, v in gc.items()}, tp)
+                for k, v in st.items():
+                    gc[k][i] = v
+        elif kind == "jamba":
+            cm = gc["mamba"]
+            for i, period in enumerate(blocks):
+                x = period.decode_tp(x, gc["attn"]["k"][i], gc["attn"]["v"][i],
+                                     {k: v[i] for k, v in cm.items()}, pos, tp)
     x = layers.apply_norm(cfg, model.final_norm, x)
     return lm_logits_tp(cfg, model, x[:, 0], tp), cache
 
@@ -836,48 +915,82 @@ def tp_calls(cfg: ModelConfig, kind: str, rows: int, seq: int, size: int,
     makes, as (HLO kind, operand bytes) in the order the pass makes them
     (each one's wire bytes are ``(size - 1)`` times its operand's).
 
-    ``kind``: ``prefill`` (``seq`` prompt tokens), ``decode`` (one token),
-    or ``train`` (:func:`train_loss` and its gradient: the forward's calls,
-    then the backward's, remat's recomputed forward calls included, in
-    the order of the layers, not autograd's); ``rows`` is one data
-    group's batch rows. Mirrors the functions above call by call."""
+    ``kind``: ``prefill`` (``seq`` prompt tokens, after the VLM's patch
+    prefix; whisper's encoder runs its ``n_frames`` first), ``decode`` (one
+    token), or ``train`` (the loss and its gradient: the forward's calls,
+    then the backward's, remat's recomputed forward calls included, in the
+    order of the layers, not autograd's); ``rows`` is one data group's
+    batch rows. Mirrors the functions above (and ``encdec``'s) call by
+    call."""
     a, pb = _itemsize(cfg.compute_dtype), _itemsize(cfg.param_dtype)
     logit_b = torch.promote_types(DTYPES[cfg.compute_dtype], DTYPES[cfg.param_dtype]).itemsize
-    hq, hk, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
-    heads, kv = hq % size == 0, hk % size == 0
+    hq, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    hd = cfg.resolved_head_dim if hq else 0
+    heads = bool(hq) and hq % size == 0
+    kv = bool(hk) and hk % size == 0
     vocab = cfg.padded_vocab % size == 0
-    l = 1 if kind == "decode" else seq
+    l = 1 if kind == "decode" else seq + (cfg.n_patches if cfg.family == "vlm" else 0)
     x = rows * l * d * a  # one replicated activation
     fwd: List[Tuple[str, int]] = []  # the forward's calls
     bwd: List[Tuple[str, int]] = []  # the backward's (train)
     train = kind == "train"
 
-    def mlp(ff: int, partial: bool = False):
+    def mlp(ff: int, xx: int = x, partial: bool = False):
         if ff % size:
             return []
         if train:
-            bwd.append(("all-reduce", x))
-        return [] if partial else [("all-reduce", x)]
+            bwd.append(("all-reduce", xx))
+        return [] if partial else [("all-reduce", xx)]
 
-    def layer(moe: bool) -> List[Tuple[str, int]]:
-        out: List[Tuple[str, int]] = []
-        if heads:
-            if train:
-                bwd.append(("all-reduce", x))
-                if cfg.qk_norm:
+    def kv_grads(n: int) -> None:
+        """The backward of a rank's selection of replicated kv heads."""
+        if train and not kv:
+            bwd.extend([("all-reduce", rows * n * hk * hd * a)] * 2)
+
+    def attn(n: int = l, cache: bool = True) -> List[Tuple[str, int]]:
+        """Self-attention over ``n`` tokens (``cache``: it keeps a cache)."""
+        if not heads:
+            return []
+        xx = rows * n * d * a
+        if train:
+            bwd.append(("all-reduce", xx))
+            if cfg.qk_norm:
+                bwd.append(("all-reduce", hd * pb))
+                if kv:
                     bwd.append(("all-reduce", hd * pb))
-                    if kv:
+        kv_grads(n)
+        out = [("all-reduce", xx)]
+        gathers = [("all-gather", rows * n * (hk // size) * hd * a)] * 2
+        if kv and cache and kind == "prefill":  # the cache's k/v, after the output
+            out.extend(gathers)
+        elif kv and kind == "decode":  # the new entry, before attending
+            out[-1:-1] = gathers
+        return out
+
+    def cross() -> List[Tuple[str, int]]:
+        """Cross attention of ``l`` decoder tokens to the ``n_frames``."""
+        if not heads:
+            return []
+        f = cfg.n_frames
+        out: List[Tuple[str, int]] = []
+        if kind != "decode":
+            if kv and kind == "prefill":  # the cross cache's k/v
+                out.extend([("all-gather", rows * f * (hk // size) * hd * a)] * 2)
+            if train:
+                if kv:
+                    bwd.append(("all-reduce", rows * f * d * a))
+                    if cfg.qk_norm:
                         bwd.append(("all-reduce", hd * pb))
-                if not kv:
-                    bwd.extend([("all-reduce", rows * l * hk * hd * a)] * 2)
-            out.append(("all-reduce", x))
-            if kv and kind == "prefill":  # the cache's k/v, after the output
-                out.extend([("all-gather", rows * l * (hk // size) * hd * a)] * 2)
-            elif kv and kind == "decode":  # the new entry, before attending
-                out[-1:-1] = [("all-gather", rows * l * (hk // size) * hd * a)] * 2
-        if not moe:
-            return out + mlp(cfg.d_ff)
+            kv_grads(f)
+        if train:
+            bwd.append(("all-reduce", x))
+            if cfg.qk_norm:
+                bwd.append(("all-reduce", hd * pb))
+        return out + [("all-reduce", x)]
+
+    def moe() -> List[Tuple[str, int]]:
         e, k = cfg.n_experts, cfg.experts_per_token
+        out: List[Tuple[str, int]] = []
         if e % size == 0:
             out.append(("all-gather", rows * l * (e // size) * 4))
             if train:
@@ -892,24 +1005,76 @@ def tp_calls(cfg: ModelConfig, kind: str, rows: int, seq: int, size: int,
             out.extend(mlp(cfg.d_expert * cfg.n_shared_experts))
         return out
 
-    if vocab:
-        fwd.append(("all-reduce", rows * l * d * pb))
-    for _, n, group in layer_groups(cfg):
-        per = cfg.locals_per_global + 1 if group == "attn_period" else 1
-        for _ in range(n):  # one remat unit: a layer, or a period
-            calls: List[Tuple[str, int]] = []
-            ffn = 0
-            for _ in range(per):
-                before = len(calls)
-                calls.extend(layer(group == "attn_moe"))
-                last = calls[before:][-1:] == [("all-reduce", x)]
-                ffn = 1 if last and _ffn_split(cfg, group == "attn_moe", size) else 0
+    def ssm() -> List[Tuple[str, int]]:
+        """The mamba mixer: the straddling heads' gather, the gate norm's
+        statistic, ``wo``'s partial sums."""
+        width = cfg.d_inner
+        if width % size:
+            return []
+        stat = rows * l * 4
+        whole = cfg.n_ssm_heads % size == 0
+        cols = ("all-gather", rows * l * (width // size) * a)
+        out = ([] if whole else [cols]) + [("all-reduce", stat), ("all-reduce", x)]
+        if train:
+            bwd.append(("all-reduce", x))
+            bwd.append(("all-reduce", rows * l * 2 * cfg.ssm_state * a) if whole else cols)
+            bwd.append(("all-reduce", stat))
+        return out
+
+    def ffn_of(moe_layer: bool) -> Tuple[List[Tuple[str, int]], bool]:
+        """(the FFN's calls, whether it ends its unit in an all-reduce
+        whose output nothing saves)."""
+        calls = moe() if moe_layer else mlp(cfg.d_ff)
+        return calls, calls[-1:] == [("all-reduce", x)] and _ffn_split(cfg, moe_layer, size)
+
+    def encoder_units():
+        """Whisper's encoder layers: (forward calls, trailing all-reduce or
+        not) of each remat unit."""
+        f = cfg.n_frames
+        for _ in range(cfg.encoder_layers):
+            calls = attn(f, cache=False) + mlp(cfg.d_ff, rows * f * d * a)
+            yield calls, bool(calls) and cfg.d_ff % size == 0
+
+    def decoder_units():
+        for _ in range(cfg.n_layers):
+            yield attn() + cross() + mlp(cfg.d_ff), cfg.d_ff % size == 0
+
+    def units():
+        """The decoder-only stack's remat units, as :func:`encoder_units`."""
+        for _, n, group in layer_groups(cfg):
+            for _ in range(n):
+                calls: List[Tuple[str, int]] = []
+                tail = False
+                if group == "ssm":
+                    calls = ssm()
+                    tail = bool(calls)
+                elif group == "jamba":
+                    for j in range(cfg.attn_period):
+                        calls.extend(attn() if j == cfg.attn_offset else ssm())
+                        more, tail = ffn_of(cfg.is_moe_layer(j))
+                        calls.extend(more)
+                else:
+                    per = cfg.locals_per_global + 1 if group == "attn_period" else 1
+                    for _ in range(per):
+                        calls.extend(attn())
+                        more, tail = ffn_of(group == "attn_moe")
+                        calls.extend(more)
+                yield calls, tail
+
+    def run(us) -> None:
+        for calls, tail in us:
             fwd.extend(calls)
             if train and cfg.remat:
                 # the recompute stops at the last op whose saved tensors the
                 # backward needs (checkpoint's early stop): a unit's trailing
-                # FFN all-reduce, whose output nothing saves, is not rerun
-                bwd.extend(calls[:len(calls) - ffn])
+                # all-reduce, whose output nothing saves, is not rerun
+                bwd.extend(calls[:len(calls) - int(tail)])
+
+    if cfg.family == "audio" and kind != "decode":
+        run(encoder_units())
+    if vocab:
+        fwd.append(("all-reduce", rows * (1 if kind == "decode" else seq) * d * pb))
+    run(decoder_units() if cfg.family == "audio" else units())
     if vocab:
         if train:
             bwd.append(("all-reduce", x))

@@ -54,7 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import DTYPES, MeshRules, SimMesh, sorted_leaves, tree_get, tree_set
-from repro_torch.models import api, lm
+from repro_torch.models import api, encdec, lm
 from repro_torch.train import optim
 
 
@@ -255,6 +255,7 @@ def _butterfly_tp(cfg: ModelConfig, mesh: SimMesh, rules: MeshRules, *, method: 
     lr_kw = lr_kw or {}
     accum = DTYPES[cfg.grad_accum_dtype]
     n_groups = math.prod(mesh.shape[a] for a in axes)
+    mod = encdec if cfg.family == "audio" else lm
 
     def sync(g, c):
         if compress == "int8":
@@ -276,7 +277,7 @@ def _butterfly_tp(cfg: ModelConfig, mesh: SimMesh, rules: MeshRules, *, method: 
         for g in held:
             view = tp.for_group(g)
             losses[g], grads_of[g] = _grads_of(
-                lambda m, b, v=view: lm.train_loss(cfg, m, b, tp=v), model,
+                lambda m, b, v=view: mod.train_loss(cfg, m, b, tp=v), model,
                 shards[g], microbatches, accum)
         loss = c.pmean(torch.stack([losses[int(g)] for g in group]))
         # each held rank's row: its data group's gradient of its block

@@ -90,22 +90,28 @@ def test_rows_fields_and_skips(small, tmp_path):
     assert rows[("mamba2-130m", "long_500k")]["status"] == "ok"
     # the prefill and decode rows' flops are the step's count (equal to the
     # reference's: test_torch_hlo_flops_serve.py) over the chips; their
-    # collectives are the sharded step's model-axis calls (none for the SSM,
-    # which runs no tensor-parallel compute)
+    # collectives are the sharded step's model-axis calls (the SSM's too);
+    # mamba2's train row adds the optimizer's and the gradient sync's
+    size = MESH.shape["model"]
     for arch in ARCHS:
         cfg = configs.get_config(arch)
         for shape, kind in (("prefill_32k", "prefill"), ("decode_32k", "decode")):
             row = rows[(arch, shape)]
             assert row["flops_per_device"] * 4 == port_flops(arch, kind)[0]
-            if arch == "mamba2-130m":
-                assert row["t_collective"] == 0.0
-                continue
-            size = MESH.shape["model"]
             seq = SHAPES[shape].seq_len
             rows_per_rank = SHAPES[shape].global_batch // MESH.shape["data"]
             assert row["collectives"] == lm.tp_stats(
                 lm.tp_calls(cfg, kind, rows_per_rank, seq, size), size)
             assert row["t_collective"] > 0.0
+    ssm = configs.get_config("mamba2-130m")
+    shape = SHAPES["train_4k"]
+    model = api.build_model(ssm, torch.device("cpu"),
+                            api.tensor_parallel(rules_for_mesh(MESH), MESH, "cpu"))
+    calls = (lm.tp_calls(ssm, "train", shape.global_batch // MESH.shape["data"],
+                         shape.seq_len, size) + optim.tp_calls(model))
+    sync = dryrun.grad_sync_stats(ssm, MESH, rules_for_mesh(MESH), "xla", 2)
+    assert rows[("mamba2-130m", "train_4k")]["collectives"] == hlo_stats.total_stats(
+        [sync, lm.tp_stats(calls, size)])
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
@@ -173,10 +179,79 @@ def test_tp_record_equals_a_real_sharded_step(arch, kind):
     assert got == hlo_stats.total_stats([model.tp.stats])
     assert got == lm.tp_stats(lm.tp_calls(cfg, kind, BATCH // 2, SEQ, 4) + extra, 4)
     assert got["all-reduce"]["count"] > 0
-    # a mesh without a model axis, or the SSM family: no tensor-parallel term
+    # a mesh without a model axis: no tensor-parallel term; the SSM family's
+    # is its byte model's (test_ssm_tp_record_equals_a_real_sharded_step)
     assert dryrun.tp_step_stats(cfg, shape, SimMesh(2), rules_for_mesh(SimMesh(2))) is None
     ssm = configs.reduced(configs.get_config("mamba2-130m"))
-    assert dryrun.tp_step_stats(ssm, shape, mesh, rules) is None
+    assert dryrun.tp_step_stats(ssm, shape, mesh, rules) == lm.tp_stats(
+        lm.tp_calls(ssm, kind, BATCH // 2, SEQ, 4) + (optim.tp_calls(api.build_model(
+            ssm, torch.device("cpu"), api.tensor_parallel(rules, mesh, "cpu")))
+            if kind == "train" else []), 4)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch,changes", [("mamba2-130m", {}),
+                                          ("mamba2-130m", {"ssm_head_dim": 128}),
+                                          ("jamba-v0.1-52b", {}), ("internvl2-26b", {}),
+                                          ("whisper-medium", {})])
+def test_family_tp_record_equals_a_real_sharded_step(arch, changes, kind):
+    """The SSM, hybrid, VLM and encoder-decoder families on (data 2, model
+    4), the SSM's heads also straddling the ranks: the dry run's record
+    equals a real reduced sharded step's (decode against the held cache)
+    and the byte model."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)), **changes)
+    mesh = SimMesh((2, 4), ("data", "model"))
+    rules = rules_for_mesh(mesh)
+    shape = ShapeConfig("cell", SEQ, BATCH, kind)
+    got = dryrun.tp_step_stats(cfg, shape, mesh, rules)
+    model = api.init_params(cfg, 0, device="cpu", rules=rules, mesh=mesh)
+    ins = shd.tree_map(lambda pd: torch.zeros(pd.shape, dtype=shd.resolve_dtype(pd, "float32")),
+                       api.input_defs(cfg, shape))
+    with torch.no_grad():
+        if kind == "prefill":
+            api.prefill_fn(cfg, rules, mesh)(model, ins)
+        elif kind == "decode":
+            cache = api.held_cache(model, shd.tree_map(lambda pd: torch.zeros(pd.shape),
+                                                       api.cache_defs(cfg, shape)))
+            api.decode_fn(cfg, rules, mesh)(model, cache, ins["token"], SEQ - 1)
+    extra = []
+    if kind == "train":
+        fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules)
+        fn(model, optim.get(cfg.optimizer).init(model), ins, 0)
+        extra = optim.tp_calls(model)
+    text = SEQ - (cfg.n_patches if cfg.family == "vlm" else 0)
+    assert got == hlo_stats.total_stats([model.tp.stats])
+    assert got == lm.tp_stats(lm.tp_calls(cfg, kind, BATCH // 2, text, 4) + extra, 4)
+    assert got["all-reduce"]["count"] > 0
+
+
+def test_straddling_production_row_equals_the_byte_model():
+    """mamba2-130m's prefill and long-context decode rows at its published
+    size on the production mesh's model 16 (24 heads: 1.5 a rank, so the
+    scan runs replicated behind an all-gather), under fake tensors: their
+    model-axis terms equal the byte model's."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    cfg = configs.get_config("mamba2-130m")
+    mesh = launch_mesh.make_production_mesh(multi_pod=False)
+    rules = rules_for_mesh(mesh)
+    size = mesh.shape["model"]
+    assert size == 16 and cfg.n_ssm_heads % size and cfg.d_inner % size == 0
+    shape = SHAPES["prefill_32k"]
+    got = dryrun.tp_step_stats(cfg, shape, mesh, rules)
+    rows_per_rank = shape.global_batch // (mesh.ranks // size)
+    calls = lm.tp_calls(cfg, "prefill", rows_per_rank, shape.seq_len, size)
+    assert ("all-gather", rows_per_rank * shape.seq_len * cfg.d_inner // size * 2) in calls
+    assert got == lm.tp_stats(calls, size)
+    # long_500k decodes one row: fewer rows than the 16 data groups, so the
+    # batch is replicated over them (the reference's spec fallback) and
+    # every group's calls carry the whole row
+    long = SHAPES["long_500k"]
+    assert long.global_batch == 1
+    got = dryrun.tp_step_stats(cfg, long, mesh, rules)
+    assert got == lm.tp_stats(lm.tp_calls(cfg, "decode", 1, long.seq_len, size), size)
 
 
 def test_tp_record_against_the_reference_hlo(mesh_dm):

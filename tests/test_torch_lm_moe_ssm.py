@@ -160,6 +160,32 @@ def test_ssd_chunked(chunk):
     np.testing.assert_allclose(s.numpy(), state, rtol=2e-4, atol=2e-4)
 
 
+def test_ssd_gradient_finite_at_a_long_chunk():
+    """A 256-token chunk whose decay sums overflow above the diagonal
+    (exp(li) of a positive li past float32's range): the values equal the
+    reference's, and the gradient is finite, equal to the 8-token chunks'
+    (the reference's own gradient is NaN here: its where(causal, exp(li),
+    0) routes 0 * inf into the backward)."""
+    x, dt, a_log, bm, cm = ssd_inputs(l=256)
+    dt = dt * 4.0  # decay sums of ~-300 over the chunk: exp(300) overflows
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (x, dt, a_log, bm, cm)]
+    y, s = mamba2.ssd_chunked(*ins, 256)
+    ry, rs = ref_mamba2.ssd_chunked(*map(jnp.asarray, (x, dt, a_log, bm, cm)), 256)
+    # 256-term float32 sums of terms up to ~10, in the reference's einsum
+    # order against the port's two products
+    assert_close(y, ry, atol=2e-3, rtol=2e-3)
+    assert_close(s, rs, atol=1e-4, rtol=1e-4)
+    g = torch.autograd.grad((y * y).sum() + (s * s).sum(), ins)
+    short = [torch.from_numpy(a).requires_grad_(True) for a in (x, dt, a_log, bm, cm)]
+    y8, s8 = mamba2.ssd_chunked(*short, 8)
+    g8 = torch.autograd.grad((y8 * y8).sum() + (s8 * s8).sum(), short)
+    # within 1e-4 of each input's largest: the two chunkings' float32 sums
+    # run in other orders (2.6e-5 at most here)
+    for a, b in zip(g, g8):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
 def ssm_setup(arch="mamba2-130m"):
     ref_cfg, cfg = reduced(arch)
     prm = rand_tree(mamba2.ssm_defs(cfg), 14)
