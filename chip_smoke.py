@@ -123,6 +123,30 @@ account:
    first greedy token equal to the unsharded run's and the prefill logits
    within 0.125, the share of all tokens equal logged; (e) none of the
    four graph kernels launched;
+3g. FSDP (ZeRO-3) over the data axes beside tensor parallelism, after
+   phase 3f (its state freed after): deepseek-7b (its config's FSDP) on
+   (data 2, model 4) simulated ranks with ``rules_for_mesh(mesh,
+   fsdp=True)``, each leaf with an ``embed`` dimension held as its data
+   ranks' blocks and gathered unit by unit: (a) bfloat16 serving at its
+   published size (30 layers, 6.9 B parameters) beside the tensor-parallel
+   model of the same seeded weights, ``generate(rules=, mesh=)`` of 8
+   prompts of 256 tokens and 16 greedy tokens, prefill and decode ms of
+   both, the prefill logits and every token bit-equal to the
+   tensor-parallel run's (else logged, and held to 3f's bounds), every
+   FSDP and model-axis call and each rank's bytes equal to the byte models
+   (``lm.fsdp_calls``, ``lm.tp_calls``), peak; (b) one float32 step (TF32
+   off) of the 2-layer cut, 4 x 512 tokens in 2 microbatches, against the
+   tensor-parallel step: loss and every leaf's gradient, and the
+   parameters after AdamW, within 1e-5 of each leaf's largest, the records
+   equal to the byte models; 3 bfloat16 steps at full width cut to 8
+   layers through ``train.loop.train(mesh=, rules=)``, 8 x 1024 tokens in
+   the config's 4 microbatches, after the same steps tensor-parallel
+   alone: the first loss bit-equal, the others within 1e-2; step ms of
+   both, tokens a second, 6ND share, peak; (c) one FSDP GSPMD step in 4
+   gloo processes on (data 2, model 2), the 2-layer cut, 4 x 256 tokens,
+   against the simulated ranks (records equal, every gradient leaf within
+   1e-5, each process's peak), beside phase 4 after 3e(d); none of the
+   four graph kernels launched;
 4. ETL: the Kronecker graph with edge weights in [1, 64] (its edge set is
    the unweighted graph's, so the BFS phases run on it), 1D partition over
    P simulated ranks, kernel layout, placement on the card; the 1024x1024
@@ -245,17 +269,20 @@ BC, k-core, the triangle count, a repair with a taint phase under the
 butterfly and the lane-packed repair must launch ``bitmap_or_reduce``.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing any result.  ``--out PATH`` also writes the results as
-JSON.  ``--lm-only`` runs phases 1, 3, 3b, 3c, 3e and 3f's serving alone, with 4 decode steps
+JSON.  ``--lm-only`` runs phases 1, 3, 3b, 3c, 3e, 3f's serving and 3g's
+serving and gloo step alone, with 4 decode steps
 and one train step under ``torch.profiler`` after the timed runs (the full
 run profiles no LM step: a profiler session would precede the graph phases'
-timings); ``--train-only`` runs phases 1, 3b, 3c, 3e and 3f's float32
-steps alone, the train step profiled.  ``--multi-card``, on a
+timings); ``--train-only`` runs phases 1, 3b, 3c, 3e, 3f's float32
+steps and 3g's steps alone, the train step profiled.  ``--multi-card``, on a
 machine with several cards, runs phase 3c(d) over nccl with one rank on
 each card, then ``launch.train`` under ``torchrun`` with nccl, then phase
 3e's serving (the float32 prefill logits and ``generate``'s greedy
 tokens) and a float32 GSPMD step of the 2-layer cut over nccl, one model
-rank on each card (data 1), against the simulated ranks on card 0, alone
-(NCCL refuses two ranks on one card, so the one-card run uses gloo).
+rank on each card (data 1), then phase 3g's FSDP step of deepseek-7b's
+2-layer cut on (data 2, model cards / 2), against the simulated ranks on
+card 0, alone (NCCL refuses two ranks on one card, so the one-card run
+uses gloo).
 """
 
 from __future__ import annotations
@@ -4678,10 +4705,12 @@ def tp_child(rank, world, out_dir, job):
     ``"serve"`` in ``job["parts"]``: the float32 prefill logits of its data
     group's rows and, in the config's dtype, ``generate``'s greedy tokens;
     with ``"step"``: one train step (``job["step_kind"]``) in float32, TF32
-    off. Rank 0 runs the same on simulated ranks on its card and holds each
-    process's results to it: logits and every gathered parameter within
-    TP_REL_TOL of each leaf's largest, the loss too, the model-axis record
-    equal. Writes ``rank<r>.json``."""
+    off (``job["fsdp"]``: with FSDP rules). Rank 0 runs the same on
+    simulated ranks on its card and holds each process's results to it:
+    logits and every gradient leaf within TP_REL_TOL of its largest, the
+    loss too, the records equal, the parameters after the update within
+    the update's bound (not gathered for an FSDP job); each process's peak
+    over its step. Writes ``rank<r>.json``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4711,7 +4740,7 @@ def tp_child(rank, world, out_dir, job):
     torch.set_float32_matmul_precision("highest")
     build.reset_launches()
     mesh = SimMesh(*job["mesh"])
-    rules = rules_for_mesh(mesh)
+    rules = rules_for_mesh(mesh, job.get("fsdp", False))
     groups = mesh.shape["data"]
     group = int(mesh.coords([rank])[0][0])
     comm = DistCommunicator(dev, mesh)
@@ -4745,7 +4774,7 @@ def tp_child(rank, world, out_dir, job):
             synchronize()
             got[(name, "tokens")] = out.tokens
             got[(name, "serve_s")] = time.perf_counter() - t0
-            got[(name, "serve_stats")] = {k: dict(v) for k, v in m.tp.stats.items()}
+            got[(name, "serve_stats")] = _records(m)
             del m
             if cuda:
                 torch.cuda.empty_cache()
@@ -4759,10 +4788,9 @@ def tp_child(rank, world, out_dir, job):
             caught = {}
 
             def apply(model, grads, st, lr, caught=caught):
-                """The optimizer's update, the (clipped) gradient it takes
-                kept whole (an all-gather over the model group under
-                torch.distributed)."""
-                caught["grads"], caught["lr"] = api.global_leaves(model, grads), lr
+                """The optimizer's update; the (clipped) gradient it takes
+                kept as held, gathered whole after the step."""
+                caught["grads"], caught["lr"] = grads, lr
                 return real.apply(model, grads, st, lr)
 
             hooked = dataclasses.replace(real, apply=apply)
@@ -4775,22 +4803,33 @@ def tp_child(rank, world, out_dir, job):
                     fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, lr_kw=TRAIN_LR)
             finally:
                 optim.get = get
-            m.tp.reset()
+            _reset_records(m)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             m, state, met = fn(m, state, batch, 1)
             synchronize()
             got[(name, "step_s")] = time.perf_counter() - t0
+            got[(name, "step_peak_bytes")] = torch.cuda.max_memory_allocated(dev) if cuda else 0
             got[(name, "loss")] = float(met["loss"])
-            got[(name, "step_stats")] = {k: dict(v) for k, v in m.tp.stats.items()}
-            params = api.to_reference(m)  # collective under dist: every process gathers
+            got[(name, "step_stats")] = _records(m)
+            # collective under dist: every process gathers (an FSDP job's
+            # check is the gradient's: its parameters are not gathered)
+            grads = api.global_leaves(m, caught.pop("grads"))
+            params = None if job.get("fsdp") else api.to_reference(m)
             if rank == 0:
-                got[(name, "params")] = params
-                got[(name, "grads")], got[(name, "lr")] = caught["grads"], caught["lr"]
-            del m, state, params, caught
+                got[(name, "grads")], got[(name, "lr")] = grads, caught["lr"]
+                if params is not None:
+                    got[(name, "params")] = params
+            del m, state, params, grads, caught
             if cuda:
                 torch.cuda.empty_cache()
-    # rank 0 holds every process to its simulated run
-    mine = {k[1]: v for k, v in got.items() if k[0] == "dist" and k[1] != "params"}
+    # rank 0 holds every process to its simulated run; the parameters and
+    # the gradient stay home (all_gather_object pads every rank's object to
+    # the largest and hands each process all of them: rank 0's gradient
+    # would be world x world copies on the host)
+    mine = {k[1]: v for k, v in got.items()
+            if k[0] == "dist" and k[1] not in ("params", "grads")}
     everyone = [None] * world
     dist.all_gather_object(everyone, {k: v for k, v in mine.items()})
     if rank == 0:
@@ -4813,12 +4852,13 @@ def tp_child(rank, world, out_dir, job):
                 if lerr > TP_REL_TOL or theirs["step_stats"] != got[("sim", "step_stats")]:
                     raise AssertionError(f"rank {r}: loss rel err {lerr:.3g} or its record "
                                          f"differs from the simulated ranks'")
-        if ("dist", "params") in got:
+        if ("dist", "grads") in got:
             errs = leaf_rel_errs(got[("dist", "grads")], got[("sim", "grads")])
             worst = max(errs, key=errs.get)
             checks.update(grads_worst=worst, grads_rel_err=errs[worst])
             if errs[worst] > TP_REL_TOL:
                 raise AssertionError(f"dist step: gradient {worst} rel err {errs[worst]:.3g}")
+        if ("dist", "params") in got:
             # the parameters after the update, reported: AdamW's first
             # update g / (|g| + eps) is ill-conditioned wherever the clipped
             # |g| nears eps (most elements here), so a gradient's last bits
@@ -4836,13 +4876,26 @@ def tp_child(rank, world, out_dir, job):
         res["checks"] = checks
         res["sim"] = {k[1]: v for k, v in got.items() if k[0] == "sim"
                       and k[1] in ("step_s", "serve_s", "loss")}
-    res["dist"] = {k: v for k, v in mine.items() if k in ("step_s", "serve_s", "loss")}
+    res["dist"] = {k: v for k, v in mine.items()
+                   if k in ("step_s", "serve_s", "loss", "step_peak_bytes")}
     res["stage_s"], res["wire_s"] = comm.stage_s, comm.wire_s
     res["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
     res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
     res["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f, default=float)
+
+
+def _records(model):
+    """A sharded model's records: the model axis's and FSDP's, by kind."""
+    return {name: None if par is None else {k: dict(v) for k, v in par.stats.items()}
+            for name, par in (("tp", model.tp), ("fsdp", getattr(model, "fsdp", None)))}
+
+
+def _reset_records(model):
+    for par in (model.tp, getattr(model, "fsdp", None)):
+        if par is not None:
+            par.reset()
 
 
 def _flat_items(tree, path=()):
@@ -5245,6 +5298,353 @@ def run_tp_families(dev, seed, serve=True, train=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# FSDP (ZeRO-3) over the data axes beside tensor parallelism (phase 3g)
+# ---------------------------------------------------------------------------
+
+# deepseek-7b (fsdp=True) on (data 2, model 4) simulated ranks with
+# rules_for_mesh(mesh, fsdp=True), against the tensor-parallel run of the
+# same seeded weights: (a) bfloat16 serving at the published size,
+# FSDP_SERVE = (prompts, prompt tokens, greedy tokens); (b) FSDP_TRAIN_STEPS
+# bfloat16 steps of the FSDP_TRAIN_LAYERS-layer cut at full width through
+# train.loop.train (FSDP_TRAIN_BATCH x FSDP_TRAIN_SEQ tokens, the config's
+# microbatches) after the same steps tensor-parallel alone, and one float32
+# step of the 2-layer cut, FSDP_STEP = (rows, tokens, microbatches), against
+# the tensor-parallel step; (c) one FSDP GSPMD step in TP_GLOO_WORLD gloo
+# processes on (data 2, model 2), the 2-layer cut, FSDP_GLOO_BATCH x
+# FSDP_GLOO_SEQ tokens, against the simulated ranks (beside phase 4, after
+# 3e(d))
+FSDP_ARCH = "deepseek-7b"
+FSDP_SERVE = (8, 256, 16)
+FSDP_TRAIN_LAYERS, FSDP_TRAIN_STEPS = 8, 3
+FSDP_TRAIN_BATCH, FSDP_TRAIN_SEQ = 8, 1024
+FSDP_STEP = (4, 512, 2)
+FSDP_GLOO_BATCH, FSDP_GLOO_SEQ = 4, 256
+# (b)'s bf16 losses against the tensor-parallel run's, relative
+FSDP_LOSS_TOL = 1e-2
+
+
+def fsdp_bytes_check(label, model, calls, ordered=True):
+    """The model's ``FullyShardedData`` record against the byte model's
+    ``calls`` (in order, or unordered for a step) and each rank's bytes
+    against their wire bytes; returns the bytes a rank."""
+    from repro_torch.models import lm
+
+    fs = model.fsdp
+    have, want_calls = list(fs.calls), list(calls)
+    if not ordered:
+        have, want_calls = sorted(have), sorted(want_calls)
+    if have != want_calls:
+        raise AssertionError(f"{label}: {len(fs.calls)} FSDP calls recorded, the byte model "
+                             f"has {len(calls)}")
+    stats = lm.tp_stats(calls, fs.size)
+    want = int(sum(v["wire_bytes"] for v in stats.values()))
+    if fs.stats != stats or set(int(b) for b in fs.bytes_sent) != {want}:
+        raise AssertionError(f"{label}: bytes a rank {fs.bytes_sent}, model {want}")
+    return want
+
+
+def fsdp_serve(dev, seed):
+    """(a) deepseek-7b at its published size, seeded, with FSDP rules on
+    (data 2, model 4) beside the tensor-parallel model of the same
+    weights: ``generate(rules=, mesh=)`` of both timed step by step, the
+    prefill logits and every token of the FSDP run equal to the
+    tensor-parallel run's bit for bit (a gather is a concatenation; where
+    the card's GEMM takes another algorithm for a gathered tensor, logged,
+    and then held to 3f's bounds: every first token equal, the prefill
+    logits within TPF_LOGIT_TOL), every FSDP and model-axis call and each
+    rank's bytes equal to the byte models, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+
+    cfg = configs.get_config(FSDP_ARCH)
+    b, p, new = FSDP_SERVE
+    mesh = SimMesh(*TP_MESH)
+    rules, tp_rules = rules_for_mesh(mesh, fsdp=True), rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = api.init_params(cfg, seed, device=dev, rules=tp_rules, mesh=mesh)
+    model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.param_counts(cfg)["total"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    timed_generate(cfg, base, prompts, 2, tp_rules, mesh)  # warm-up
+    timed_generate(cfg, model, prompts, 2, rules, mesh)
+    base.tp.reset()
+    want, p_ms, d_ms = timed_generate(cfg, base, prompts, new, tp_rules, mesh)
+    model.tp.reset()
+    model.fsdp.reset()
+    got, f_p_ms, f_d_ms = timed_generate(cfg, model, prompts, new, rules, mesh)
+    rows = b // groups
+    tp_calls = (lm.tp_calls(cfg, "prefill", rows, p, size)
+                + lm.tp_calls(cfg, "decode", rows, p, size) * (new - 1))
+    tp_bytes = tp_bytes_check("FSDP serving's model axis", model, tp_calls)
+    fs_calls = (lm.fsdp_calls(cfg, "prefill", mesh, rules)
+                + lm.fsdp_calls(cfg, "decode", mesh, rules) * (new - 1))
+    fs_bytes = fsdp_bytes_check("FSDP serving", model, fs_calls)
+    prefill_gathered = sum(nb for _, nb in lm.fsdp_calls(cfg, "prefill", mesh, rules))
+    with torch.inference_mode():
+        la = api.prefill_fn(cfg, tp_rules, mesh)(base, {"tokens": prompts})[0]
+        lb = api.prefill_fn(cfg, rules, mesh)(model, {"tokens": prompts})[0]
+    peak = torch.cuda.max_memory_allocated()
+    exact = bool(torch.equal(la, lb)) and bool((got == want).all())
+    diff = float((la.float() - lb.float()).abs().max())
+    first = float((got[:, 0] == want[:, 0]).mean())
+    share = float((got == want).mean())
+    if not exact:
+        where = torch.nonzero(la != lb)
+        log(f"  the FSDP run is not bit-equal to the tensor-parallel run: prefill logits "
+            f"differ at {where.shape[0]} of {la.numel()} entries (first {where[:4].tolist()}), "
+            f"max |diff| {diff:.3g}; tokens equal {share:.1%}: held to 3f's bounds")
+        if not (diff <= TPF_LOGIT_TOL and first == 1.0):
+            raise AssertionError(f"FSDP serving: prefill logits differ by {diff:.3g} "
+                                 f"(bound {TPF_LOGIT_TOL}) or first tokens differ")
+    res = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, batch=b, prompt=p,
+               new=new, mesh=TP_MESH, init_s=init_s, prefill_ms=f_p_ms,
+               decode_ms_median=float(np.median(f_d_ms)), tp_prefill_ms=p_ms,
+               tp_decode_ms_median=float(np.median(d_ms)), bit_equal=exact,
+               prefill_logits_max_diff=diff, tokens_equal_share=share,
+               first_tokens_equal=first, fsdp_calls=len(fs_calls), tp_calls=len(tp_calls),
+               fsdp_bytes_per_rank=fs_bytes, tp_bytes_per_rank=tp_bytes,
+               prefill_gathered_bytes_per_rank=prefill_gathered, peak_bytes=peak)
+    log(f"  {cfg.name} ({n_params:,} parameters, {cfg.n_layers} layers) bf16 with FSDP rules "
+        f"on data {groups} x model {size} (seeded with the tensor-parallel copy in "
+        f"{init_s:.1f} s): prefill {f_p_ms:.2f} ms (tensor-parallel alone {p_ms:.2f}), decode "
+        f"{res['decode_ms_median']:.2f} ms a step median (tensor-parallel alone "
+        f"{res['tp_decode_ms_median']:.2f}); {'bit-equal' if exact else 'NOT bit-equal'} to "
+        f"the tensor-parallel run (prefill logits and all {b} x {new} tokens); "
+        f"{len(fs_calls)} FSDP calls == lm.fsdp_calls, {fs_bytes / 1e9:.3f} GB a rank "
+        f"(prefill {prefill_gathered / 1e6:.1f} MB of gathered blocks), {len(tp_calls)} "
+        f"model-axis calls == lm.tp_calls, {tp_bytes / 1e6:.3f} MB a rank; peak "
+        f"{peak / 1e9:.2f} GB (both models)")
+    del base, model, la, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fsdp_step_check(dev, seed):
+    """(b) one float32 step (TF32 off) of the 2-layer cut at full width with
+    FSDP rules on (data 2, model 4) against the tensor-parallel step of the
+    same weights and batch: the loss and every leaf's gradient within
+    TP_REL_TOL of its largest, the records of the gradient (remat's
+    recompute, each gathered leaf's reduce-scatter) and then of the whole
+    GSPMD step (the clip's and AdamW's calls) equal to the byte models,
+    the parameters after AdamW within TP_REL_TOL of each leaf's largest."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.train import optim, step as step_mod
+
+    base_cfg = configs.get_config(FSDP_ARCH)
+    cfg = dataclasses.replace(base_cfg, n_layers=RESTART_LAYERS, param_dtype="float32",
+                              compute_dtype="float32")
+    rows, seq, mb = FSDP_STEP
+    mesh = SimMesh(*TP_MESH)
+    rules, tp_rules = rules_for_mesh(mesh, fsdp=True), rules_for_mesh(mesh)
+    size, groups = mesh.shape["model"], mesh.shape["data"]
+    batch = device_batch(SyntheticLM(cfg, rows, seq), 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with exact_float32():
+        base = api.init_params(cfg, seed, device=dev, rules=tp_rules, mesh=mesh)
+        model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+        loss0, g0 = step_mod._grads_of(api.train_loss_fn(cfg, tp_rules, mesh), base, batch, mb)
+        g0 = api.global_leaves(base, g0)
+        model.tp.reset()
+        model.fsdp.reset()
+        loss1, g1 = step_mod._grads_of(api.train_loss_fn(cfg, rules, mesh), model, batch, mb)
+        g1 = api.global_leaves(model, g1)
+        tcalls = lm.tp_calls(cfg, "train", rows // mb // groups, seq, size) * mb
+        fcalls = lm.fsdp_calls(cfg, "train", mesh, rules) * mb
+        grad_tp = tp_bytes_check("FSDP gradient's model axis", model, tcalls, ordered=False)
+        grad_fs = fsdp_bytes_check("FSDP gradient", model, fcalls, ordered=False)
+        errs = leaf_rel_errs(g1, g0)
+        loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        del g0, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = worst_leaf(errs)
+        if not (loss_err <= TP_REL_TOL and errs[worst] <= TP_REL_TOL):
+            raise AssertionError(f"FSDP step: loss rel err {loss_err:.3g}, gradient "
+                                 f"{worst} {errs[worst]:.3g} > {TP_REL_TOL}")
+        sa, sb = (optim.get(cfg.optimizer).init(m) for m in (base, model))
+        fa = step_mod.build_train_step(cfg, mesh=mesh, rules=tp_rules, microbatches=mb,
+                                       lr_kw=TRAIN_LR)
+        fb = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, microbatches=mb,
+                                       lr_kw=TRAIN_LR)
+        base, sa, ma = fa(base, sa, batch, 1)
+        model.tp.reset()
+        model.fsdp.reset()
+        model, sb, mb_ = fb(model, sb, batch, 1)
+        step_tp = tp_bytes_check("FSDP step's model axis", model,
+                                 tcalls + optim.tp_calls(model), ordered=False)
+        step_fs = fsdp_bytes_check("FSDP step", model, fcalls + optim.fsdp_calls(model),
+                                   ordered=False)
+        want = {p: torch.from_numpy(np.asarray(v, np.float32)) for p, v in
+                _flat_items(api.to_reference(base))}
+        got = {p: torch.from_numpy(np.asarray(v, np.float32)) for p, v in
+               _flat_items(api.to_reference(model))}
+        perrs = leaf_rel_errs(_tree_of(got), _tree_of(want))
+        pworst = worst_leaf(perrs)
+        if perrs[pworst] > TP_REL_TOL:
+            raise AssertionError(f"FSDP step: parameter {pworst} after AdamW "
+                                 f"{perrs[pworst]:.3g} > {TP_REL_TOL}")
+    res = dict(layers=RESTART_LAYERS, rows=rows, seq=seq, microbatches=mb,
+               loss=float(loss0), loss_rel_err=loss_err, worst_leaf=worst,
+               worst_rel_err=errs[worst], params_worst_leaf=pworst,
+               params_worst_rel_err=perrs[pworst], grad_fsdp_bytes_per_rank=grad_fs,
+               grad_tp_bytes_per_rank=grad_tp, step_fsdp_bytes_per_rank=step_fs,
+               step_tp_bytes_per_rank=step_tp, fsdp_calls=len(fcalls),
+               step_loss=float(mb_["loss"]), tp_step_loss=float(ma["loss"]),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  float32 (TF32 off) {RESTART_LAYERS}-layer cut, {rows} x {seq} tokens in {mb} "
+        f"microbatches, FSDP rules against the tensor-parallel step: loss {float(loss1):.6f} "
+        f"(tensor-parallel {float(loss0):.6f}, rel err {loss_err:.2e}), every leaf's gradient "
+        f"within {errs[worst]:.2e} of its largest (worst {worst}), after AdamW every "
+        f"parameter within {perrs[pworst]:.2e} (worst {pworst}); {len(fcalls)} FSDP calls "
+        f"== the byte model (remat's recompute included), {grad_fs / 1e9:.3f} GB a rank, the "
+        f"whole step {step_fs / 1e9:.3f} GB (model axis {step_tp / 1e9:.3f} GB); peak "
+        f"{res['peak_bytes'] / 1e9:.2f} GB")
+    del base, model, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tree_of(flat):
+    """A nested dict of ``{path: leaf}``."""
+    from repro_torch.dist.sharding import tree_set
+
+    out = {}
+    for p, v in flat.items():
+        tree_set(out, p, v)
+    return out
+
+
+def fsdp_train(dev, seed):
+    """(b) deepseek-7b at full width cut to FSDP_TRAIN_LAYERS layers on
+    (data 2, model 4), FSDP_TRAIN_STEPS bfloat16 steps through
+    ``train.loop.train`` (remat, AdamW, the GSPMD step, the config's
+    microbatches), first tensor-parallel alone, then with FSDP rules: every
+    loss finite, the first bit-equal to the tensor-parallel run's and the
+    others within FSDP_LOSS_TOL of them (the clip's norm sums the shards in
+    another order); step ms of both, tokens a second, 6ND against the
+    bfloat16 peak, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+    from repro_torch.models import api
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=FSDP_TRAIN_LAYERS)
+    mesh = SimMesh(*TP_MESH)
+    runs = {}
+    for name, rules in (("tp", rules_for_mesh(mesh)), ("fsdp", rules_for_mesh(mesh, fsdp=True))):
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        t0 = time.perf_counter()
+        out = loop.train(cfg, FSDP_TRAIN_BATCH, FSDP_TRAIN_SEQ,
+                         loop.LoopConfig(n_steps=FSDP_TRAIN_STEPS,
+                                         microbatches=cfg.train_microbatches,
+                                         lr_kw=TRAIN_LR, log_every=FSDP_TRAIN_STEPS),
+                         seed=seed, on_metrics=lambda s, m, rows=rows: rows.append(m),
+                         device=dev, mesh=mesh, rules=rules)
+        if (out["params"].fsdp is not None) != (name == "fsdp"):
+            raise AssertionError(f"train.loop.train did not take the {name} step")
+        step_s = [r["step_time"] for r in rows]
+        runs[name] = dict(losses=out["losses"], step_s=step_s,
+                          step_s_median=float(np.median(step_s[1:])),
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          wall_s=time.perf_counter() - t0)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    got, want = np.asarray(runs["fsdp"]["losses"]), np.asarray(runs["tp"]["losses"])
+    rel = np.abs(got - want) / np.abs(want)
+    if not (np.isfinite(got).all() and got[0] == want[0] and rel.max() <= FSDP_LOSS_TOL):
+        raise AssertionError(f"FSDP training: losses {got.tolist()} against the "
+                             f"tensor-parallel run's {want.tolist()}")
+    med = runs["fsdp"]["step_s_median"]
+    tokens = FSDP_TRAIN_BATCH * FSDP_TRAIN_SEQ
+    n_params = api.param_counts(cfg)["total"]
+    flops = api.model_flops(cfg, configs.ShapeConfig("smoke", FSDP_TRAIN_SEQ,
+                                                     FSDP_TRAIN_BATCH, "train"))
+    res = dict(runs["fsdp"], layers=FSDP_TRAIN_LAYERS, params=n_params, mesh=TP_MESH,
+               steps=FSDP_TRAIN_STEPS, tokens_per_s=tokens / med, model_flops=flops,
+               peak_share=flops / med / H100_BF16_FLOPS, loss_rel_err=float(rel.max()),
+               tp=runs["tp"])
+    tp_med = runs["tp"]["step_s_median"]
+    log(f"  {cfg.name} cut to {FSDP_TRAIN_LAYERS} layers ({n_params:,} parameters) on data 2 x "
+        f"model 4: {FSDP_TRAIN_STEPS} steps of {FSDP_TRAIN_BATCH} x {FSDP_TRAIN_SEQ} tokens in "
+        f"{cfg.train_microbatches} microbatches, losses {', '.join(f'{x:.4f}' for x in got)} "
+        f"(tensor-parallel alone {', '.join(f'{x:.4f}' for x in want)}, within "
+        f"{rel.max():.2e}); step {med * 1e3:.1f} ms median of steps 2-{FSDP_TRAIN_STEPS} "
+        f"(first {runs['fsdp']['step_s'][0] * 1e3:.1f} ms; tensor-parallel alone "
+        f"{tp_med * 1e3:.1f} ms), {tokens / med:,.0f} tokens/s, 6ND {res['peak_share']:.1%} of "
+        f"the bf16 peak; peak {res['peak_bytes'] / 1e9:.2f} GB (tensor-parallel alone "
+        f"{runs['tp']['peak_bytes'] / 1e9:.2f}); {res['wall_s']:.1f} s")
+    return res
+
+
+def fsdp_gloo(dev, seed):
+    """(c) one FSDP GSPMD step in TP_GLOO_WORLD gloo processes on the card
+    on (data 2, model 2), the 2-layer cut of deepseek-7b in float32,
+    against the simulated ranks: each process holds its data and model
+    ranks' blocks, its records equal the simulated ranks', every leaf of
+    the gradient within TP_REL_TOL; each process's peak logged."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=RESTART_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    job = dict(parts=("step",), step_cfg=cfg, step_kind="gspmd", mesh=TP_GLOO_MESH,
+               batch=FSDP_GLOO_BATCH, seq=FSDP_GLOO_SEQ, fsdp=True)
+    return tp_group(dev, seed, job, TP_GLOO_WORLD, "gloo")
+
+
+def run_fsdp(dev, seed, serve=True, train=True, gloo=True):
+    """Phase 3g: FSDP beside tensor parallelism (module docstring, item
+    3g). The graph kernels are not on this path: their counts stay 0.
+    ``gloo=False`` leaves (c) to the caller (:func:`gloo_phases`)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = {}
+    t0 = time.perf_counter()
+    if serve:
+        out["serve"] = fsdp_serve(dev, seed)
+    if train:
+        out["step"] = fsdp_step_check(dev, seed)
+        out["train"] = fsdp_train(dev, seed)
+    if gloo:
+        out["gloo"] = fsdp_gloo(dev, seed)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"phase 3g launched graph kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 3g launched none of the four graph kernels; {out['seconds']:.1f} s")
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
 class CardWatch:
     """``nvidia-smi``'s memory.used of ``dev``'s card every ``every`` s in
     a thread (none off the card, or without ``nvidia-smi``); ``take()``
@@ -5282,27 +5682,30 @@ class CardWatch:
 
 
 def gloo_phases(dev, seed):
-    """Phases 3c(d) and 3e(d), one after the other: their processes hold
+    """Phases 3c(d), 3e(d) and 3g(c), one after the other: their processes hold
     the card while this process does only host work (the default run
     starts them beside phase 4's ETL, which places nothing on the card
     until they have ended). Each records the most of the card in use
     while it ran (``card_used_mib``, of ``card_total_mib``)."""
     log(f"[3c/27 (d) and 3e/27 (d)] the gradient sync and the tensor-parallel "
-        f"butterfly step in {DIST_WORLD} gloo processes each, beside phase 4's host work")
+        f"butterfly step in {DIST_WORLD} gloo processes each, beside phase 4's host work; "
+        f"then [3g/27 (c)] the FSDP GSPMD step in {TP_GLOO_WORLD} gloo processes")
     watch = CardWatch(dev)
     try:
         out = {"dist": dist_sync(dev, seed)}
         out["dist"]["card_used_mib"] = watch.take()
         out["gloo"] = tp_gloo(dev, seed)
         out["gloo"]["card_used_mib"] = watch.take()
+        out["fsdp"] = fsdp_gloo(dev, seed)
+        out["fsdp"]["card_used_mib"] = watch.take()
     finally:
         watch.stop()
-    for key in ("dist", "gloo"):
+    for key in ("dist", "gloo", "fsdp"):
         out[key]["card_total_mib"] = watch.total
     if watch.total is not None:
         log(f"  the card's memory in use (nvidia-smi, every 0.5 s): at most "
             f"{out['dist']['card_used_mib']} MiB in 3c(d), {out['gloo']['card_used_mib']} "
-            f"MiB in 3e(d), of {watch.total} MiB")
+            f"MiB in 3e(d), {out['fsdp']['card_used_mib']} MiB in 3g(c), of {watch.total} MiB")
     return out
 
 
@@ -5322,10 +5725,27 @@ def tp_multi_card(dev, seed, world, backend="nccl"):
     return tp_group(dev, seed, job, world, backend)
 
 
+def fsdp_multi_card(dev, seed, world, backend="nccl"):
+    """``--multi-card``'s phase 3g: one FSDP GSPMD step over nccl (its
+    gradient reduce-scattered by ``dist.reduce_scatter_tensor``), one rank
+    a card on (data 2, model ``world`` / 2), the 2-layer cut in float32,
+    against the simulated ranks on card 0 (``backend`` gloo rehearses it
+    on the CPU)."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=RESTART_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    job = dict(parts=("step",), step_cfg=cfg, step_kind="gspmd",
+               mesh=((2, world // 2), ("data", "model")), batch=FSDP_GLOO_BATCH,
+               seq=FSDP_GLOO_SEQ, fsdp=True)
+    return tp_group(dev, seed, job, world, backend)
+
+
 def run_multi_card(args, dev, card, phase, t_start) -> int:
     """``--multi-card``: phase 3c(d) over nccl, one rank on each card, then
     ``launch.train`` under ``torchrun`` with nccl on as many processes,
-    then phase 3e's serving and step over nccl (``tp_multi_card``)."""
+    then phase 3e's serving and step over nccl (``tp_multi_card``), then
+    phase 3g's FSDP step over nccl (``fsdp_multi_card``)."""
     import torch
 
     world = torch.cuda.device_count()
@@ -5356,6 +5776,8 @@ def run_multi_card(args, dev, card, phase, t_start) -> int:
     phase(f"[3e/27] serving and a float32 train step over nccl, one model rank on each "
           f"of {world} cards")
     out["tp"] = tp_multi_card(dev, args.seed, world)
+    phase(f"[3g/27] an FSDP float32 train step over nccl, one rank on each of {world} cards")
+    out["fsdp"] = fsdp_multi_card(dev, args.seed, world)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -5459,6 +5881,8 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
               f"{'training' if args.train_only else ''}, alone)")
         lm_out["tp_families"] = run_tp_families(dev, args.seed, serve=args.lm_only,
                                                 train=args.train_only)
+        phase("[3g/27] FSDP beside tensor parallelism (alone)")
+        lm_out["fsdp"] = run_fsdp(dev, args.seed, serve=args.lm_only, train=args.train_only)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
             f"{time.perf_counter() - t_start:.0f} s")
         if args.out:
@@ -5538,6 +5962,14 @@ def run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli, dry_d
     lm_out["tp_families"] = run_tp_families(dev, args.seed)
     log(f"  released the state of 3f: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    phase(f"[3g/27] FSDP (ZeRO-3) beside tensor parallelism on data 2 x model 4: "
+          f"{FSDP_ARCH} at its published size (serving), at full width cut to "
+          f"{FSDP_TRAIN_LAYERS} layers (training), a float32 step of the 2-layer cut (the "
+          f"FSDP step in {TP_GLOO_WORLD} gloo processes beside phase 4)")
+    lm_out["fsdp"] = run_fsdp(dev, args.seed, gloo=False)
+    log(f"  released the state of 3g: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated; peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
 
     # 3c(d) and 3e(d) hold the card in processes of their own while the
@@ -5556,6 +5988,7 @@ def run_graph_phases(args, dev, card, phase, t_start, ck_tmp, ck, dry_cli, dry_d
     finally:
         gloo = beside.join()
     lm_out["multi"]["dist"], lm_out["tp"]["gloo"] = gloo["dist"], gloo["gloo"]
+    lm_out["fsdp"]["gloo"] = gloo["fsdp"]
     torus = etl(f"torus {args.torus_side}x{args.torus_side}",
                 lambda: generators.torus_2d(args.torus_side), args.ranks, dev,
                 tcfg.mode)

@@ -30,6 +30,9 @@ rank's buffer to its partner, and it counts the bytes each rank sends.
   :meth:`Communicator.axis_sum` / ``axis_max`` / ``axis_cat`` are their
   wire (a sum over the held blocks here, ``torch.distributed`` over a
   process subgroup in ``DistCommunicator``).
+* :class:`FullyShardedData` — FSDP (ZeRO-3) over the data axes: a
+  parameter's all-gather before the unit that uses it, whose backward is
+  the gradient's reduce-scatter (``axis_reduce_scatter`` on the wire).
 
 Every sync takes the reference's merge op or monoid.  ``"min"`` and
 ``"max"`` order int32 words as the uint32 values they hold
@@ -1104,12 +1107,186 @@ class TensorParallel:
         self.comm.bytes_sent[self.mask] += (groups - 1) * nbytes
         return self.comm.axis_sum(t.unsqueeze(0), self.rest)
 
-    def sum_stat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def sum_stat(self, t: torch.Tensor, dim: int, ranks: int = 1) -> torch.Tensor:
         """An optimizer statistic ``t`` (the model axis at ``dim``, size
         ``n_local``) summed over the model ranks, every rank's copy kept:
-        an all-reduce of one rank's slice, recorded without rows."""
-        moved = t.movedim(dim, 0).contiguous()
-        nbytes = moved[0].numel() * moved.element_size()
-        self._record("all-reduce", nbytes, (self.size - 1) * nbytes)
-        total = self.comm.axis_sum(moved, self.axes)
-        return total.unsqueeze(0).expand_as(moved).movedim(0, dim)
+        an all-reduce of one rank's slice, recorded without rows (``ranks``:
+        how many ranks' statistics one slice holds, e.g. the held data
+        ranks of an FSDP leaf)."""
+        return _sum_stat(self, t, dim, ranks)
+
+
+def _sum_stat(par, t: torch.Tensor, dim: int, ranks: int) -> torch.Tensor:
+    """``t`` summed over ``par``'s axes along its held axis ``dim``, every
+    rank's copy kept; one all-reduce of a rank's share of a slice."""
+    moved = t.movedim(dim, 0).contiguous()
+    nbytes = moved[0].numel() * moved.element_size() // ranks
+    par._record("all-reduce", nbytes, (par.size - 1) * nbytes)
+    total = par.comm.axis_sum(moved, par.axes)
+    return total.unsqueeze(0).expand_as(moved).movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# FSDP (ZeRO-3) over the data axes
+# ---------------------------------------------------------------------------
+
+
+class _FsdpGather(torch.autograd.Function):
+    """All-gather forward; reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, t, fs, dim, ranks):
+        ctx.fs, ctx.dim, ctx.ranks = fs, dim, ranks
+        return fs._gather(t, dim, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fs._reduce_scatter(g.contiguous(), ctx.dim, ctx.ranks), None, None, None
+
+
+class FullyShardedData:
+    """FSDP (ZeRO-3) over ``axes`` (the rules' ``fsdp`` axes, the batch
+    axes) of a communicator's ranks.
+
+    **Layout.** A parameter leaf whose ``embed`` dimension the spec splits
+    over the data axes (``shd.held_block``) holds a leading axis of the
+    data ranks this program holds: ``[D, ...]`` on simulated ranks,
+    ``[1, ...]`` under a ``DistCommunicator``; each entry is that rank's
+    block of what the model axis's :class:`TensorParallel` would hold (the
+    leaf's ``[n_local, *block]`` when it is split over the model axis too,
+    else its global shape), cut along the ``embed`` dimension. A leaf the
+    spec leaves whole over the data axes (no ``embed`` dimension, or one
+    that does not divide) is held as without FSDP.
+
+    **Collectives**, recorded (in :attr:`stats`, :attr:`calls`,
+    :attr:`bytes_sent` and the communicator's record) under the HLO's
+    kinds and byte conventions (``hlo_stats``): :meth:`gather` is an
+    all-gather (operand one rank's block, wire ``(D - 1)`` blocks) whose
+    backward is the gradient's reduce-scatter (operand the whole gradient,
+    wire ``(D - 1)`` blocks). On simulated ranks the batch of every data
+    rank passes at once, so the gradient autograd hands the reduce-scatter
+    is already the sum over the data ranks: it keeps each rank's block.
+    Under ``torch.distributed`` each process's gradient is its own rows',
+    and ``axis_reduce_scatter`` sums them.
+
+    **Rows.** Where other processes hold the other data ranks
+    (:attr:`split_rows`) the train step takes this rank's rows, and
+    :meth:`data_sum` / :meth:`batch_sum` sum what the whole-batch step
+    sums (a leaf held whole, the loss's sums) over the data axes."""
+
+    def __init__(self, comm: Communicator, axes: Axes):
+        axes = _as_axes(axes)
+        missing = [a for a in axes if a not in comm.mesh.axis_names]
+        if missing:
+            raise ValueError(f"mesh {comm.mesh.axis_names} has no axis {missing}")
+        self.comm, self.axes = comm, axes
+        self.size = comm.group_size(axes)
+        self.local = np.unique(comm.mesh.group_index(comm.ranks, axes))
+        self.n_local = len(self.local)
+        self.split_rows = self.n_local < self.size
+        self.stats = empty_stats()
+        self.calls: List[Tuple[str, int]] = []  # (kind, operand bytes) in order
+        self.bytes_sent = np.zeros(len(comm.ranks), dtype=np.int64)
+        if hasattr(comm, "subgroup"):
+            comm.subgroup(axes)
+
+    def reset(self) -> None:
+        """Zero the record (:attr:`stats`, :attr:`calls`, :attr:`bytes_sent`)."""
+        self.stats.update(empty_stats())
+        self.calls.clear()
+        self.bytes_sent[:] = 0
+
+    # -- parameters --------------------------------------------------------
+
+    def split_dim(self, pd: shd.PD) -> Optional[int]:
+        """The dimension of ``pd`` split over the data axes (the rules'
+        divisibility fallback applied), or None: held whole."""
+        return shd.held_block(pd, shd.MeshRules(fsdp=self.axes), self.comm.mesh)[1]
+
+    def param_shape(self, pd: shd.PD, tp=None) -> Tuple[int, ...]:
+        """The held blocks of ``pd``: ``[n_local, *block]`` of ``tp``'s
+        held form when split over the data axes, else ``tp``'s held form."""
+        shape = tuple(pd.shape) if tp is None else tp.param_shape(pd)
+        d = self.split_dim(pd)
+        if d is None:
+            return shape
+        out = list(shape)
+        out[d + len(shape) - len(pd.shape)] //= self.size
+        return (self.n_local,) + tuple(out)
+
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` (a leaf's global or model-held form) -> the held data
+        ranks' blocks along ``dim``: ``[n_local, *block]``, a new tensor."""
+        blocks = _sim_split(x, self.size, dim)
+        if self.n_local == self.size:
+            return blocks.clone(memory_format=torch.contiguous_format)
+        return blocks[torch.as_tensor(self.local, device=x.device)]
+
+    def unshard(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The inverse of :meth:`shard` (``dim`` of the result): laid end to
+        end when every block is held, else all-gathered over the data axes
+        (unrecorded: it moves a checkpoint, not a step)."""
+        if self.n_local == self.size:
+            return _sim_cat(t, dim)
+        return self.comm.axis_cat(t.contiguous(), self.axes, dim)
+
+    def gather_param(self, prm: torch.Tensor) -> torch.Tensor:
+        """A held parameter (``prm.fsdp_dim`` its split dimension of the
+        global leaf) -> what the model axis alone would hold, through
+        :meth:`gather`; the result carries the parameter's ``tp_dim``."""
+        tp = prm.tp_dim is not None
+        out = self.gather(prm, prm.fsdp_dim + int(tp), prm.shape[1] if tp else 1)
+        out.tp_dim, out.fsdp_dim = prm.tp_dim, None
+        return out
+
+    # -- recording ---------------------------------------------------------
+
+    def _record(self, kind: str, nbytes: int, wire: int) -> None:
+        self.calls.append((kind, nbytes))
+        rec = self.stats[kind]
+        rec["count"] += 1
+        rec["operand_bytes"] += float(nbytes)
+        rec["wire_bytes"] += float(wire)
+        self.comm.record(kind, nbytes, wire)
+        self.bytes_sent += wire
+        self.comm.bytes_sent += wire
+
+    # -- the collectives ---------------------------------------------------
+
+    def _gather(self, t: torch.Tensor, dim: int, ranks: int) -> torch.Tensor:
+        block = t.numel() * t.element_size() // (self.n_local * ranks)
+        self._record("all-gather", block, (self.size - 1) * block)
+        return self.comm.axis_cat(t, self.axes, dim)
+
+    def _reduce_scatter(self, g: torch.Tensor, dim: int, ranks: int) -> torch.Tensor:
+        full = g.numel() * g.element_size() // ranks
+        self._record("reduce-scatter", full, (self.size - 1) * (full // self.size))
+        if not self.split_rows:  # autograd already summed every data rank's rows
+            return _sim_split(g, self.size, dim)
+        return self.comm.axis_reduce_scatter(g.unsqueeze(0), self.axes, dim)
+
+    def gather(self, t: torch.Tensor, dim: int, ranks: int = 1) -> torch.Tensor:
+        """``[n_local, ..., n, ...]`` blocks -> ``[..., D * n, ...]`` (``dim``
+        of the result); the gradient reduce-scattered back. ``ranks``: how
+        many model ranks' blocks one data rank's entry holds."""
+        return _FsdpGather.apply(t, self, dim, ranks)
+
+    def sum_stat(self, t: torch.Tensor, dim: int, ranks: int = 1) -> torch.Tensor:
+        """As :meth:`TensorParallel.sum_stat`, over the data axes."""
+        return _sum_stat(self, t, dim, ranks)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (a leaf held whole) summed over the data axes where other
+        processes hold the other data ranks' rows, recorded in the
+        communicator's record only; else ``t``."""
+        if not self.split_rows:
+            return t
+        nbytes = t.numel() * t.element_size()
+        self.comm.record("all-reduce", nbytes, (self.size - 1) * nbytes)
+        self.comm.bytes_sent += (self.size - 1) * nbytes
+        return self.comm.axis_sum(t.unsqueeze(0), self.axes)
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A scalar summed over the data axes where other processes hold
+        other data ranks' rows (identity backward); else ``x``."""
+        return _BatchSum.apply(x, self)

@@ -24,7 +24,11 @@ The tensor-parallel collectives (``core.collectives.TensorParallel``) run
 over the process subgroup of each model group (:meth:`DistCommunicator.subgroup`,
 every group made once by every process): ``axis_sum`` and ``axis_max`` are
 ``dist.all_reduce``, ``axis_cat`` is ``dist.all_gather``, staged through
-the host under gloo with CUDA tensors.
+the host under gloo with CUDA tensors. FSDP's gradient
+(``core.collectives.FullyShardedData``) is ``axis_reduce_scatter`` over
+the data axes' subgroup: ``dist.reduce_scatter_tensor`` under nccl, an
+all-reduce that keeps this rank's block under gloo (which has no
+reduce-scatter).
 
 :func:`run_group` starts ``world`` processes with the ``spawn`` method (CUDA
 in a child needs it), joins them into one group through a file
@@ -145,6 +149,30 @@ class DistCommunicator(Communicator):
             parts = [torch.empty_like(x) for _ in range(n)]
             dist.all_gather(parts, x, group=group)
             return torch.cat(parts, dim=dim)
+
+        return self._on_wire(t, run)
+
+    def axis_reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of this rank's ``t[0]`` summed
+        over ``axes`` (the blocks in group order): ``[1, *block]``. nccl
+        reduce-scatters; gloo, which has no reduce-scatter, all-reduces
+        and keeps the block (the same sum)."""
+        if t.shape[0] != 1:
+            raise ValueError(f"buffer has {t.shape[0]} rows, expected this rank's 1")
+        group = self.subgroup(axes)
+        n = dist.get_world_size(group)
+        k = int(self.mesh.group_index([self.rank], tuple(axes))[0])
+        d = dim % (t.dim() - 1)
+
+        def run(x):
+            x = x[0].movedim(d, 0).contiguous()
+            if self.backend == "nccl":
+                out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+                dist.reduce_scatter_tensor(out, x, group=group)
+            else:
+                dist.all_reduce(x, group=group)
+                out = x.unflatten(0, (n, -1))[k]
+            return out.movedim(0, d).contiguous().unsqueeze(0)
 
         return self._on_wire(t, run)
 

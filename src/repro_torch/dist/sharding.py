@@ -190,6 +190,17 @@ def shard_shape(shape: Sequence[int], spec: Spec, mesh: SimMesh) -> Tuple[int, .
     return tuple(out)
 
 
+def held_block(pd: PD, rules: MeshRules, mesh: SimMesh
+               ) -> Tuple[Tuple[int, ...], Optional[int]]:
+    """(one device's block of ``pd`` by :func:`spec_for`, the dimension split
+    over ``rules.fsdp``, FSDP's data axes, or None): where the port's FSDP
+    cuts a parameter leaf, the divisibility fallback applied."""
+    spec = spec_for(pd, rules, mesh)
+    fsdp = next((i for i, entry in enumerate(spec)
+                 if rules.fsdp and _entry_axes(entry) == tuple(rules.fsdp)), None)
+    return shard_shape(pd.shape, spec, mesh), fsdp
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardStruct:
     """A leaf's global shape, dtype and spec, and one device's block of it:

@@ -25,10 +25,14 @@ What each term of an LM row holds:
   tensor-parallel collectives of the step sharded over it
   (:func:`tp_step_stats`: the model built sharded on simulated ranks and
   the step run once under fake tensors, its ``TensorParallel`` record, which
-  equals :func:`repro_torch.models.lm.tp_calls`), for every family; for a
-  train step, also the gradient sync of each parameter leaf's model-axis shard
-  over the data axes, run on fake tensors on a Communicator over them
-  (its bytes equal :func:`repro_torch.core.collectives.grad_sync_bytes`).
+  equals :func:`repro_torch.models.lm.tp_calls`), for every family, and
+  with FSDP rules (an FSDP config's cells under ``xla``, on any mesh) its
+  ``FullyShardedData`` record, equal to
+  :func:`repro_torch.models.lm.fsdp_calls`; for a train step, also the
+  gradient sync of each parameter leaf's model-axis shard that FSDP does
+  not split over the data axes, run on fake tensors on a Communicator
+  over them (its bytes equal
+  :func:`repro_torch.core.collectives.grad_sync_bytes`).
 * ``compile_s`` holds the seconds of the fake step, and
   ``compile_runtime_cfg_s`` those of the memory-only step of
   ``--no-analysis`` (the reference's compile-proof mode).
@@ -144,29 +148,28 @@ def fake_step(cfg, shape, *, analysis: bool = True):
 
 
 def tp_step_stats(cfg, shape, mesh, rules) -> Optional[Dict]:
-    """The model-axis collectives one rank makes in the step of ``shape``'s
-    kind at ``cfg`` on ``mesh``, sharded over ``rules.model``: the model
-    built on simulated ranks and the step (the GSPMD train step, prefill,
-    or decode at ``pos = seq_len - 1``) run once under ``FakeTensorMode``;
-    the :class:`~repro_torch.core.collectives.TensorParallel` record in the
-    shape of ``hlo_stats.collective_stats``. None where the mesh has no
-    model axis. FSDP's gathers over the data axes are not modelled: the
-    model axis's collectives do not depend on them."""
+    """The collectives one rank makes in the step of ``shape``'s kind at
+    ``cfg`` on ``mesh``, sharded over ``rules.model`` and, with FSDP rules,
+    over ``rules.fsdp``: the model built on simulated ranks and the step
+    (the GSPMD train step, prefill, or decode at ``pos = seq_len - 1``) run
+    once under ``FakeTensorMode``; the
+    :class:`~repro_torch.core.collectives.TensorParallel` record plus the
+    :class:`~repro_torch.core.collectives.FullyShardedData` record (its
+    gathers and reduce-scatters, equal to ``lm.fsdp_calls``), in the shape
+    of ``hlo_stats.collective_stats``. None where the mesh has no model
+    axis and the rules no FSDP axes."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.core import collectives
-    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch import hlo_stats
     from repro_torch.models import api
     from repro_torch.train import optim, step as step_mod
 
-    axes = api.model_axes(rules, mesh)
-    if not axes:
+    if not api.model_axes(rules, mesh) and not api.fsdp_axes(rules, mesh):
         return None
-    rules = MeshRules(batch=rules.batch, model=rules.model)
     with FakeTensorMode():
-        tp = collectives.TensorParallel(collectives.Communicator(mesh, "cpu"), axes)
-        model = api.build_model(cfg, torch.device("cpu"), tp)
+        tp, fs = api.sharding_of(rules, mesh, torch.device("cpu"))
+        model = api.build_model(cfg, torch.device("cpu"), tp, fs)
         ins = _fake_inputs(api.input_defs(cfg, shape), cfg.compute_dtype)
         if shape.kind == "train":
             state = optim.get(cfg.optimizer).init(model)
@@ -179,8 +182,9 @@ def tp_step_stats(cfg, shape, mesh, rules) -> Optional[Dict]:
                                                        cfg.compute_dtype))
             with torch.no_grad():
                 api.decode_fn(cfg, rules, mesh)(model, cache, ins["token"], shape.seq_len - 1)
+    stats = hlo_stats.total_stats([par.stats for par in (tp, fs) if par is not None])
     return {k: {"count": int(v["count"]), "operand_bytes": float(v["operand_bytes"]),
-                "wire_bytes": float(v["wire_bytes"])} for k, v in tp.stats.items()}
+                "wire_bytes": float(v["wire_bytes"])} for k, v in stats.items()}
 
 
 def _sync_stats(method: str, batch_mesh, fanout: int, n: int, dtype) -> Dict:
@@ -209,7 +213,9 @@ def grad_sync_stats(cfg, mesh, rules, grad_sync: str, fanout: int) -> Dict:
     """Per collective kind, what a rank sends to sync a train step's
     gradient on ``mesh``: each parameter leaf's model-axis shard synced
     over the data axes (``rules.batch``) by ``grad_sync`` (``xla`` is
-    ``xla_psum``), summed over the leaves."""
+    ``xla_psum``), summed over the leaves. A leaf FSDP rules split over
+    the data axes has none: the step's reduce-scatter syncs it
+    (:func:`tp_step_stats` counts that)."""
     from repro_torch.dist import sharding as shd
     from repro_torch.dist.sharding import SimMesh
     from repro_torch.launch import hlo_stats
@@ -221,6 +227,8 @@ def grad_sync_stats(cfg, mesh, rules, grad_sync: str, fanout: int) -> Dict:
     memo: Dict = {}
     parts = []
     for _, pd in shd.tree_leaves_with_path(api.param_defs(cfg)):
+        if shd.held_block(pd, rules, mesh)[1] is not None:
+            continue
         spec = shd.spec_for(pd, rules, mesh)
         split = math.prod(mesh.shape[a] for entry in spec if entry is not None
                           for a in ((entry,) if isinstance(entry, str) else entry)

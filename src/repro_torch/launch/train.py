@@ -14,6 +14,12 @@ exist", is here either
   repro_torch.launch.train --arch olmo-1b --smoke --grad-sync butterfly``;
 * otherwise ``--ranks`` simulated ranks on one device, the axis a
   ``--grad-sync`` other than ``xla`` syncs over.
+
+An FSDP config (``cfg.fsdp``: deepseek-7b, gemma3-27b, qwen3-moe,
+kimi-k2, internvl2-26b, jamba-52b) with ``--grad-sync xla`` takes the
+reference's FSDP rules on either mesh: the GSPMD step with every leaf's
+``embed`` dimension split over the data axis (one block a process under
+torchrun), its gathers and reduce-scatters over the group.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ def main(argv=None) -> int:
         mesh = make_host_mesh(args.ranks)
         rules = rules_for_mesh(mesh, cfg.fsdp and args.grad_sync == "xla")
         out = train(cfg, args.batch, args.seq, loop, ranks=args.ranks, rules=rules,
-                    device=args.device)
+                    device=args.device, mesh=mesh if rules.fsdp else None)
         rank = 0
     else:
         import torch
@@ -81,8 +87,9 @@ def main(argv=None) -> int:
                 device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
                                       % torch.cuda.device_count())
             comm = DistCommunicator(device, make_host_mesh(dist.get_world_size()))
-            out = train(cfg, args.batch, args.seq, loop, ranks=comm.p,
-                        rules=rules_for_mesh(comm.mesh), device=device, comm=comm)
+            rules = rules_for_mesh(comm.mesh, cfg.fsdp and args.grad_sync == "xla")
+            out = train(cfg, args.batch, args.seq, loop, ranks=comm.p, rules=rules,
+                        device=device, comm=comm)
             rank = comm.rank
         finally:
             dist.destroy_process_group()

@@ -17,10 +17,14 @@ device=...)`` carries the JAX package's parameter tree (as numpy arrays)
 into it. Both default to the card and raise when there is none.
 ``to_reference(model)`` is the way back: the reference's tree, its layer
 axes stacked again. With ``rules=`` and a ``mesh=`` that has a model axis
-the model is built sharded over it (:func:`tensor_parallel`): the entry
+the model is built sharded over it (:func:`sharding_of`): the entry
 points below then run tensor-parallel, ``to_reference`` gathers the
 blocks, and ``global_cache`` puts a sharded decode cache in the
-reference's layout (``held_cache`` the way back). ``param_leaves`` lists the reference's leaves in its
+reference's layout (``held_cache`` the way back). With FSDP rules
+(``rules_for_mesh(mesh, fsdp=True)``) the leaves with an ``embed``
+dimension are also split over the data axes, with or without a model
+axis: each pass gathers a unit's parameters just before the unit runs
+(``lm.gathered``). ``param_leaves`` lists the reference's leaves in its
 leaf order (sorted keys), each with the model's parameters it stacks; the
 optimizers, the gradient trees and the checkpoints work on those leaves.
 
@@ -42,20 +46,35 @@ from repro_torch.core import collectives
 from repro_torch.core.bfs import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import PD, MeshRules, SimMesh
-from repro_torch.models import encdec, lm, mamba2
+from repro_torch.models import encdec, layers, lm, mamba2
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
     return encdec.param_defs(cfg) if cfg.family == "audio" else lm.param_defs(cfg)
 
 
-def build_model(cfg: ModelConfig, device, tp=None) -> nn.Module:
+def build_model(cfg: ModelConfig, device, tp=None, fsdp=None) -> nn.Module:
     """The model's modules, parameters allocated and not yet initialised;
     sharded over the model axis with ``tp`` (a
-    :class:`~repro_torch.core.collectives.TensorParallel`)."""
-    if cfg.family == "audio":
-        return encdec.EncDec(cfg, device, tp)
-    return lm.LM(cfg, device, tp)
+    :class:`~repro_torch.core.collectives.TensorParallel`) and over the
+    data axes with ``fsdp`` (a
+    :class:`~repro_torch.core.collectives.FullyShardedData`): the modules
+    are built on the meta device, then each parameter is allocated as its
+    held blocks (``layers.tp_param``)."""
+    mod = encdec.EncDec if cfg.family == "audio" else lm.LM
+    if fsdp is None:
+        return mod(cfg, device, tp)
+    model = mod(cfg, torch.device("meta"), tp)
+    defs = param_defs(cfg)
+    for mname, sub in model.named_modules():
+        for pname in list(sub._parameters):
+            parts = (mname.split(".") if mname else []) + [pname]
+            pd = shd.tree_get(defs, tuple(p for p in parts if not p.isdigit()))
+            nl = sum(p.isdigit() for p in parts)
+            pd = PD(pd.shape[nl:], pd.logical[nl:], pd.init, pd.dtype)
+            sub._parameters[pname] = layers.tp_param(cfg, pd, device, tp, fsdp)
+    model.fsdp = fsdp
+    return model
 
 
 def model_axes(rules: Optional[MeshRules], mesh: Optional[SimMesh]) -> Tuple[str, ...]:
@@ -65,35 +84,55 @@ def model_axes(rules: Optional[MeshRules], mesh: Optional[SimMesh]) -> Tuple[str
     return tuple(a for a in rules.model if a in mesh.axis_names)
 
 
-def tensor_parallel(rules: Optional[MeshRules], mesh: Optional[SimMesh], device,
-                    comm=None) -> Optional[collectives.TensorParallel]:
-    """The :class:`~repro_torch.core.collectives.TensorParallel` of
-    ``rules.model`` on ``mesh``: over ``comm`` (a ``DistCommunicator`` of
-    the mesh, one rank a process) or simulated ranks on ``device``; None
-    when the mesh has no model axis."""
-    axes = model_axes(rules, mesh)
-    if not axes:
-        return None
-    if rules.fsdp:
-        raise ValueError("tensor parallelism runs with non-FSDP rules only: FSDP's "
-                         "compute over the data axes is not ported yet")
+def fsdp_axes(rules: Optional[MeshRules], mesh: Optional[SimMesh]) -> Tuple[str, ...]:
+    """The FSDP axes of ``rules`` on ``mesh`` (the batch axes when the rules
+    are FSDP's; none without both)."""
+    if rules is None or mesh is None:
+        return ()
+    return tuple(a for a in rules.fsdp if a in mesh.axis_names)
+
+
+def sharding_of(rules: Optional[MeshRules], mesh: Optional[SimMesh], device, comm=None
+                ) -> Tuple[Optional[collectives.TensorParallel],
+                           Optional[collectives.FullyShardedData]]:
+    """(the :class:`~repro_torch.core.collectives.TensorParallel` of
+    ``rules.model``, the
+    :class:`~repro_torch.core.collectives.FullyShardedData` of
+    ``rules.fsdp``) on ``mesh``, sharing one communicator: ``comm`` (a
+    ``DistCommunicator`` of the mesh, one rank a process) or simulated
+    ranks on ``device``; None for an axis the mesh lacks."""
+    axes, fax = model_axes(rules, mesh), fsdp_axes(rules, mesh)
+    if not axes and not fax:
+        return None, None
     if comm is None:
         comm = collectives.Communicator(mesh, device)
     elif comm.mesh != mesh:
         raise ValueError(f"the communicator's mesh {comm.mesh} is not {mesh}")
-    return collectives.TensorParallel(comm, axes)
+    return (collectives.TensorParallel(comm, axes) if axes else None,
+            collectives.FullyShardedData(comm, fax) if fax else None)
+
+
+def tensor_parallel(rules: Optional[MeshRules], mesh: Optional[SimMesh], device,
+                    comm=None) -> Optional[collectives.TensorParallel]:
+    """The :class:`~repro_torch.core.collectives.TensorParallel` of
+    ``rules.model`` on ``mesh`` (:func:`sharding_of`); None when the mesh
+    has no model axis."""
+    return sharding_of(MeshRules(model=rules.model) if rules else None, mesh, device,
+                       comm)[0]
 
 
 def check_sharding(model: nn.Module, rules: Optional[MeshRules],
                    mesh: Optional[SimMesh]) -> None:
     """Refuse a model whose layout is not ``rules`` on ``mesh``: a mesh with
-    a model axis needs a model sharded over it (:func:`shard`)."""
-    axes = model_axes(rules, mesh)
-    tp = getattr(model, "tp", None)
-    if axes and (tp is None or tp.axes != axes or tp.comm.mesh != mesh):
-        raise ValueError(f"the model is not sharded over {axes} of {mesh}: build it "
-                         f"with rules= and mesh= (api.init_params, api.from_reference) "
-                         f"or api.shard")
+    a model axis needs a model sharded over it, FSDP rules a model sharded
+    over their data axes (:func:`shard`)."""
+    axes, fax = model_axes(rules, mesh), fsdp_axes(rules, mesh)
+    tp, fs = getattr(model, "tp", None), getattr(model, "fsdp", None)
+    if (axes and (tp is None or tp.axes != axes or tp.comm.mesh != mesh)) or (
+            fax and (fs is None or fs.axes != fax or fs.comm.mesh != mesh)):
+        raise ValueError(f"the model is not sharded over {axes + fax} of {mesh}: build "
+                         f"it with rules= and mesh= (api.init_params, "
+                         f"api.from_reference) or api.shard")
 
 
 def _param_index(model: nn.Module) -> Dict[Tuple[str, ...], list]:
@@ -126,18 +165,20 @@ def param_leaves(model: nn.Module) -> List[Leaf]:
 def local_param_defs(model: nn.Module) -> Dict:
     """The PD tree of what ``model`` holds of each leaf (its stacked
     shape): the reference's :func:`param_defs`, a sharded model's split
-    leaves as ``lead + [n_local, *block]`` (the held model ranks after the
-    layer axes, logical name None)."""
+    leaves as ``lead + [D?, M?, *block]`` (the held data ranks of an FSDP
+    leaf, then the held model ranks, after the layer axes, logical name
+    None)."""
     defs = param_defs(model.cfg)
-    if getattr(model, "tp", None) is None:
+    if getattr(model, "tp", None) is None and getattr(model, "fsdp", None) is None:
         return defs
     out: Dict = {}
     for path, lead, prms in param_leaves(model):
         pd = shd.tree_get(defs, path)
-        if prms[0].tp_dim is not None:
+        nh = sum(getattr(prms[0], a, None) is not None for a in ("fsdp_dim", "tp_dim"))
+        if nh:
             nl = len(lead)
-            pd = PD(lead + tuple(prms[0].shape), pd.logical[:nl] + (None,) + pd.logical[nl:],
-                    pd.init, pd.dtype)
+            pd = PD(lead + tuple(prms[0].shape),
+                    pd.logical[:nl] + (None,) * nh + pd.logical[nl:], pd.init, pd.dtype)
         shd.tree_set(out, path, pd)
     return out
 
@@ -145,13 +186,16 @@ def local_param_defs(model: nn.Module) -> Dict:
 def global_leaves(model: nn.Module, tree: Dict) -> Dict:
     """A tree shaped as ``model``'s stacked leaves (gradients, say) in the
     unsharded model's shapes: a sharded model's split leaves, held as
-    ``lead + [n_local, *block]``, gathered from their blocks."""
+    ``lead + [D?, M?, *block]``, gathered from their blocks."""
     out: Dict = {}
     for path, lead, prms in param_leaves(model):
         t = shd.tree_get(tree, path)
-        d = getattr(prms[0], "tp_dim", None)
+        nl, d = len(lead), getattr(prms[0], "tp_dim", None)
+        f = getattr(prms[0], "fsdp_dim", None)
+        if f is not None:
+            t = model.fsdp.unshard(t.movedim(nl, 0), nl + int(d is not None) + f)
         if d is not None:
-            t = model.tp.unshard(t.movedim(len(lead), 0), len(lead) + d)
+            t = model.tp.unshard(t.movedim(nl, 0), nl + d)
         shd.tree_set(out, path, t)
     return out
 
@@ -162,10 +206,13 @@ def held_leaves(model: nn.Module, tree: Dict) -> Dict:
     out: Dict = {}
     for path, lead, prms in param_leaves(model):
         t = shd.tree_get(tree, path)
-        d = getattr(prms[0], "tp_dim", None)
+        nl, d = len(lead), getattr(prms[0], "tp_dim", None)
+        f = getattr(prms[0], "fsdp_dim", None)
         if d is not None:
-            t = model.tp.shard(t, len(lead) + d).movedim(0, len(lead)).contiguous()
-        shd.tree_set(out, path, t)
+            t = model.tp.shard(t, nl + d).movedim(0, nl)
+        if f is not None:
+            t = model.fsdp.shard(t, nl + int(d is not None) + f).movedim(0, nl)
+        shd.tree_set(out, path, t.contiguous() if d is not None or f is not None else t)
     return out
 
 
@@ -253,7 +300,7 @@ def _load(model: nn.Module, leaves) -> nn.Module:
     """Fill every parameter from ``leaves``, (path, full stacked array)
     pairs; refuse a tree that does not match the model leaf for leaf."""
     index = _param_index(model)
-    tp = getattr(model, "tp", None)
+    tp, fs = getattr(model, "tp", None), getattr(model, "fsdp", None)
     name = f"{model.cfg.name} {type(model).__name__}"
     seen = set()
     for path, full in leaves:
@@ -267,7 +314,11 @@ def _load(model: nn.Module, leaves) -> nn.Module:
         n_lead = len(targets[0][0])
         want = tuple(full.shape[n_lead:])
         split = getattr(targets[0][1], "tp_dim", None)
+        fsplit = getattr(targets[0][1], "fsdp_dim", None)
         have = tuple(targets[0][1].shape)
+        if fsplit is not None:  # the model-held shape of the data-held blocks
+            f = fsplit + 1 + int(split is not None)
+            have = have[1:f] + (have[f] * fs.size,) + have[f + 1:]
         if split is not None:  # the global shape of the held blocks
             have = have[1:split + 1] + (have[split + 1] * tp.size,) + have[split + 2:]
         if (tuple(full.shape[:n_lead]) != tuple(1 + max(i[a] for i, _ in targets)
@@ -279,7 +330,11 @@ def _load(model: nn.Module, leaves) -> nn.Module:
         with torch.no_grad():
             for idx, prm in targets:
                 x = (full[idx] if idx else full).to(prm.device)
-                prm.copy_(x if split is None else tp.shard(x, split))
+                if split is not None:
+                    x = tp.shard(x, split)
+                if fsplit is not None:
+                    x = fs.shard(x, fsplit + int(split is not None))
+                prm.copy_(x)
         seen.add(path)
     missing = sorted("/".join(p) for p in index if p not in seen)
     if missing:
@@ -293,11 +348,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", rules=None, m
     """A model with seeded weights on ``device`` (the card by default): the
     reference's laws, one ``torch.Generator`` a leaf seeded from ``seed``
     and the leaf's path. Not bit-equal to ``jax.random``. With ``rules`` and
-    a ``mesh`` that has a model axis, sharded over it (:func:`tensor_parallel`;
-    ``comm`` a ``DistCommunicator`` of the mesh): every leaf is drawn whole
-    and its blocks kept, so the shards hold the unsharded model's values."""
+    a ``mesh`` that has a model axis, or FSDP rules, sharded over it
+    (:func:`sharding_of`; ``comm`` a ``DistCommunicator`` of the mesh):
+    every leaf is drawn whole and its blocks kept, so the shards hold the
+    unsharded model's values."""
     dev = resolve_device(device)
-    model = build_model(cfg, dev, tensor_parallel(rules, mesh, dev, comm))
+    model = build_model(cfg, dev, *sharding_of(rules, mesh, dev, comm))
     return _load(model, shd.iter_init(param_defs(cfg), seed, cfg.param_dtype, dev))
 
 
@@ -315,18 +371,18 @@ def from_reference(cfg: ModelConfig, params, *, device="cuda", rules=None, mesh=
     arrays) as the port's model on ``device``; sharded as
     :func:`init_params` with ``rules`` and ``mesh``."""
     dev = resolve_device(device)
-    return load_reference(build_model(cfg, dev, tensor_parallel(rules, mesh, dev, comm)),
-                          params)
+    return load_reference(build_model(cfg, dev, *sharding_of(rules, mesh, dev, comm)), params)
 
 
 def shard(model: nn.Module, rules: MeshRules, mesh: SimMesh, comm=None) -> nn.Module:
-    """A copy of an unsharded ``model`` sharded over ``mesh``'s model axis
-    (the same values; ``model`` is left as it is)."""
+    """A copy of an unsharded ``model`` sharded over ``mesh``'s model axis,
+    and with FSDP rules its data axes (the same values; ``model`` is left
+    as it is)."""
     dev = next(model.parameters()).device
-    tp = tensor_parallel(rules, mesh, dev, comm)
-    if tp is None:
-        raise ValueError(f"{mesh} has no model axis in {rules}")
-    out = build_model(model.cfg, dev, tp)
+    tp, fs = sharding_of(rules, mesh, dev, comm)
+    if tp is None and fs is None:
+        raise ValueError(f"{mesh} has no model axis or FSDP axes in {rules}")
+    out = build_model(model.cfg, dev, tp, fs)
     return _load(out, ((path, stack_leaf(lead, prms)) for path, lead, prms
                        in param_leaves(model)))
 

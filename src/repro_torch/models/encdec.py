@@ -26,7 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import DTYPES, PD
 from repro_torch.models import layers
 from repro_torch.models.lm import (AttnBlock, _stack, chunked_xent, chunked_xent_tp,
-                                   embed_tokens_tp, lm_logits, lm_logits_tp, remat)
+                                   embed_tokens_tp, gathered, lm_logits, lm_logits_tp,
+                                   pass_scope, unit)
 
 
 def _enc_block_defs(cfg: ModelConfig) -> Dict:
@@ -123,6 +124,7 @@ class EncDec(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.fsdp = None  # api.build_model sets it
         self.embed = layers.ParamModule(cfg, param_defs(cfg)["embed"], device, tp)
         self.enc = nn.ModuleList(AttnBlock(cfg, device, tp=tp)
                                  for _ in range(cfg.encoder_layers))
@@ -158,25 +160,27 @@ def encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor, tp=None) -> to
     x = frames.to(DTYPES[cfg.compute_dtype])
     for blk in model.enc:
         if tp is None:
-            x, _ = remat(cfg, blk, x, None, False)
+            x, _ = unit(cfg, model, blk, blk, x, None, False)
         else:
-            x, _ = remat(cfg, blk.forward_tp, x, tp, None, False, False)
-    return layers.apply_norm(cfg, model.enc_norm, x)
+            x, _ = unit(cfg, model, blk, blk.forward_tp, x, tp, None, False, False)
+    with gathered(model, model.enc_norm):
+        return layers.apply_norm(cfg, model.enc_norm, x)
 
 
 def _decoder(cfg, model: EncDec, tokens, enc, *, want_cache=False, tp=None):
     """-> (final hidden, ((k, v), (cross k, cross v)) stacked over layers, or None)."""
     tp = _tp_of(model, tp, tokens.shape[0])
-    if tp is None:
-        x = model.embed.tok[tokens.long()].to(DTYPES[cfg.compute_dtype])
-    else:
-        x = embed_tokens_tp(cfg, model, tokens, tp).to(DTYPES[cfg.compute_dtype])
+    with gathered(model, model.embed):
+        if tp is None:
+            x = model.embed.tok[tokens.long()].to(DTYPES[cfg.compute_dtype])
+        else:
+            x = embed_tokens_tp(cfg, model, tokens, tp).to(DTYPES[cfg.compute_dtype])
     kvs, xkvs = [], []
     for blk in model.groups["dec"]:
         if tp is None:
-            x, (kv, xkv) = remat(cfg, blk, x, enc)
+            x, (kv, xkv) = unit(cfg, model, blk, blk, x, enc)
         else:
-            x, c = remat(cfg, blk.forward_tp, x, enc, tp, want_cache)
+            x, c = unit(cfg, model, blk, blk.forward_tp, x, enc, tp, want_cache)
             kv, xkv = c if want_cache else (None, None)
         if want_cache:
             kvs.append(kv)
@@ -185,42 +189,51 @@ def _decoder(cfg, model: EncDec, tokens, enc, *, want_cache=False, tp=None):
     if want_cache:
         ys = tuple(tuple(torch.stack([c[i] for c in cs]) for i in (0, 1))
                    for cs in (kvs, xkvs))
-    return layers.apply_norm(cfg, model.final_norm, x), ys
+    with gathered(model, model.final_norm):
+        return layers.apply_norm(cfg, model.final_norm, x), ys
 
 
 def train_loss(cfg: ModelConfig, model: EncDec, batch: Dict, *, tp=None) -> torch.Tensor:
     """The mean next-token cross-entropy; a sharded model's (or, with
     ``tp``, one data group's view's) vocab-parallel."""
     tp = _tp_of(model, tp, batch["tokens"].shape[0])
-    enc = encode(cfg, model, batch["frames"], tp)
-    h, _ = _decoder(cfg, model, batch["tokens"], enc, tp=tp)
-    if tp is not None:
-        return chunked_xent_tp(cfg, model, h, batch["labels"], tp)
-    return chunked_xent(cfg, model, h, batch["labels"])
+    with pass_scope(cfg, model):
+        enc = encode(cfg, model, batch["frames"], tp)
+        h, _ = _decoder(cfg, model, batch["tokens"], enc, tp=tp)
+        if tp is not None:
+            return chunked_xent_tp(cfg, model, h, batch["labels"], tp)
+        return chunked_xent(cfg, model, h, batch["labels"],
+                            rows=getattr(model, "fsdp", None))
 
 
 def prefill(cfg: ModelConfig, model: EncDec, tokens, *, frames):
-    enc = encode(cfg, model, frames)
-    h, ys = _decoder(cfg, model, tokens, enc, want_cache=True)
-    (k, v), (xk, xv) = ys
-    cache = {"self": {"k": k, "v": v}, "cross": {"k": xk, "v": xv}}
-    tp = _tp_of(model, None, tokens.shape[0])
-    if tp is not None:
-        return lm_logits_tp(cfg, model, h[:, -1], tp), cache, tokens.shape[1]
-    return lm_logits(cfg, model, h[:, -1]), cache, tokens.shape[1]
+    with pass_scope(cfg, model):
+        enc = encode(cfg, model, frames)
+        h, ys = _decoder(cfg, model, tokens, enc, want_cache=True)
+        (k, v), (xk, xv) = ys
+        cache = {"self": {"k": k, "v": v}, "cross": {"k": xk, "v": xv}}
+        tp = _tp_of(model, None, tokens.shape[0])
+        if tp is not None:
+            return lm_logits_tp(cfg, model, h[:, -1], tp), cache, tokens.shape[1]
+        return lm_logits(cfg, model, h[:, -1]), cache, tokens.shape[1]
 
 
 def decode_step(cfg: ModelConfig, model: EncDec, cache: Dict, token, pos: int):
     tp = _tp_of(model, None, token.shape[0])
     sc, xc = cache["self"], cache["cross"]
-    if tp is None:
-        x = model.embed.tok[token.long()].to(DTYPES[cfg.compute_dtype])
+    with pass_scope(cfg, model):
+        if tp is None:
+            x = model.embed.tok[token.long()].to(DTYPES[cfg.compute_dtype])
+            for i, blk in enumerate(model.groups["dec"]):
+                x = unit(cfg, model, blk, blk.decode, x, sc["k"][i], sc["v"][i], xc["k"][i],
+                         xc["v"][i], pos)
+            with gathered(model, model.final_norm):
+                x = layers.apply_norm(cfg, model.final_norm, x)
+            return lm_logits(cfg, model, x[:, 0]), cache
+        x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
         for i, blk in enumerate(model.groups["dec"]):
-            x = blk.decode(x, sc["k"][i], sc["v"][i], xc["k"][i], xc["v"][i], pos)
-        x = layers.apply_norm(cfg, model.final_norm, x)
-        return lm_logits(cfg, model, x[:, 0]), cache
-    x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
-    for i, blk in enumerate(model.groups["dec"]):
-        x = blk.decode_tp(x, sc["k"][i], sc["v"][i], xc["k"][i], xc["v"][i], pos, tp)
-    x = layers.apply_norm(cfg, model.final_norm, x)
-    return lm_logits_tp(cfg, model, x[:, 0], tp), cache
+            x = unit(cfg, model, blk, blk.decode_tp, x, sc["k"][i], sc["v"][i], xc["k"][i],
+                     xc["v"][i], pos, tp)
+        with gathered(model, model.final_norm):
+            x = layers.apply_norm(cfg, model.final_norm, x)
+        return lm_logits_tp(cfg, model, x[:, 0], tp), cache

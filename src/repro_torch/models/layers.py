@@ -33,16 +33,22 @@ from repro_torch.dist.sharding import PD, resolve_dtype
 NEG_INF = -1e30
 
 
-def tp_param(cfg: ModelConfig, pd: PD, device, tp=None) -> nn.Parameter:
+def tp_param(cfg: ModelConfig, pd: PD, device, tp=None, fsdp=None) -> nn.Parameter:
     """An uninitialised parameter of ``pd`` in the config's parameter dtype:
     its global shape, or under tensor parallelism (``tp``, a
     :class:`~repro_torch.core.collectives.TensorParallel`) the held blocks
     ``[n_local, *block]`` of a leaf split over the model axis, its split
-    dimension in ``tp_dim`` (None: replicated)."""
+    dimension in ``tp_dim`` (None: replicated); under FSDP (``fsdp``, a
+    :class:`~repro_torch.core.collectives.FullyShardedData`) a leaf split
+    over the data axes holds the data ranks' blocks of that in front, its
+    split dimension in ``fsdp_dim`` (None: held whole)."""
     shape = pd.shape if tp is None else tp.param_shape(pd)
+    if fsdp is not None:
+        shape = fsdp.param_shape(pd, tp)
     prm = nn.Parameter(torch.empty(shape, dtype=resolve_dtype(pd, cfg.param_dtype),
                                    device=device), requires_grad=False)
     prm.tp_dim = None if tp is None else tp.split_dim(pd)
+    prm.fsdp_dim = None if fsdp is None else fsdp.split_dim(pd)
     return prm
 
 
@@ -50,14 +56,14 @@ class ParamModule(nn.Module):
     """A module whose parameters are the PD leaves of ``defs``, allocated
     (uninitialised) on ``device`` in the config's parameter dtype; the
     weights come from ``api.init_params`` or ``api.from_reference``. With
-    ``tp`` a leaf split over the model axis holds its blocks
-    (:func:`tp_param`)."""
+    ``tp`` (``fsdp``) a leaf split over the model (data) axis holds its
+    blocks (:func:`tp_param`)."""
 
-    def __init__(self, cfg: ModelConfig, defs: Dict[str, PD], device, tp=None):
+    def __init__(self, cfg: ModelConfig, defs: Dict[str, PD], device, tp=None, fsdp=None):
         super().__init__()
         self.cfg = cfg
         for name, pd in defs.items():
-            self.register_parameter(name, tp_param(cfg, pd, device, tp))
+            self.register_parameter(name, tp_param(cfg, pd, device, tp, fsdp))
 
     def split(self, name: str) -> bool:
         """Whether parameter ``name`` is split over the model axis."""

@@ -27,10 +27,22 @@ A model built with a :class:`~repro_torch.core.collectives.TensorParallel`
 model axis (the section at the end): heads, kv heads, ff, experts,
 ``d_inner`` and the vocabulary split as the reference's rules split them;
 :func:`tp_calls` is the byte model of its collectives.
+
+A model built with a :class:`~repro_torch.core.collectives.FullyShardedData`
+(``model.fsdp``, FSDP rules) holds each leaf with an ``embed`` dimension as
+its data ranks' blocks. Every pass, plain or tensor-parallel, runs each
+unit (one layer, one period: remat's unit, the reference's scan body)
+through :func:`unit`, which gathers the unit's parameters just before it
+runs and lets them go after (:func:`gathered`); remat's recompute gathers
+again, and the backward reduce-scatters each gradient once. The
+embedding, the final norm and the head are gathered where they are used,
+a tied table once a pass (:func:`pass_scope`). :func:`fsdp_calls` is the
+byte model of those collectives.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -38,7 +50,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import DTYPES, PD, tree_map
+from repro_torch.dist.sharding import DTYPES, PD, sorted_leaves, tree_map
 from repro_torch.models import layers, mamba2, moe as moe_mod
 
 
@@ -402,6 +414,7 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.fsdp = None  # api.build_model sets it
         defs = param_defs(cfg)
         self.embed = layers.ParamModule(cfg, defs["embed"], device, tp)
         self.final_norm = layers.Norm(cfg, device, tp)
@@ -493,8 +506,11 @@ def chunked_xent(
     h: torch.Tensor,  # (B, L, d) final hidden
     labels: torch.Tensor,  # (B, L) int; -1 = ignore
     chunk: int = 1024,
+    rows=None,
 ) -> torch.Tensor:
-    """Cross-entropy without materializing full (B, L, V) logits."""
+    """Cross-entropy without materializing full (B, L, V) logits. ``rows``
+    (a ``FullyShardedData`` whose other data ranks' rows other processes
+    hold) sums the loss and the valid tokens over the data axes."""
     b, l, d = h.shape
     chunk = min(chunk, l)
     while l % chunk:
@@ -517,6 +533,8 @@ def chunked_xent(
         valid = (yc >= 0).float()
         tot = tot + ((lse - gold) * valid).sum()
         cnt = cnt + valid.sum()
+    if rows is not None:
+        tot, cnt = rows.batch_sum(tot), rows.batch_sum(cnt)
     return tot / torch.clamp_min(cnt, 1.0)
 
 
@@ -537,6 +555,82 @@ def remat(cfg: ModelConfig, fn, *args):
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _slots(target) -> list:
+    """The FSDP-split parameter slots of ``target`` (a module, or a
+    ``(module, name)`` pair) not gathered yet, in the byte model's order:
+    by the reference path, then the stacked index."""
+    if isinstance(target, tuple):
+        mod, name = target
+        prm = mod._parameters[name]
+        found = [((), mod, name, prm)]
+    else:
+        found = []
+        for mname, sub in target.named_modules():
+            for pname, prm in sub._parameters.items():
+                parts = (mname.split(".") if mname else []) + [pname]
+                key = (tuple(p for p in parts if not p.isdigit()),
+                       tuple(int(p) for p in parts if p.isdigit()))
+                found.append((key, sub, pname, prm))
+        found.sort(key=lambda t: t[0])
+    return [(sub, name, prm) for _, sub, name, prm in found
+            if isinstance(prm, nn.Parameter) and getattr(prm, "fsdp_dim", None) is not None]
+
+
+@contextlib.contextmanager
+def gathered(model: nn.Module, *targets):
+    """FSDP: inside the block each FSDP-split parameter of ``targets``
+    (modules, or ``(module, name)`` pairs) is its gathered tensor (what the
+    model axis alone holds; ``FullyShardedData.gather_param``), whose
+    gradient is reduce-scattered back to the held blocks; after it the
+    held blocks are back and the gathered tensors are free. A parameter
+    already gathered by an enclosing block is left as it is. Without FSDP
+    it does nothing."""
+    fs = getattr(model, "fsdp", None)
+    if fs is None:
+        yield
+        return
+    swapped = []
+    try:
+        for target in targets:
+            for sub, name, prm in _slots(target):
+                sub._parameters[name] = fs.gather_param(prm)
+                swapped.append((sub, name, prm))
+        yield
+    finally:
+        for sub, name, prm in swapped:
+            sub._parameters[name] = prm
+
+
+def unit(cfg: ModelConfig, model: nn.Module, module: nn.Module, fn, *args):
+    """``fn(*args)``, one unit of ``module``'s parameters, under
+    :func:`remat`; with FSDP the unit's parameters gathered inside it (so
+    remat's recompute gathers them again)."""
+    if getattr(model, "fsdp", None) is None:
+        return remat(cfg, fn, *args)
+
+    def run(*a):
+        with gathered(model, module):
+            return fn(*a)
+
+    return remat(cfg, run, *args)
+
+
+def head_scope(cfg: ModelConfig, model: nn.Module):
+    """Where the head is used: an untied head gathered (a tied one is
+    gathered for the whole pass, :func:`pass_scope`)."""
+    if cfg.tie_embeddings or getattr(model, "fsdp", None) is None:
+        return contextlib.nullcontext()
+    return gathered(model, (model, "head"))
+
+
+def pass_scope(cfg: ModelConfig, model: nn.Module):
+    """A whole pass: a tied embedding table gathered once for the
+    embedding and the head."""
+    if not cfg.tie_embeddings:
+        return contextlib.nullcontext()
+    return gathered(model, model.embed)
 
 
 def _period_fwd(cfg: ModelConfig, period: nn.ModuleList, x):
@@ -573,7 +667,8 @@ def forward_hidden(
     tp = tp if tp is not None else getattr(model, "tp", None)
     if tp is not None:
         return _forward_hidden_tp(cfg, model, tokens, tp, want_cache, patches)
-    x = _with_prefix(cfg, model, embed_tokens(cfg, model, tokens), patches)
+    with gathered(model, model.embed):
+        x = _with_prefix(cfg, model, embed_tokens(cfg, model, tokens), patches)
     caches = {}
 
     for name, n, kind in layer_groups(cfg):
@@ -582,7 +677,7 @@ def forward_hidden(
             window = cfg.local_window if kind == "attn_local" else None
             kvs = []
             for blk in blocks:
-                x, kv = remat(cfg, blk, x, window)
+                x, kv = unit(cfg, model, blk, blk, x, window)
                 if want_cache:
                     kvs.append(kv)
             if want_cache:
@@ -590,7 +685,7 @@ def forward_hidden(
         elif kind == "attn_period":
             kvs = []
             for period in blocks:
-                x, inner = remat(cfg, _period_fwd, cfg, period, x)
+                x, inner = unit(cfg, model, period, _period_fwd, cfg, period, x)
                 if want_cache:
                     kvs.append(_stack_kv(inner))
             if want_cache:
@@ -598,14 +693,14 @@ def forward_hidden(
         elif kind == "ssm":
             states = []
             for blk in blocks:
-                x, s = remat(cfg, blk, x, want_cache)
+                x, s = unit(cfg, model, blk, blk, x, want_cache)
                 states.append(s)
             if want_cache:
                 caches[name] = {k: torch.stack([s[k] for s in states]) for k in states[0]}
         elif kind == "jamba":
             kvs, mambas = [], []
             for period in blocks:
-                x, c = remat(cfg, period, x, want_cache)
+                x, c = unit(cfg, model, period, period, x, want_cache)
                 if want_cache:
                     kvs.append(c[0])
                     mambas.append(c[1])
@@ -614,7 +709,8 @@ def forward_hidden(
                     "attn": _stack_kv(kvs),
                     "mamba": {k: torch.stack([m[k] for m in mambas]) for k in mambas[0]},
                 }
-    x = layers.apply_norm(cfg, model.final_norm, x)
+    with gathered(model, model.final_norm):
+        x = layers.apply_norm(cfg, model.final_norm, x)
     return (x, caches) if want_cache else x
 
 
@@ -624,15 +720,17 @@ def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
     parameters (``train.step`` takes its gradients). A sharded model's loss
     is vocab-parallel (:func:`chunked_xent_tp`)."""
     tp = tp if tp is not None else getattr(model, "tp", None)
-    h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"), tp=tp)
-    labels = batch["labels"]
-    if cfg.family == "vlm":  # prefix patch positions carry no labels
-        pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
-                         device=labels.device)
-        labels = torch.cat([pad, labels], dim=1)
-    if tp is not None:
-        return chunked_xent_tp(cfg, model, h, labels, tp.for_batch(h.shape[0]))
-    return chunked_xent(cfg, model, h, labels)
+    with pass_scope(cfg, model):
+        h = forward_hidden(cfg, model, batch["tokens"], patches=batch.get("patches"), tp=tp)
+        labels = batch["labels"]
+        if cfg.family == "vlm":  # prefix patch positions carry no labels
+            pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        with head_scope(cfg, model):
+            if tp is not None:
+                return chunked_xent_tp(cfg, model, h, labels, tp.for_batch(h.shape[0]))
+            return chunked_xent(cfg, model, h, labels, rows=getattr(model, "fsdp", None))
 
 
 # --- prefill -----------------------------------------------------------------
@@ -640,12 +738,14 @@ def train_loss(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor], *,
 
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, patches=None):
     """Process the prompt; return (last-token logits, cache, pos)."""
-    h, caches = forward_hidden(cfg, model, tokens, patches=patches, want_cache=True)
-    tp = getattr(model, "tp", None)
-    if tp is not None:
-        return lm_logits_tp(cfg, model, h[:, -1], tp.for_batch(h.shape[0])), caches, h.shape[1]
-    logits = lm_logits(cfg, model, h[:, -1])
-    return logits, caches, h.shape[1]
+    with pass_scope(cfg, model):
+        h, caches = forward_hidden(cfg, model, tokens, patches=patches, want_cache=True)
+        tp = getattr(model, "tp", None)
+        with head_scope(cfg, model):
+            if tp is not None:
+                return (lm_logits_tp(cfg, model, h[:, -1], tp.for_batch(h.shape[0])), caches,
+                        h.shape[1])
+            return lm_logits(cfg, model, h[:, -1]), caches, h.shape[1]
 
 
 # --- decode ------------------------------------------------------------------
@@ -660,9 +760,39 @@ def decode_step(
 ):
     """One decode step; returns (logits (B, V), cache). The cache's tensors
     are written in place and returned in the same dict."""
-    if getattr(model, "tp", None) is not None:
-        return _decode_step_tp(cfg, model, cache, token, pos, model.tp)
-    x = embed_tokens(cfg, model, token).to(DTYPES[cfg.compute_dtype])
+    with pass_scope(cfg, model):
+        if getattr(model, "tp", None) is not None:
+            return _decode_step_tp(cfg, model, cache, token, pos, model.tp)
+        return _decode_step(cfg, model, cache, token, pos)
+
+
+def _period_decode(cfg: ModelConfig, period: nn.ModuleList, x, gc: Dict, i: int, pos: int,
+                   tp=None):
+    """One ``attn_period`` period of a decode step (plain, or over the
+    model axis with ``tp``): its layers against group cache ``gc``'s
+    period ``i``."""
+    jl = 0
+    for j in range(cfg.locals_per_global + 1):
+        w = _period_window(cfg, j)
+        if not cfg.ring_local_cache:
+            args, kw = (gc["k"][i, j], gc["v"][i, j], pos), {"window": w}
+        elif w is None:
+            args, kw = (gc["global"]["k"][i, 0], gc["global"]["v"][i, 0], pos), {}
+        else:
+            loc = gc["local"]
+            args, kw = (loc["k"][i, jl], loc["v"][i, jl], pos), {"ring": True}
+            jl += 1
+        if tp is None:
+            x, _, _ = period[j].decode(x, *args, **kw)
+        else:
+            x = period[j].decode_tp(x, *args, tp, **kw)
+    return x
+
+
+def _decode_step(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tensor, pos: int):
+    """:func:`decode_step` of an unsharded (or FSDP-only) model."""
+    with gathered(model, model.embed):
+        x = embed_tokens(cfg, model, token).to(DTYPES[cfg.compute_dtype])
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
         gc = cache[name]
@@ -670,35 +800,25 @@ def decode_step(
             window = cfg.local_window if kind == "attn_local" else None
             ring = cfg.ring_local_cache and kind == "attn_local"
             for i, blk in enumerate(blocks):
-                x, _, _ = blk.decode(x, gc["k"][i], gc["v"][i], pos, window, ring)
+                x, _, _ = unit(cfg, model, blk, blk.decode, x, gc["k"][i], gc["v"][i], pos,
+                               window, ring)
         elif kind == "attn_period":
-            per = cfg.locals_per_global + 1
             for i, period in enumerate(blocks):
-                jl = 0
-                for j in range(per):
-                    w = _period_window(cfg, j)
-                    if not cfg.ring_local_cache:
-                        x, _, _ = period[j].decode(x, gc["k"][i, j], gc["v"][i, j], pos, w)
-                    elif w is None:
-                        loc = gc["global"]
-                        x, _, _ = period[j].decode(x, loc["k"][i, 0], loc["v"][i, 0], pos)
-                    else:
-                        loc = gc["local"]
-                        x, _, _ = period[j].decode(x, loc["k"][i, jl], loc["v"][i, jl],
-                                                   pos, ring=True)
-                        jl += 1
+                x = unit(cfg, model, period, _period_decode, cfg, period, x, gc, i, pos)
         elif kind == "ssm":
             for i, blk in enumerate(blocks):
-                x, st = blk.decode(x, {k: v[i] for k, v in gc.items()})
+                x, st = unit(cfg, model, blk, blk.decode, x, {k: v[i] for k, v in gc.items()})
                 for k, v in st.items():
                     gc[k][i] = v
         elif kind == "jamba":
             cm = gc["mamba"]
             for i, period in enumerate(blocks):
-                x = period.decode(x, gc["attn"]["k"][i], gc["attn"]["v"][i],
-                                  {k: v[i] for k, v in cm.items()}, pos)
-    x = layers.apply_norm(cfg, model.final_norm, x)
-    logits = lm_logits(cfg, model, x[:, 0])
+                x = unit(cfg, model, period, period.decode, x, gc["attn"]["k"][i],
+                         gc["attn"]["v"][i], {k: v[i] for k, v in cm.items()}, pos)
+    with gathered(model, model.final_norm):
+        x = layers.apply_norm(cfg, model.final_norm, x)
+    with head_scope(cfg, model):
+        logits = lm_logits(cfg, model, x[:, 0])
     return logits, cache
 
 
@@ -823,7 +943,8 @@ def _forward_hidden_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp,
                        want_cache: bool, patches=None):
     """:func:`forward_hidden` over the model axis."""
     tp = tp.for_batch(tokens.shape[0])
-    x = _with_prefix(cfg, model, embed_tokens_tp(cfg, model, tokens, tp), patches)
+    with gathered(model, model.embed):
+        x = _with_prefix(cfg, model, embed_tokens_tp(cfg, model, tokens, tp), patches)
     caches = {}
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
@@ -831,33 +952,35 @@ def _forward_hidden_tp(cfg: ModelConfig, model: LM, tokens: torch.Tensor, tp,
         if kind in ("attn", "attn_moe", "attn_local"):
             window = cfg.local_window if kind == "attn_local" else None
             for blk in blocks:
-                x, kv = remat(cfg, blk.forward_tp, x, tp, window, want_cache)
+                x, kv = unit(cfg, model, blk, blk.forward_tp, x, tp, window, want_cache)
                 kvs.append(kv)
             if want_cache:
                 caches[name] = _stack_kv(kvs)
         elif kind == "attn_period":
             for period in blocks:
-                x, inner = remat(cfg, _period_fwd_tp, cfg, period, x, tp, want_cache)
+                x, inner = unit(cfg, model, period, _period_fwd_tp, cfg, period, x, tp,
+                                want_cache)
                 if want_cache:
                     kvs.append(_stack_kv(inner))
             if want_cache:
                 caches[name] = {c: torch.stack([kv[c] for kv in kvs]) for c in ("k", "v")}
         elif kind == "ssm":
             for blk in blocks:
-                x, st = remat(cfg, blk.forward_tp, x, tp, want_cache)
+                x, st = unit(cfg, model, blk, blk.forward_tp, x, tp, want_cache)
                 kvs.append(st)
             if want_cache:
                 caches[name] = {k: torch.stack([st[k] for st in kvs]) for k in kvs[0]}
         elif kind == "jamba":
             for period in blocks:
-                x, c = remat(cfg, period.forward_tp, x, tp, want_cache)
+                x, c = unit(cfg, model, period, period.forward_tp, x, tp, want_cache)
                 kvs.append(c)
             if want_cache:
                 caches[name] = {
                     "attn": _stack_kv([c[0] for c in kvs]),
                     "mamba": {k: torch.stack([c[1][k] for c in kvs]) for k in kvs[0][1]},
                 }
-    x = layers.apply_norm(cfg, model.final_norm, x)
+    with gathered(model, model.final_norm):
+        x = layers.apply_norm(cfg, model.final_norm, x)
     return (x, caches) if want_cache else x
 
 
@@ -866,7 +989,8 @@ def _decode_step_tp(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tenso
     """:func:`decode_step` over the model axis; the KV cache keeps the
     reference's (replicated) layout, the SSM states their held blocks."""
     tp = tp.for_batch(token.shape[0])
-    x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
+    with gathered(model, model.embed):
+        x = embed_tokens_tp(cfg, model, token, tp).to(DTYPES[cfg.compute_dtype])
     for name, n, kind in layer_groups(cfg):
         blocks = model.groups[name]
         gc = cache[name]
@@ -874,35 +998,26 @@ def _decode_step_tp(cfg: ModelConfig, model: LM, cache: Dict, token: torch.Tenso
             window = cfg.local_window if kind == "attn_local" else None
             ring = cfg.ring_local_cache and kind == "attn_local"
             for i, blk in enumerate(blocks):
-                x = blk.decode_tp(x, gc["k"][i], gc["v"][i], pos, tp, window, ring)
+                x = unit(cfg, model, blk, blk.decode_tp, x, gc["k"][i], gc["v"][i], pos, tp,
+                         window, ring)
         elif kind == "attn_period":
-            per = cfg.locals_per_global + 1
             for i, period in enumerate(blocks):
-                jl = 0
-                for j in range(per):
-                    w = _period_window(cfg, j)
-                    if not cfg.ring_local_cache:
-                        x = period[j].decode_tp(x, gc["k"][i, j], gc["v"][i, j], pos, tp, w)
-                    elif w is None:
-                        loc = gc["global"]
-                        x = period[j].decode_tp(x, loc["k"][i, 0], loc["v"][i, 0], pos, tp)
-                    else:
-                        loc = gc["local"]
-                        x = period[j].decode_tp(x, loc["k"][i, jl], loc["v"][i, jl], pos, tp,
-                                                ring=True)
-                        jl += 1
+                x = unit(cfg, model, period, _period_decode, cfg, period, x, gc, i, pos, tp)
         elif kind == "ssm":
             for i, blk in enumerate(blocks):
-                x, st = blk.decode_tp(x, {k: v[i] for k, v in gc.items()}, tp)
+                x, st = unit(cfg, model, blk, blk.decode_tp, x,
+                             {k: v[i] for k, v in gc.items()}, tp)
                 for k, v in st.items():
                     gc[k][i] = v
         elif kind == "jamba":
             cm = gc["mamba"]
             for i, period in enumerate(blocks):
-                x = period.decode_tp(x, gc["attn"]["k"][i], gc["attn"]["v"][i],
-                                     {k: v[i] for k, v in cm.items()}, pos, tp)
-    x = layers.apply_norm(cfg, model.final_norm, x)
-    return lm_logits_tp(cfg, model, x[:, 0], tp), cache
+                x = unit(cfg, model, period, period.decode_tp, x, gc["attn"]["k"][i],
+                         gc["attn"]["v"][i], {k: v[i] for k, v in cm.items()}, pos, tp)
+    with gathered(model, model.final_norm):
+        x = layers.apply_norm(cfg, model.final_norm, x)
+    with head_scope(cfg, model):
+        return lm_logits_tp(cfg, model, x[:, 0], tp), cache
 
 
 def _itemsize(name: str) -> int:
@@ -1097,8 +1212,12 @@ def _ffn_split(cfg: ModelConfig, moe: bool, size: int) -> bool:
 
 
 def tp_stats(calls: List[Tuple[str, int]], size: int) -> Dict:
-    """``{kind: {count, operand_bytes, wire_bytes}}`` of :func:`tp_calls`'s
-    list, as ``TensorParallel.stats`` records them."""
+    """``{kind: {count, operand_bytes, wire_bytes}}`` of a byte model's list
+    over ``size`` ranks (:func:`tp_calls`'s, :func:`fsdp_calls`'s, with the
+    optimizer's), as ``TensorParallel.stats`` and
+    ``FullyShardedData.stats`` record them: a rank sends ``size - 1``
+    blocks of each call, a reduce-scatter's block its operand over
+    ``size``."""
     from repro_torch.core.collectives import empty_stats
 
     out = empty_stats()
@@ -1106,5 +1225,69 @@ def tp_stats(calls: List[Tuple[str, int]], size: int) -> Dict:
         rec = out[kind]
         rec["count"] += 1
         rec["operand_bytes"] += float(nbytes)
-        rec["wire_bytes"] += float((size - 1) * nbytes)
+        block = nbytes // size if kind == "reduce-scatter" else nbytes
+        rec["wire_bytes"] += float((size - 1) * block)
     return out
+
+
+def fsdp_calls(cfg: ModelConfig, kind: str, mesh, rules) -> List[Tuple[str, int]]:
+    """The byte model of a pass's FSDP collectives on ``mesh`` under FSDP
+    ``rules``: one rank's calls as (HLO kind, operand bytes), in the order
+    the pass makes them (``train``: then remat's recomputed gathers, then
+    each gathered leaf's reduce-scatter; compare it sorted, autograd orders
+    the backward). Each leaf an ``embed`` dimension splits
+    (``shd.held_block``) is one all-gather of its block (the model axis's
+    block cut over the data axes) where it is used: the embedding
+    (tied: for the whole pass), each remat unit's leaves when the unit
+    runs (by reference path, then stacked index), whisper's encoder norm,
+    the final norm, the untied head. A reduce-scatter's operand is the
+    whole gradient, the block times the data axes' size."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import encdec
+
+    fax = tuple(a for a in rules.fsdp if a in mesh.axis_names)
+    size = 1
+    for a in fax:
+        size *= mesh.shape[a]
+
+    def gathers(tree) -> List[int]:
+        out = []
+        for _, pd in sorted_leaves(tree):
+            nl = 0
+            while nl < len(pd.logical) and pd.logical[nl] == "layers":
+                nl += 1
+            block, f = shd.held_block(PD(pd.shape[nl:], pd.logical[nl:]), rules, mesh)
+            if f is None:
+                continue
+            nbytes = shd.resolve_dtype(pd, cfg.param_dtype).itemsize
+            for n in block:
+                nbytes *= n
+            reps = 1
+            for n in pd.shape[:nl]:
+                reps *= n
+            out.extend([nbytes] * reps)
+        return out
+
+    if cfg.family == "audio":
+        defs = encdec.param_defs(cfg)
+        enc = [] if kind == "decode" else (
+            [gathers(encdec._enc_block_defs(cfg))] * cfg.encoder_layers)
+        units = enc + [gathers(encdec._dec_block_defs(cfg))] * cfg.n_layers
+        fwd = gathers(defs["embed"])
+        fwd += [b for u in enc for b in u]
+        if kind != "decode":
+            fwd += gathers(defs["enc_norm"])
+        fwd += [b for u in units[len(enc):] for b in u]
+    else:
+        defs = param_defs(cfg)
+        units = [gathers(_GROUP_DEFS[k](cfg)) for _, n, k in layer_groups(cfg) for _ in range(n)]
+        fwd = gathers(defs["embed"]) + [b for u in units for b in u]
+    fwd += gathers(defs["final_norm"])
+    if not cfg.tie_embeddings:
+        fwd += gathers({"head": defs["head"]})
+    calls = [("all-gather", b) for b in fwd]
+    if kind == "train":
+        if cfg.remat:
+            calls += [("all-gather", b) for u in units for b in u]
+        calls += [("reduce-scatter", b * size) for b in fwd]
+    return calls

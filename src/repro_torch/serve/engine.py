@@ -102,7 +102,9 @@ def generate(
     on the model's device. With ``rules`` and a ``mesh`` that has a model
     axis the model must be sharded over it (``api.init_params(...,
     rules=, mesh=)``): it runs tensor-parallel, and each token comes from
-    the full (all-gathered) logits."""
+    the full (all-gathered) logits. With FSDP rules the model must be
+    built with them too: each pass gathers a unit's parameters before the
+    unit runs."""
     dev = model.embed.tok.device
     b, lp = prompts.shape
     inputs = {k: v.to(dev) for k, v in {"tokens": prompts, **(extra_inputs or {})}.items()}

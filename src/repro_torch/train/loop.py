@@ -83,8 +83,12 @@ def train(
     data = SyntheticLM(cfg, batch_size, seq_len)
     lead = comm is None or comm.rank == 0
     rules = rules or (shd.rules_for_mesh(mesh) if mesh is not None else None)
-    tp = api.tensor_parallel(rules, mesh, dev, comm)
-    if tp is not None and loop.grad_sync == "xla":
+    if mesh is None and rules is not None and rules.fsdp:  # FSDP over the ranks
+        mesh = shd.SimMesh(ranks) if comm is None else comm.mesh
+    tp, fs = api.sharding_of(rules, mesh, dev, comm)
+    if (tp is not None or fs is not None) and loop.grad_sync == "xla":
+        # the GSPMD step: tensor-parallel over the model axis and, with FSDP
+        # rules, FSDP over the data axes (never the unsharded path)
         fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules,
                                        microbatches=loop.microbatches, lr_kw=loop.lr_kw)
     elif tp is not None:
@@ -107,7 +111,7 @@ def train(
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
         start, trees = ckpt.restore(
             loop.ckpt_dir,
-            {"params": api.build_model(cfg, dev, tp),
+            {"params": api.build_model(cfg, dev, tp, fs),
              "opt_state": opt.state_defs(api.param_defs(cfg))},
             device=dev,
         )
@@ -116,7 +120,7 @@ def train(
         if lead:
             print(f"[restart] resumed from step {start}")
     if model is None:
-        model = (api.init_params(cfg, seed, device=dev) if tp is None else
+        model = (api.init_params(cfg, seed, device=dev) if tp is None and fs is None else
                  api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh, comm=comm))
         opt_state = opt.init(model)
 
@@ -145,7 +149,7 @@ def train(
             print(f"step {step:5d} loss {loss:.4f} ({dt:.2f}s)")
         if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
             trees = {"params": model, "opt_state": opt_state}
-            if tp is not None:  # every process gathers the shards
+            if tp is not None or fs is not None:  # every process gathers the shards
                 trees = {"params": api.to_reference(model),
                          "opt_state": optim.global_state(model, opt_state)}
             if lead:

@@ -19,6 +19,10 @@ all-reduces the split leaves' squares (each replicated leaf counted once),
 Adafactor's means over a split dimension and its update's RMS are local
 sums all-reduced over the model axis; :func:`global_state` /
 :func:`local_state` convert the state to and from the unsharded model's.
+FSDP (``model.fsdp``) adds the held data ranks in front of the model
+ranks, ``[*lead, D, M?, *block]``, and every such sum over the data axes
+too; a state leaf holds the held axes of its parameter, a copy a rank
+where the statistic is not split over an axis (:func:`local_state_defs`).
 """
 
 from __future__ import annotations
@@ -56,22 +60,73 @@ def cosine_lr(step: int, *, peak: float = 3e-4, warmup: int = 100, total: int = 
 def global_norm(grads: Dict, model=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in the reference's order) of each leaf's
     float32 sum of squares. For a sharded ``model`` the split leaves' sums
-    are all-reduced over the model axis (one call for all of them) and
-    each replicated leaf is counted once."""
-    tp = getattr(model, "tp", None)
-    if tp is None:
+    are all-reduced over the axes that split them, each replicated leaf
+    counted once: FSDP's first (one call over the data axes for the
+    leaves split over them, with the model axis's blocks and without),
+    then the model axis's (one call)."""
+    tp, fs = getattr(model, "tp", None), getattr(model, "fsdp", None)
+    if tp is None and fs is None:
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for _, g in sorted_leaves(grads)))
-    axis = shard_axes(model)
-    whole = torch.zeros((), dtype=torch.float32, device=_model_device(model))
-    per_rank = torch.zeros(tp.n_local, dtype=torch.float32, device=whole.device)
+    held = held_pars(model)
+    dev = _model_device(model)
+    nd, nm = (fs.n_local if fs else 1), (tp.n_local if tp else 1)
+    whole = torch.zeros((), dtype=torch.float32, device=dev)
+    per_m = torch.zeros(nm, dtype=torch.float32, device=dev)
+    per_d = torch.zeros(nd, dtype=torch.float32, device=dev)
+    per_dm = torch.zeros(nd, nm, dtype=torch.float32, device=dev)
     for path, g in sorted_leaves(grads):
-        sq = torch.square(g.float())
-        if axis[path] is None:
+        pars, na = held[path]
+        sq = _front(torch.square(g.float()), na, len(pars))
+        kinds = tuple(p is fs for p in pars)
+        if not pars:
             whole = whole + torch.sum(sq)
+        elif kinds == (False,):
+            per_m = per_m + sq.reshape(nm, -1).sum(1)
+        elif kinds == (True,):
+            per_d = per_d + sq.reshape(nd, -1).sum(1)
         else:
-            per_rank = per_rank + sq.movedim(axis[path], 0).reshape(tp.n_local, -1).sum(1)
-    return torch.sqrt(whole + tp.sum_stat(per_rank, 0)[0])
+            per_dm = per_dm + sq.reshape(nd, nm, -1).sum(-1)
+    if fs is not None and any(p is fs for pars, _ in held.values() for p in pars):
+        if tp is None:
+            whole = whole + fs.sum_stat(per_d, 0)[0]
+        else:
+            stat = torch.stack([per_dm, per_d[:, None].expand(nd, nm)], dim=-1)
+            summed = fs.sum_stat(stat, 0, nm)[0]  # [nm, 2]
+            per_m = per_m + summed[:, 0]
+            whole = whole + summed[0, 1]
+    if tp is not None and any(p is tp for pars, _ in held.values() for p in pars):
+        whole = whole + tp.sum_stat(per_m, 0)[0]
+    return torch.sqrt(whole)
+
+
+def held_pars(model) -> Dict:
+    """reference path -> (the held axes' parallelisms in held order: the
+    ``FullyShardedData`` then the ``TensorParallel`` of those that split
+    the leaf, the number of layer axes in front of them)."""
+    out = {}
+    for path, lead, prms in api.param_leaves(model):
+        pars = []
+        if getattr(prms[0], "fsdp_dim", None) is not None:
+            pars.append(model.fsdp)
+        if getattr(prms[0], "tp_dim", None) is not None:
+            pars.append(model.tp)
+        out[path] = (tuple(pars), len(lead))
+    return out
+
+
+def _front(t: torch.Tensor, at: int, nh: int) -> torch.Tensor:
+    """``t``'s ``nh`` held axes, at ``at``, moved to the front."""
+    if not nh:
+        return t
+    return t.movedim(tuple(range(at, at + nh)), tuple(range(nh)))
+
+
+def _back(t: torch.Tensor, at: int, nh: int) -> torch.Tensor:
+    """The inverse of :func:`_front`."""
+    if not nh:
+        return t
+    return t.movedim(tuple(range(nh)), tuple(range(at, at + nh)))
 
 
 def shard_axes(model) -> Dict:
@@ -116,41 +171,69 @@ def from_reference(model, opt_state) -> Dict:
     return local_state(model, shd.tree_map(lambda a: api.from_numpy(a).to(dev), opt_state))
 
 
-def _state_leaves(model):
-    """(path, global PD, local PD) of every leaf of ``model``'s optimizer
-    state."""
-    opt = get(model.cfg.optimizer)
-    glob = dict(sorted_leaves(opt.state_defs(api.param_defs(model.cfg))))
-    return [(p, glob[p], pd) for p, pd in
-            sorted_leaves(opt.state_defs(api.local_param_defs(model)))]
+def _sharded(model) -> bool:
+    return getattr(model, "tp", None) is not None or getattr(model, "fsdp", None) is not None
 
 
-def _held_axis(gpd: PD, lpd: PD) -> Optional[int]:
-    """Where a local state leaf holds its model ranks: after the layer axes,
-    when it has one more dimension than the global leaf."""
-    if len(lpd.shape) == len(gpd.shape):
-        return None
+def _param_path(state_path: Tuple[str, ...], name: str) -> Tuple[str, ...]:
+    """The parameter path a state leaf mirrors (AdamW's ``m/<path>``,
+    Adafactor's ``f/<path>/vr``)."""
+    return state_path[1:-1] if name == "adafactor" else state_path[1:]
+
+
+def _lead(pd: PD) -> int:
+    """The layer axes in front of a (global) state leaf: where its held axes go."""
     ax = 0
-    while ax < len(gpd.logical) and gpd.logical[ax] == "layers":
+    while ax < len(pd.logical) and pd.logical[ax] == "layers":
         ax += 1
     return ax
+
+
+def _state_leaves(model):
+    """(path, global PD, local PD, held parallelisms) of every leaf of
+    ``model``'s optimizer state: a leaf of a split parameter holds that
+    parameter's held axes after its own layer axes, and along each
+    dimension its spec splits the block."""
+    opt = get(model.cfg.optimizer)
+    held = held_pars(model) if _sharded(model) else {}
+    mesh = (model.tp or model.fsdp).comm.mesh if held else None
+    out = []
+    for p, gpd in sorted_leaves(opt.state_defs(api.param_defs(model.cfg))):
+        pars = held.get(_param_path(p, opt.name), ((), 0))[0]
+        lpd = gpd
+        if pars:
+            rules = shd.MeshRules(model=model.tp.axes if model.tp in pars else (),
+                                  fsdp=model.fsdp.axes if model.fsdp in pars else ())
+            block = shd.held_block(gpd, rules, mesh)[0]
+            ax = _lead(gpd)
+            lpd = PD(block[:ax] + tuple(q.n_local for q in pars) + block[ax:],
+                     gpd.logical[:ax] + (None,) * len(pars) + gpd.logical[ax:], gpd.init,
+                     gpd.dtype)
+        out.append((p, gpd, lpd, pars))
+    return out
+
+
+def local_state_defs(model) -> Dict:
+    """The PD tree of what ``model`` holds of its optimizer state."""
+    out: Dict = {}
+    for p, _, lpd, _ in _state_leaves(model):
+        shd.tree_set(out, p, lpd)
+    return out
 
 
 def global_state(model, state: Dict) -> Dict:
     """The optimizer state of a sharded ``model`` as the unsharded model's
     (each statistic gathered from its blocks, or one rank's copy of a
     statistic the spec replicates); ``state`` itself when unsharded."""
-    tp = getattr(model, "tp", None)
-    if tp is None:
+    if not _sharded(model):
         return state
     out: Dict = {}
-    for path, gpd, lpd in _state_leaves(model):
-        t = tree_get(state, path)
-        ax = _held_axis(gpd, lpd)
-        if ax is not None:
-            blocks = t.movedim(ax, 0)
-            d = tp.split_dim(gpd)
-            t = blocks[0] if d is None else tp.unshard(blocks, d)
+    for path, gpd, _, pars in _state_leaves(model):
+        t = _front(tree_get(state, path), _lead(gpd), len(pars))
+        for k in reversed(range(len(pars))):  # the last held axis first
+            blocks = t.movedim(k, 0)
+            d = pars[k].split_dim(gpd)
+            t = blocks[0] if d is None else pars[k].unshard(blocks, k + d)
         shd.tree_set(out, path, t)
     return out
 
@@ -158,18 +241,18 @@ def global_state(model, state: Dict) -> Dict:
 def local_state(model, state: Dict) -> Dict:
     """The inverse of :func:`global_state`: the unsharded model's optimizer
     state as what a sharded ``model`` holds."""
-    tp = getattr(model, "tp", None)
-    if tp is None:
+    if not _sharded(model):
         return state
     out: Dict = {}
-    for path, gpd, lpd in _state_leaves(model):
+    for path, gpd, _, pars in _state_leaves(model):
         t = tree_get(state, path)
-        ax = _held_axis(gpd, lpd)
-        if ax is not None:
-            d = tp.split_dim(gpd)
-            blocks = (t.unsqueeze(0).expand((tp.n_local,) + tuple(t.shape)) if d is None
-                      else tp.shard(t, d))
-            t = blocks.movedim(0, ax).contiguous()
+        for k, q in enumerate(pars):
+            d = q.split_dim(gpd)
+            blocks = (t.unsqueeze(0).expand((q.n_local,) + tuple(t.shape)) if d is None
+                      else q.shard(t, k + d))
+            t = blocks.movedim(0, k)
+        if pars:
+            t = _back(t, _lead(gpd), len(pars)).contiguous()
         shd.tree_set(out, path, t)
     return out
 
@@ -188,8 +271,7 @@ def from_placed(model, placed: Dict, mesh, pspecs: Dict) -> Dict:
 def _initializer(state_defs):
     def init(model) -> Dict:
         """Zero state for ``model`` on its device (a sharded model's blocks)."""
-        return shd.tree_init(state_defs(api.local_param_defs(model)), 0,
-                             device=_model_device(model))
+        return shd.tree_init(local_state_defs(model), 0, device=_model_device(model))
 
     return init
 
@@ -257,15 +339,15 @@ def _adafactor_apply(model, grads, state, lr, **kw):
     d = kw.get("d", 1.0)
     eps = 1e-30
     wd = kw.get("wd", 0.0)
-    tp = getattr(model, "tp", None)
+    held = held_pars(model) if _sharded(model) else {}
     for path, lead, prms in api.param_leaves(model):
         p = api.stack_leaf(lead, prms)
         g = tree_get(grads, path).float()
         s = tree_get(state["f"], path)
         g2 = g * g + eps
-        split = getattr(prms[0], "tp_dim", None)
-        if split is not None:
-            u, new = _adafactor_sharded(tp, g, g2, s, beta2, len(lead), split, eps)
+        pars = held.get(path, ((), 0))[0]
+        if pars:
+            u, new = _adafactor_held(model, pars, prms[0], g, g2, s, beta2, len(lead), eps, d)
         elif _factored(p.shape):
             vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(dim=-1)
             vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(dim=-2)
@@ -277,14 +359,8 @@ def _adafactor_apply(model, grads, state, lr, **kw):
             v = beta2 * s["v"] + (1 - beta2) * g2
             u = g * torch.rsqrt(v + eps)
             new = {"v": v}
-        if split is not None:
-            n = g.shape[len(lead)]
-            sums = (u * u).movedim(len(lead), 0).reshape(n, -1).sum(1)
-            mean = tp.sum_stat(sums, 0) / (u.numel() // n * tp.size)
-            rms = torch.sqrt(mean + eps).reshape((1,) * len(lead) + (n,) + (1,) * (u.dim() - len(lead) - 1))
-        else:
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-        u = u / torch.clamp(rms / d, min=1.0)
+        if not pars:
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u) + eps) / d, min=1.0)
         newp = p.float() - lr * u - lr * wd * p.float()
         _write_back(prms, newp.to(p.dtype))
         for k, val in new.items():
@@ -293,28 +369,48 @@ def _adafactor_apply(model, grads, state, lr, **kw):
     return model, state
 
 
-def _adafactor_sharded(tp, g, g2, s, beta2, na: int, split: int, eps: float):
-    """Adafactor's factored update of a split leaf, held as ``[*lead, n,
-    *block]`` (``na`` lead axes; ``split`` the block's split dimension):
-    each mean over the split dimension is a local sum all-reduced over the
-    model axis, divided by the global length. -> (update, new state)."""
-    nd = g.dim()
-    sd = na + 1 + split  # the split dimension in the held form
+def _adafactor_held(model, pars, prm, g, g2, s, beta2, na: int, eps: float, d: float):
+    """Adafactor's update of a split leaf, held as ``[*lead, *held, *block]``
+    (``na`` lead axes; ``pars`` the held axes' parallelisms), its RMS clip
+    applied: the unsplit expressions on the held axes moved to the front,
+    each mean over a split dimension a local sum all-reduced over the axes
+    that split it, divided by the global length. -> (update, new state)."""
+    nh = len(pars)
+    counts = [q.n_local for q in pars]
+    split = {}  # global dimension -> (held axis, parallelism)
+    for k, q in enumerate(pars):
+        dim = prm.fsdp_dim if q is model.fsdp else prm.tp_dim
+        split[na + dim] = (k, q)
 
-    def mean(t, dim, t_split):
-        dim %= t.dim()
-        if dim != t_split:
-            return t.mean(dim=dim)
-        return tp.sum_stat(t.sum(dim=dim), na) / (t.shape[dim] * tp.size)
+    def mean(t, dim, spl):
+        if dim not in spl:
+            return t.mean(dim=nh + dim)
+        k, q = spl[dim]
+        others = math.prod(c for i, c in enumerate(counts) if i != k)
+        return q.sum_stat(t.sum(dim=nh + dim), k, others) / (t.shape[nh + dim] * q.size)
 
-    if nd - na - 1 < 2:
-        raise ValueError(f"a split leaf of {nd - na - 1} block dims is not factored here")
-    vr = beta2 * s["vr"] + (1 - beta2) * mean(g2, -1, sd)
-    vc = beta2 * s["vc"] + (1 - beta2) * mean(g2, -2, sd)
-    vr_split = sd if sd < nd - 1 else None
-    row = mean(vr, -1, vr_split)
-    denom = (vr[..., None] / (row[..., None, None] + eps)) * vc[..., None, :]
-    return g * torch.rsqrt(denom + eps), {"vr": vr, "vc": vc}
+    gf, g2f = _front(g, na, nh), _front(g2, na, nh)
+    nd = g.dim() - nh  # the global leaf's dimensions
+    if nd >= 2:
+        vr_old = _front(s["vr"], na, nh)
+        vc_old = _front(s["vc"], min(na, nd - 2), nh)
+        vr = beta2 * vr_old + (1 - beta2) * mean(g2f, nd - 1, split)
+        vc = beta2 * vc_old + (1 - beta2) * mean(g2f, nd - 2, split)
+        row = mean(vr, nd - 2, {j: v for j, v in split.items() if j != nd - 1})
+        denom = (vr[..., None] / (row[..., None, None] + eps)) * vc[..., None, :]
+        u = gf * torch.rsqrt(denom + eps)
+        new = {"vr": _back(vr, na, nh), "vc": _back(vc, min(na, nd - 2), nh)}
+    else:
+        v = beta2 * _front(s["v"], na, nh) + (1 - beta2) * g2f
+        u = gf * torch.rsqrt(v + eps)
+        new = {"v": _back(v, na, nh)}
+    sums = (u * u).reshape(tuple(counts) + (-1,)).sum(-1)
+    total = math.prod(q.size for q in pars) * (u.numel() // math.prod(counts))
+    for k, q in enumerate(pars):
+        sums = q.sum_stat(sums, k, math.prod(c for i, c in enumerate(counts) if i != k))
+    rms = torch.sqrt(sums / total + eps).reshape(tuple(counts) + (1,) * nd)
+    u = u / torch.clamp(rms / d, min=1.0)
+    return _back(u, na, nh), new
 
 
 ADAMW = Optimizer("adamw", _adamw_state_defs, _initializer(_adamw_state_defs), _adamw_apply)
@@ -332,27 +428,40 @@ def tp_calls(model) -> list:
     order (the clip's one call for the split leaves' squares, then
     Adafactor's per split leaf: each mean over the split dimension and the
     update's RMS)."""
-    tp = getattr(model, "tp", None)
-    if tp is None:
+    return _calls(model, getattr(model, "tp", None))
+
+
+def fsdp_calls(model) -> list:
+    """:func:`tp_calls` over the data axes: FSDP's all-reduces (the clip's
+    call carries two statistics a rank beside a model axis)."""
+    return _calls(model, getattr(model, "fsdp", None))
+
+
+def _calls(model, par) -> list:
+    if par is None:
         return []
+    held = held_pars(model)
     out = []
-    leaves = [(lead, prms[0]) for _, lead, prms in api.param_leaves(model)]
-    if any(p.tp_dim is not None for _, p in leaves):
-        out.append(("all-reduce", 4))
+    if any(par in pars for pars, _ in held.values()):
+        two = par is model.fsdp and model.tp is not None
+        out.append(("all-reduce", 8 if two else 4))
     if model.cfg.optimizer != "adafactor":
         return out
-    for lead, prm in leaves:
-        if prm.tp_dim is None:
+    for path, lead, prms in api.param_leaves(model):
+        pars, na = held[path]
+        if par not in pars:
             continue
-        block = tuple(lead) + tuple(prm.shape[1:])  # one rank's leaf
-        nd, sd = len(block), len(lead) + prm.tp_dim
+        prm = prms[0]
+        block = tuple(lead) + tuple(prm.shape[len(pars):])  # one rank's leaf
+        nd = len(block)
+        sd = na + (prm.fsdp_dim if par is model.fsdp else prm.tp_dim)
 
         def without(*dims):
             return 4 * math.prod(n for i, n in enumerate(block) if i not in dims)
 
-        if sd == nd - 1:
+        if nd >= 2 and sd == nd - 1:
             out.append(("all-reduce", without(nd - 1)))
-        if sd == nd - 2:
+        if nd >= 2 and sd == nd - 2:
             out.append(("all-reduce", without(nd - 2)))
             out.append(("all-reduce", without(nd - 1, nd - 2)))
         out.append(("all-reduce", 4))

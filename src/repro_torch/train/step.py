@@ -136,28 +136,41 @@ def build_train_step(cfg: ModelConfig, *, mesh: Optional[SimMesh] = None,
     them, ``api.init_params(..., rules=, mesh=)``), the step runs
     tensor-parallel: on simulated ranks the global batch passes at once
     (the data axes' gradient all-reduce is then the sum autograd takes),
-    under a ``DistCommunicator`` each process its own data group's rows,
-    each process takes its data group's rows of the global batch, the
-    loss's sums and every gradient all-reduced over the data axes."""
+    under a ``DistCommunicator`` each process takes its data group's rows
+    of the global batch, the loss's sums and every gradient all-reduced
+    over the data axes. With FSDP rules (the model built with them) the
+    leaves split over the data axes are gathered unit by unit and their
+    gradients reduce-scattered by the pass itself
+    (``collectives.FullyShardedData``), with or without a model axis: only
+    the leaves held whole are all-reduced over the data axes."""
     loss_fn = api.train_loss_fn(cfg, rules, mesh)
     opt = optim.get(cfg.optimizer)
     lr_kw = lr_kw or {}
     accum = DTYPES[cfg.grad_accum_dtype]
 
     def step(model, opt_state, batch, step_idx):
-        tp = getattr(model, "tp", None)
-        if tp is not None and tp.split_rows:  # this process's data group's rows
-            group = int(tp.comm.mesh.group_index(tp.comm.ranks, tp.rest)[0])
-            batch = _split_batch(batch, tp.comm.group_size(tp.rest))[group]
+        tp, fs = getattr(model, "tp", None), getattr(model, "fsdp", None)
+        rows = next((par for par in (tp, fs) if par is not None and par.split_rows), None)
+        if rows is not None:  # this process's data group's rows
+            group = int(rows.comm.mesh.group_index(rows.comm.ranks, _data_axes(model))[0])
+            batch = _split_batch(batch, rows.comm.group_size(_data_axes(model)))[group]
         loss, grads = _grads_of(loss_fn, model, batch, microbatches, accum)
-        if tp is not None and tp.split_rows:
-            grads = shd.tree_map(tp.data_sum, grads)
+        if rows is not None:  # the leaves FSDP splits were reduce-scattered
+            for path, _, prms in api.param_leaves(model):
+                if getattr(prms[0], "fsdp_dim", None) is None:
+                    tree_set(grads, path, rows.data_sum(tree_get(grads, path)))
         grads, gnorm = optim.clip_by_global_norm(grads, clip_norm, model)
         lr = optim.cosine_lr(step_idx, **lr_kw)
         model, opt_state = opt.apply(model, grads, opt_state, lr)
         return model, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return step
+
+
+def _data_axes(model):
+    """The axes a sharded model's data groups lie on."""
+    tp = getattr(model, "tp", None)
+    return tp.rest if tp is not None else model.fsdp.axes
 
 
 def build_train_step_butterfly(

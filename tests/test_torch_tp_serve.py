@@ -170,8 +170,9 @@ def test_without_a_model_axis_nothing_changes(arch):
     """A mesh without a model axis: the entry points compute exactly what
     they compute with no mesh; a mesh with one refuses an unsharded model;
     ``to_reference`` of the sharded model is the unsharded one bit for bit;
-    FSDP rules with a model axis are refused (FSDP's compute is not
-    ported)."""
+    FSDP rules with a model axis build a model whose gathered leaves are
+    the unsharded one's bit for bit and whose prefill is the
+    tensor-parallel one's."""
     _, cfg = configs_of(arch)
     model = api.init_params(cfg, 0, device="cpu")
     data = {k: torch.from_numpy(v) for k, v in tokens(cfg).items()}
@@ -189,8 +190,15 @@ def test_without_a_model_axis_nothing_changes(arch):
     for (pa, x), (pb, y) in zip(sorted(_flat(api.to_reference(model))),
                                 sorted(_flat(api.to_reference(sharded)))):
         assert pa == pb and np.array_equal(x, y), pa
-    with pytest.raises(ValueError, match="non-FSDP rules only"):
-        api.init_params(cfg, 0, device="cpu", rules=rules_for_mesh(MESH, fsdp=True), mesh=MESH)
+    fsdp_rules = rules_for_mesh(MESH, fsdp=True)
+    fsdp = api.init_params(cfg, 0, device="cpu", rules=fsdp_rules, mesh=MESH)
+    for (pa, x), (pb, y) in zip(sorted(_flat(api.to_reference(model))),
+                                sorted(_flat(api.to_reference(fsdp)))):
+        assert pa == pb and np.array_equal(x, y), pa
+    with torch.no_grad():
+        a = api.prefill_fn(cfg, RULES, MESH)(sharded, data)
+        b = api.prefill_fn(cfg, fsdp_rules, MESH)(fsdp, data)
+    assert torch.equal(a[0], b[0])
 
 
 def _flat(tree, path=()):

@@ -42,7 +42,8 @@ def cpu_tp(monkeypatch):
                         ("TP_CHECK", (2, 16, 3)), ("TRAIN_BATCH", 8), ("TRAIN_SEQ", 32),
                         ("TRAIN_STEPS", 3), ("TP_TRAIN_STEPS", 3),
                         ("TRAIN_LR", {"peak": 1e-2, "warmup": 1, "total": 3}),
-                        ("TP_GLOO_BATCH", 4), ("TP_GLOO_SEQ", 16)):
+                        ("TP_GLOO_BATCH", 4), ("TP_GLOO_SEQ", 16),
+                        ("FSDP_GLOO_BATCH", 4), ("FSDP_GLOO_SEQ", 16)):
         monkeypatch.setattr(chip_smoke, name, value)
     build.reset_launches()
     yield torch.device("cpu")
