@@ -140,9 +140,11 @@ account:
    parameters after AdamW, within 1e-5 of each leaf's largest, the records
    equal to the byte models; 3 bfloat16 steps at full width cut to 8
    layers through ``train.loop.train(mesh=, rules=)``, 8 x 1024 tokens in
-   the config's 4 microbatches, after the same steps tensor-parallel
-   alone: the first loss bit-equal, the others within 1e-2; step ms of
-   both, tokens a second, 6ND share, peak; (c) one FSDP GSPMD step in 4
+   the config's 4 microbatches, after the same steps unsharded and
+   tensor-parallel alone: the first loss bit-equal to tensor parallelism
+   alone's, the others within 1e-2, every loss within 1e-2 of the
+   unsharded run's; step ms of each, tokens a second, 6ND share, peak;
+   (c) one FSDP GSPMD step in 4
    gloo processes on (data 2, model 2), the 2-layer cut, 4 x 256 tokens,
    against the simulated ranks (records equal, every gradient leaf within
    1e-5, each process's peak), beside phase 4 after 3e(d); none of the
@@ -283,6 +285,44 @@ rank on each card (data 1), then phase 3g's FSDP step of deepseek-7b's
 2-layer cut on (data 2, model cards / 2), against the simulated ranks on
 card 0, alone (NCCL refuses two ranks on one card, so the one-card run
 uses gloo).
+
+``--coverage lm`` and ``--coverage graph`` run, after phase 1's card line,
+the paths that the default run leaves out (each under the 1200 s a run
+is given), and end with the same ``{"ok": true, ...}`` line:
+
+lm  [0] phase 3g(b)'s steps unsharded, tensor-parallel and with FSDP, the
+    losses held to each other (``cov_loss``); [1] FSDP beside tensor
+    parallelism for qwen3-moe (2 of 94 layers: serving, bfloat16 steps
+    under Adafactor), gemma3-27b (one 5-local + 1-global period: prompts
+    past the window served with the full cache and with the ring cache
+    and in-place decode, tokens equal; steps), kimi-k2 (its dense layer
+    and one MoE layer, serving, the two models apart), jamba, internvl2
+    and whisper at 3f's cuts (serving; the float32 steps of the two that
+    fit); [2] on deepseek-7b's 2-layer cut, an FSDP run failed and
+    restarted bit-equal, its checkpoint restored onto data 8, the FSDP
+    step on pod x data x model against data 2 x model 4; [3] the four
+    families' butterfly steps against their GSPMD steps, their restarts
+    (jamba's, its experts cut, its training), whisper's split kv heads,
+    the gloo family group; [4] ``serve_lm`` for every arch and
+    ``launch.train --grad-sync butterfly`` on the card against the CPU,
+    GPipe on (stage 4, data 2), the (pod, data) gradient syncs against
+    the CPU, the prefill's flops fake against real. ``--groups`` picks
+    groups; with ``--multi-card``, [5] 3f's four families' serving over
+    nccl, one model rank a card, against the simulated ranks.
+graph  phase 7's partition on pod 4 x data 4: [6] the 32-lane wave under
+    butterfly and adaptive, a 4-lane BC wave, PageRank, k-core (scale
+    14), triangles (scale 15), the query engine and a streaming repair,
+    each against the one-axis run of the same roots and sync, each traced
+    run's bytes equal to the byte model over the axes' sizes; [8] the
+    per-group branches of the sparse and adaptive syncs on the straddle
+    inputs against the CPU; [7] every kernel call site of [6] and [8] held
+    exactly against its plain version and timed, each path profiled for
+    its merges' in-run ms; [9] ``serve_graph.main`` at ``--cli-scale``
+    traced, swapped, its updates recorded, and with two replicas under
+    the batch faults, a stall and a kill, the console's routes fetched
+    over HTTP while each serves; the updates replayed by ``bfs_run``;
+    ``fault_exemplar`` over the events; BC served by the service against
+    phase 13's wave.
 """
 
 from __future__ import annotations
@@ -1219,6 +1259,20 @@ class LevelBytes(list):
         return np.diff(np.vstack([np.zeros((1, b.shape[1]), np.int64), b]), axis=0)
 
 
+def level_bytes_check(label, trace, per_level, p, levels):
+    """Every rank's bytes at every level (``per_level``, a LevelBytes)
+    equal to the trace's byte model (over the axes' sizes where the trace
+    has them); the levels the run's. Returns the bytes a rank."""
+    import numpy as np
+
+    model = trace.level_bytes_per_node().astype(np.int64)
+    if trace.levels != levels or not np.array_equal(per_level.per_level(),
+                                                    np.repeat(model[:, None], p, 1)):
+        raise AssertionError(f"{label}: bytes per level differ from the byte model "
+                             f"({trace.levels} traced levels, {levels} run)")
+    return int(model.sum())
+
+
 def decision_ms(buf, reps=200) -> float:
     """Host ms of one adaptive decision on ``buf[P, W]``: the two counts on
     the device and their read, as ``butterfly_or_adaptive`` makes it."""
@@ -1539,10 +1593,7 @@ def run_axes_bfs(parts, fanout, seed, dev, gen):
             tbuf, algo="bfs", sync=sync, p=pg.p, fanout=fo, n_words=pg.n_words,
             capacity=cfg.resolved_capacity(pg.n_words),
             density_threshold=cfg.density_threshold, axis_sizes=mesh.sizes)
-        model = trace.level_bytes_per_node().astype(np.int64)
-        if trace.levels != lvm or not np.array_equal(per_level.per_level(),
-                                                     np.repeat(model[:, None], pg.p, 1)):
-            raise AssertionError(f"{label}: bytes per level differ from the byte model")
+        level_bytes_check(label, trace, per_level, pg.p, lvm)
         if not np.array_equal(ct.bytes_sent, cm.bytes_sent):
             raise AssertionError(f"{label}: the traced run sent other bytes")
         ms = {"one": [], "mesh": []}
@@ -1616,10 +1667,9 @@ def run_axes_weighted(parts, fanout, dev, sssp_rows, slice5):
         tbuf, algo="sssp", sync="adaptive", p=pg.p, fanout=fanout, n_words=n_rows,
         capacity=cfg.resolved_capacity(n_rows), density_threshold=cfg.density_threshold,
         axis_sizes=mesh.sizes)
-    model = trace.level_bytes_per_node().astype(np.int64)
-    if not torch.equal(d_t, d) or not np.array_equal(per_level.per_level(),
-                                                     np.repeat(model[:, None], pg.p, 1)):
-        raise AssertionError("axes sssp: the traced run or its bytes differ")
+    if not torch.equal(d_t, d):
+        raise AssertionError("axes sssp: the traced run differs from the untraced one")
+    level_bytes_check("axes sssp", trace, per_level, pg.p, iters)
     out["sssp adaptive"] = dict(root=root, iters=iters, relaxed=relaxed, ms=ms,
                                 one_axis_ms=one["ms"][0], bytes_per_rank=int(comm.bytes_sent[0]),
                                 one_axis_bytes_per_rank=one["bytes_per_rank"],
@@ -1852,10 +1902,7 @@ def run_sssp(parts, fanout, seed, dev, syncs, delta, keep=None):
         trace = flightrec.TraversalTrace.from_buffer(
             tbuf, algo="sssp", sync=sync, p=pg.p, fanout=fanout, n_words=n_rows,
             capacity=cfg.resolved_capacity(n_rows), density_threshold=cfg.density_threshold)
-        model = trace.level_bytes_per_node().astype(np.int64)
-        if trace.levels != it_t or not np.array_equal(
-                per_level.per_level(), np.repeat(model[:, None], pg.p, 1)):
-            raise AssertionError(f"{label}: bytes per iteration differ from the byte model")
+        level_bytes_check(label, trace, per_level, pg.p, it_t)
         ms = [x[0] * 1e3 for x in runs]
         relaxed = [x[2] for x in runs]
         summ = trace.summary()
@@ -3620,15 +3667,21 @@ def sync_full_width(model, dev):
     return res
 
 
-def restart_check(dev, seed, tmp=None):
-    """(c) qwen3-1.7b's widths cut to ``RESTART_LAYERS`` layers, deterministic
-    algorithms on: ``RESTART_STEPS`` steps uninterrupted against a run that
-    fails at ``RESTART_FAIL`` (checkpoints every ``RESTART_EVERY``, written
-    synchronously) and restarts; the final parameters and moments equal bit
-    for bit. Then the blocking host copy of an async save against its
-    write. The checkpoints live in ``tmp/ck`` (the async save's, of the
-    final step, is phase 3c's to restore); without ``tmp``, in a temporary
-    directory removed after."""
+def restart_check(dev, seed, tmp=None, cfg=None, shape=None, plan=None, mesh=None,
+                  rules=None, async_save=True, restart=True):
+    """(c) ``cfg`` (qwen3-1.7b's widths cut to ``RESTART_LAYERS`` layers by
+    default) on ``shape`` = (rows, tokens, microbatches), sharded over
+    ``mesh`` with ``rules`` where given, deterministic algorithms on:
+    ``plan`` = (steps, fail at, checkpoint every) (``RESTART_STEPS``,
+    ``RESTART_FAIL``, ``RESTART_EVERY`` by default): the steps uninterrupted
+    against a run that fails and restarts from its last checkpoint (written
+    synchronously); the final parameters and optimizer state equal bit for
+    bit (``restart=False``: the uninterrupted run alone, its losses and step
+    times). Then, where ``async_save``, the blocking host copy of an async
+    save against its write. The checkpoints live in ``tmp/ck`` (the async
+    save's, of the final step, is phase 3c's to restore; the last
+    synchronous one otherwise); without ``tmp``, in a temporary directory
+    removed after."""
     import numpy as np
 
     from repro_torch import configs
@@ -3637,35 +3690,52 @@ def restart_check(dev, seed, tmp=None):
     from repro_torch.models import api
     from repro_torch.train import loop
 
-    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
-    kw = dict(n_steps=RESTART_STEPS, microbatches=cfg.train_microbatches, lr_kw=TRAIN_LR,
-              log_every=100)
+    cfg = cfg or dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
+    rows_n, seq, mb = shape or (TRAIN_BATCH, TRAIN_SEQ, cfg.train_microbatches)
+    n_steps, fail, every = plan or (RESTART_STEPS, RESTART_FAIL, RESTART_EVERY)
+    kw = dict(n_steps=n_steps, microbatches=mb, lr_kw=TRAIN_LR, log_every=100)
+    on = dict(device=dev, mesh=mesh, rules=rules)
     own = tmp is None
     tmp = tempfile.mkdtemp(prefix="repro_torch_restart_") if own else tmp
     ck = os.path.join(tmp, "ck")
-    res = {"layers": RESTART_LAYERS, "params": api.param_counts(cfg)["total"]}
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": api.param_counts(cfg)["total"],
+           "mesh": None if mesh is None else (mesh.sizes, mesh.axis_names),
+           "fsdp": bool(rules is not None and rules.fsdp), "plan": (n_steps, fail, every)}
     try:
         with deterministic():
-            ref = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ, loop.LoopConfig(**kw), seed=seed,
-                             device=dev)
+            rows = []
+            t0 = time.perf_counter()
+            ref = loop.train(cfg, rows_n, seq, loop.LoopConfig(**kw), seed=seed,
+                             on_metrics=lambda s, m: rows.append(m["step_time"]), **on)
+            res["uninterrupted_s"] = time.perf_counter() - t0
+            res["step_s"] = rows
             want_p = api.to_reference(ref["params"])
             want_o = {k: api.to_numpy(v) for k, v in shd.sorted_leaves(ref["opt_state"])}
             want_losses = ref["losses"]
             del ref
+            if not restart:
+                res["losses"] = want_losses
+                log(f"  {cfg.name} cut to {cfg.n_layers} layers ({res['params']:,} "
+                    f"parameters, {cfg.optimizer}), {rows_n} x {seq} tokens in {mb} "
+                    f"microbatches: {n_steps} steps through train.loop.train, losses "
+                    f"{', '.join(f'{x:.4f}' for x in want_losses)}, a step "
+                    f"{', '.join(f'{x * 1e3:.1f}' for x in rows)} ms; "
+                    f"{res['uninterrupted_s']:.1f} s")
+                return res
             try:
-                loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
-                           loop.LoopConfig(ckpt_dir=ck, ckpt_every=RESTART_EVERY,
-                                           fail_at_step=RESTART_FAIL, async_ckpt=False, **kw),
-                           seed=seed, device=dev)
+                loop.train(cfg, rows_n, seq,
+                           loop.LoopConfig(ckpt_dir=ck, ckpt_every=every,
+                                           fail_at_step=fail, async_ckpt=False, **kw),
+                           seed=seed, **on)
                 raise AssertionError("restart: the run did not fail")
             except loop.SimulatedFailure:
                 pass
-            if ckpt.latest_step(ck) != RESTART_EVERY:
+            if ckpt.latest_step(ck) != every:
                 raise AssertionError(f"restart: latest checkpoint {ckpt.latest_step(ck)}")
             t0 = time.perf_counter()
-            out = loop.train(cfg, TRAIN_BATCH, TRAIN_SEQ,
-                             loop.LoopConfig(ckpt_dir=ck, ckpt_every=RESTART_EVERY,
-                                             async_ckpt=False, **kw), seed=seed, device=dev)
+            out = loop.train(cfg, rows_n, seq,
+                             loop.LoopConfig(ckpt_dir=ck, ckpt_every=every,
+                                             async_ckpt=False, **kw), seed=seed, **on)
             res["resumed_run_s"] = time.perf_counter() - t0
         got_p = api.to_reference(out["params"])
         same = all(np.array_equal(a.view(np.int16) if a.dtype.kind == "V" else a,
@@ -3674,23 +3744,31 @@ def restart_check(dev, seed, tmp=None):
                                              shd.sorted_leaves(want_p)))
         same_o = all(np.array_equal(api.to_numpy(v), want_o[k])
                      for k, v in shd.sorted_leaves(out["opt_state"]))
-        if not (same and same_o and out["losses"] == want_losses[RESTART_EVERY:]):
-            raise AssertionError(f"restart: params equal {same}, moments equal {same_o}, "
-                                 f"losses {out['losses']} vs {want_losses}")
-        # an async save: the blocking copy to the host, then the writer thread
-        t0 = time.perf_counter()
-        writer = ckpt.save(ck, RESTART_STEPS, {"params": out["params"],
-                                               "opt_state": out["opt_state"]}, async_=True)
-        copy_s = time.perf_counter() - t0
-        writer.join()
-        write_s = time.perf_counter() - t0 - copy_s
-        size = os.path.getsize(os.path.join(ck, "arrays.npz"))
-        res.update(losses=want_losses, copy_s=copy_s, write_s=write_s, ckpt_bytes=size)
-        log(f"  {cfg.name} cut to {RESTART_LAYERS} layers ({res['params']:,} parameters): "
-            f"{RESTART_STEPS} steps == failed at {RESTART_FAIL}, restarted from step "
-            f"{RESTART_EVERY}: parameters, moments and losses equal bit for bit")
-        log(f"  async save of {size / 1e9:.3f} GB: blocking copy {copy_s:.2f} s, then the "
-            f"write {write_s:.2f} s on its thread")
+        if not (same and same_o and out["losses"] == want_losses[every:]):
+            raise AssertionError(f"{cfg.name} restart: params equal {same}, optimizer state "
+                                 f"equal {same_o}, losses {out['losses']} vs {want_losses}")
+        res.update(losses=want_losses,
+                   ckpt_bytes=os.path.getsize(os.path.join(ck, "arrays.npz")))
+        where = "" if mesh is None else (f" on {dict(zip(mesh.axis_names, mesh.sizes))}"
+                                         f"{' with FSDP rules' if res['fsdp'] else ''}")
+        log(f"  {cfg.name} cut to {cfg.n_layers} layers ({res['params']:,} parameters, "
+            f"{cfg.optimizer}){where}, {rows_n} x {seq} tokens: {n_steps} steps == failed at "
+            f"step {fail}, restarted from the step-{every} checkpoint "
+            f"({res['ckpt_bytes'] / 1e9:.3f} GB): parameters, optimizer state and losses "
+            f"equal bit for bit; losses {', '.join(f'{x:.4f}' for x in want_losses)}; "
+            f"uninterrupted {res['uninterrupted_s']:.1f} s, resumed {res['resumed_run_s']:.1f} s")
+        if async_save:
+            # an async save: the blocking copy to the host, then the writer thread
+            t0 = time.perf_counter()
+            writer = ckpt.save(ck, n_steps, {"params": out["params"],
+                                             "opt_state": out["opt_state"]}, async_=True)
+            copy_s = time.perf_counter() - t0
+            writer.join()
+            write_s = time.perf_counter() - t0 - copy_s
+            size = os.path.getsize(os.path.join(ck, "arrays.npz"))
+            res.update(copy_s=copy_s, write_s=write_s, ckpt_bytes=size)
+            log(f"  async save of {size / 1e9:.3f} GB: blocking copy {copy_s:.2f} s, then the "
+                f"write {write_s:.2f} s on its thread")
     finally:
         if own:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3961,9 +4039,9 @@ def placement(dev, seed):
     return res
 
 
-def elastic_restore(dev, ck):
+def elastic_restore(dev, ck, cfg=None, meshes=RESTORE_MESHES):
     """(b) phase 3b(c)'s checkpoint (2 layers, the final step's parameters
-    and AdamW moments) restored onto each of ``RESTORE_MESHES`` by
+    and AdamW moments; or ``cfg``'s) restored onto each of ``meshes`` by
     ``ckpt.restore(mesh=, pspecs=)``: every shard equal bit for bit to its
     block of the saved array (read from the file apart from the restore),
     the model template filled with the saved parameters; the restore's
@@ -3977,7 +4055,7 @@ def elastic_restore(dev, ck):
     from repro_torch.models import api
     from repro_torch.train import optim
 
-    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
+    cfg = cfg or dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESTART_LAYERS)
     opt = optim.get(cfg.optimizer)
     pdefs = api.param_defs(cfg)
     sdefs = opt.state_defs(pdefs)
@@ -3985,7 +4063,7 @@ def elastic_restore(dev, ck):
         saved = {k: data[k] for k in data.files}
     res = {"ckpt_bytes": os.path.getsize(os.path.join(ck, "arrays.npz")),
            "step": ckpt.latest_step(ck)}
-    for label, sizes, names, fsdp in RESTORE_MESHES:
+    for label, sizes, names, fsdp in meshes:
         mesh = shd.SimMesh(sizes, names)
         rules = shd.rules_for_mesh(mesh, fsdp)
         pspecs = {"params": shd.tree_pspecs(pdefs, rules, mesh),
@@ -4033,10 +4111,13 @@ def gpipe_stage(w, x):
     return x
 
 
-def gpipe_sequential(stacked, mbs):
+def gpipe_sequential(stacked, mbs, data=1):
+    """The sequential stack over each microbatch, its rows in ``data``
+    blocks as the data ranks hold them (the GEMMs at the ranks' shapes)."""
     import torch
 
-    return torch.stack([gpipe_stage(stacked, x) for x in mbs])
+    return torch.stack([torch.cat([gpipe_stage(stacked, b) for b in x.chunk(data)])
+                        for x in mbs])
 
 
 def wall_ms(fn, reps):
@@ -4055,13 +4136,16 @@ def wall_ms(fn, reps):
     return float(np.median(times))
 
 
-def gpipe(dev, seed):
-    """(c) GPipe on a (stage 4, data 1) mesh: ``[28, 2048, 2048]`` float32
-    layers ``tanh(x @ W)`` in 4 stages of 7, 8 microbatches of (1024,
-    2048), TF32 off: the forward against the sequential stack, the weight
-    gradient of ``sum(out ** 2)`` against the sequential one (the reference
-    test's tolerances), ``M + S - 1`` handoffs from each stage but the
-    last of one block each, and both timed."""
+def gpipe(dev, seed, data=1):
+    """(c) GPipe on a (stage 4, data ``data``) mesh: ``[28, 2048, 2048]``
+    float32 layers ``tanh(x @ W)`` in 4 stages of 7, 8 microbatches of
+    (1024, 2048), each microbatch's rows split over the data ranks, TF32
+    off: the forward against the sequential stack on the same row blocks
+    (with data 2 a H100 put the full rows' GEMMs 2.7e-6 from the blocks'
+    at the 28th layer), the weight gradient of
+    ``sum(out ** 2)`` against the sequential one (the reference test's
+    tolerances), ``M + S - 1`` handoffs from every rank of each stage but
+    the last of one block (its rows) each, and both timed."""
     import torch
 
     from repro_torch import configs
@@ -4076,27 +4160,28 @@ def gpipe(dev, seed):
     gen.manual_seed(seed)
     stacked = torch.randn((n_layers, d, d), generator=gen, device=dev) * d ** -0.5
     mbs = torch.randn((m, rows, d), generator=gen, device=dev)
-    mesh = SimMesh((s, 1), ("stage", "data"))
+    mesh = SimMesh((s, data), ("stage", "data"))
     apply = pipeline.build_pipelined_apply(mesh, gpipe_stage)
-    res = dict(layers=n_layers, d=d, stages=s, microbatches=m, rows=rows)
+    res = dict(layers=n_layers, d=d, stages=s, data=data, microbatches=m, rows=rows)
     torch.cuda.reset_peak_memory_stats()
     with exact_float32():
         with torch.no_grad():
             comm = Communicator(mesh, dev)
             got = apply(stacked, mbs, comm)
-            want = gpipe_sequential(stacked, mbs)
+            want = gpipe_sequential(stacked, mbs, data)
             res["forward"] = check_close("gpipe forward", got, want, *GPIPE_FWD_TOL)
             res["forward"]["bit_equal"] = torch_equal(bits(got), bits(want))
             del got, want
             ticks = m + s - 1
-            want_bytes = [ticks * rows * d * 4] * (s - 1) + [0]
-            if comm.sends.tolist() != [ticks] * (s - 1) + [0] or \
+            want_bytes = [ticks * rows // data * d * 4] * ((s - 1) * data) + [0] * data
+            if comm.sends.tolist() != [ticks] * ((s - 1) * data) + [0] * data or \
                     comm.bytes_sent.tolist() != want_bytes:
                 raise AssertionError(f"gpipe: sends {comm.sends}, bytes {comm.bytes_sent}, "
                                      f"expected {ticks} ticks of {want_bytes}")
             res.update(ticks=ticks, stage_bytes=comm.bytes_sent.tolist())
             res["pipelined_ms"] = wall_ms(lambda: apply(stacked, mbs), GPIPE_REPS)
-            res["sequential_ms"] = wall_ms(lambda: gpipe_sequential(stacked, mbs), GPIPE_REPS)
+            res["sequential_ms"] = wall_ms(lambda: gpipe_sequential(stacked, mbs, data),
+                                           GPIPE_REPS)
         w = stacked.requires_grad_(True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4104,21 +4189,22 @@ def gpipe(dev, seed):
         torch.cuda.synchronize()
         res["pipelined_grad_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        (g_seq,) = torch.autograd.grad((gpipe_sequential(w, mbs) ** 2).sum(), w)
+        (g_seq,) = torch.autograd.grad((gpipe_sequential(w, mbs, data) ** 2).sum(), w)
         torch.cuda.synchronize()
         res["sequential_grad_ms"] = (time.perf_counter() - t0) * 1e3
         res["grad"] = check_close("gpipe weight gradient", g_pipe, g_seq, *GPIPE_GRAD_TOL)
         res["grad"]["bit_equal"] = torch_equal(bits(g_pipe), bits(g_seq))
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     res["bubble_ratio"] = res["pipelined_ms"] / res["sequential_ms"]
-    log(f"  GPipe [{n_layers}, {d}, {d}] float32 in {s} stages of {n_layers // s}, {m} "
+    log(f"  GPipe [{n_layers}, {d}, {d}] float32 in {s} stages of {n_layers // s} x data "
+        f"{data}, {m} "
         f"microbatches of ({rows}, {d}): forward max abs err {res['forward']['max_abs_err']:.3e} "
         f"({res['forward']['tol_share']:.3f} of rtol 2e-5 atol 2e-6; bit-equal "
         f"{res['forward']['bit_equal']}); weight gradient max abs err "
         f"{res['grad']['max_abs_err']:.3e} ({res['grad']['tol_share']:.3f} of rtol 5e-4 atol "
         f"5e-6; bit-equal {res['grad']['bit_equal']})")
-    log(f"  {ticks} handoff ticks, {want_bytes[0]:,} bytes from each of stages 0-{s - 2}, none "
-        f"from the last; forward pipelined {res['pipelined_ms']:.1f} ms against sequential "
+    log(f"  {ticks} handoff ticks, {want_bytes[0]:,} bytes from each rank of stages "
+        f"0-{s - 2}, none from the last; forward pipelined {res['pipelined_ms']:.1f} ms against sequential "
         f"{res['sequential_ms']:.1f} ms ({res['bubble_ratio']:.3f}x; (M + S - 1) / M = "
         f"{ticks / m:.3f}); with the gradient {res['pipelined_grad_ms']:.1f} against "
         f"{res['sequential_grad_ms']:.1f} ms; peak {res['peak_bytes'] / 1e9:.2f} GB")
@@ -4758,19 +4844,22 @@ def tp_child(rank, world, out_dir, job):
         cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
         gen = torch.Generator(device="cpu")
         gen.manual_seed(job["seed"])
-        toks = torch.randint(0, cfg.vocab, (job["serve_batch"], job["serve_prompt"]),
-                             generator=gen)
+        toks, extra = tpf_inputs(cfg, job["serve_batch"], job["serve_prompt"], gen, "cpu")
         for c, name in programs():
-            mine = toks if name == "sim" else step_mod._split_batch({"t": toks}, groups)[group]["t"]
-            mine = mine.to(dev)
+            ins = dict(extra, tokens=toks)
+            if name != "sim":
+                ins = step_mod._split_batch(ins, groups)[group]
+            ins = {k: v.to(dev) for k, v in ins.items()}
+            mine = ins.pop("tokens")
             m32 = api.init_params(cfg32, job["seed"], device=dev, rules=rules, mesh=mesh, comm=c)
             with torch.inference_mode():
-                logits, _, _ = api.prefill_fn(cfg32, rules, mesh)(m32, {"tokens": mine})
+                logits, _, _ = api.prefill_fn(cfg32, rules, mesh)(m32, dict(ins, tokens=mine))
             got[(name, "logits")] = logits.float().cpu()
             del m32
             m = api.init_params(cfg, job["seed"], device=dev, rules=rules, mesh=mesh, comm=c)
             t0 = time.perf_counter()
-            out = engine.generate(cfg, m, mine, job["serve_new"], rules=rules, mesh=mesh)
+            out = engine.generate(cfg, m, mine, job["serve_new"], extra_inputs=ins or None,
+                                  rules=rules, mesh=mesh)
             synchronize()
             got[(name, "tokens")] = out.tokens
             got[(name, "serve_s")] = time.perf_counter() - t0
@@ -4856,8 +4945,9 @@ def tp_child(rank, world, out_dir, job):
             errs = leaf_rel_errs(got[("dist", "grads")], got[("sim", "grads")])
             worst = max(errs, key=errs.get)
             checks.update(grads_worst=worst, grads_rel_err=errs[worst])
-            if errs[worst] > TP_REL_TOL:
-                raise AssertionError(f"dist step: gradient {worst} rel err {errs[worst]:.3g}")
+            over = {k: e for k, e in errs.items() if e > TPF_LEAF_TOL.get(k, TP_REL_TOL)}
+            if over:
+                raise AssertionError(f"dist step: gradient leaves over their bound: {over}")
         if ("dist", "params") in got:
             # the parameters after the update, reported: AdamW's first
             # update g / (|g| + eps) is ill-conditioned wherever the clipped
@@ -5344,16 +5434,20 @@ def fsdp_bytes_check(label, model, calls, ordered=True):
     return want
 
 
-def fsdp_serve(dev, seed):
-    """(a) deepseek-7b at its published size, seeded, with FSDP rules on
-    (data 2, model 4) beside the tensor-parallel model of the same
-    weights: ``generate(rules=, mesh=)`` of both timed step by step, the
-    prefill logits and every token of the FSDP run equal to the
-    tensor-parallel run's bit for bit (a gather is a concatenation; where
-    the card's GEMM takes another algorithm for a gathered tensor, logged,
-    and then held to 3f's bounds: every first token equal, the prefill
-    logits within TPF_LOGIT_TOL), every FSDP and model-axis call and each
-    rank's bytes equal to the byte models, peak memory."""
+def fsdp_serve(dev, seed, cfg=None, shape=FSDP_SERVE, apart=False, keep=None):
+    """(a) ``cfg`` (deepseek-7b at its published size by default), seeded,
+    with FSDP rules on (data 2, model 4) beside the tensor-parallel model of
+    the same weights (``apart``: the tensor-parallel run first and its
+    tokens and logits kept on the host, the two models never on the card
+    together): ``generate(rules=, mesh=)`` of both timed step by step on
+    ``shape`` = (prompts, prompt tokens, greedy tokens) and the family's
+    other inputs, the prefill logits and every token of the FSDP run equal
+    to the tensor-parallel run's bit for bit (a gather is a concatenation;
+    where the card's GEMM takes another algorithm for a gathered tensor,
+    logged, and then held to 3f's bounds: every first token equal, the
+    prefill logits within TPF_LOGIT_TOL), every FSDP and model-axis call
+    and each rank's bytes equal to the byte models, peak memory. A dict
+    ``keep`` receives the FSDP run's tokens."""
     import numpy as np
     import torch
 
@@ -5361,40 +5455,52 @@ def fsdp_serve(dev, seed):
     from repro_torch.dist.sharding import SimMesh, rules_for_mesh
     from repro_torch.models import api, lm
 
-    cfg = configs.get_config(FSDP_ARCH)
-    b, p, new = FSDP_SERVE
+    cfg = cfg or configs.get_config(FSDP_ARCH)
+    b, p, new = shape
     mesh = SimMesh(*TP_MESH)
     rules, tp_rules = rules_for_mesh(mesh, fsdp=True), rules_for_mesh(mesh)
     size, groups = mesh.shape["model"], mesh.shape["data"]
     torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompts, extra = tpf_inputs(cfg, b, p, gen, dev)
+    ins = dict(extra, tokens=prompts)
     t0 = time.perf_counter()
     base = api.init_params(cfg, seed, device=dev, rules=tp_rules, mesh=mesh)
-    model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+    if not apart:
+        model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = api.param_counts(cfg)["total"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
-    timed_generate(cfg, base, prompts, 2, tp_rules, mesh)  # warm-up
-    timed_generate(cfg, model, prompts, 2, rules, mesh)
+    timed_generate(cfg, base, prompts, 2, tp_rules, mesh, extra)  # warm-up
     base.tp.reset()
-    want, p_ms, d_ms = timed_generate(cfg, base, prompts, new, tp_rules, mesh)
+    want, p_ms, d_ms = timed_generate(cfg, base, prompts, new, tp_rules, mesh, extra)
+    with torch.inference_mode():
+        la = api.prefill_fn(cfg, tp_rules, mesh)(base, ins)[0]
+    if apart:
+        la = la.cpu()
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+    timed_generate(cfg, model, prompts, 2, rules, mesh, extra)
     model.tp.reset()
     model.fsdp.reset()
-    got, f_p_ms, f_d_ms = timed_generate(cfg, model, prompts, new, rules, mesh)
+    got, f_p_ms, f_d_ms = timed_generate(cfg, model, prompts, new, rules, mesh, extra)
     rows = b // groups
     tp_calls = (lm.tp_calls(cfg, "prefill", rows, p, size)
                 + lm.tp_calls(cfg, "decode", rows, p, size) * (new - 1))
-    tp_bytes = tp_bytes_check("FSDP serving's model axis", model, tp_calls)
+    tp_bytes = tp_bytes_check(f"{cfg.name} FSDP serving's model axis", model, tp_calls)
     fs_calls = (lm.fsdp_calls(cfg, "prefill", mesh, rules)
                 + lm.fsdp_calls(cfg, "decode", mesh, rules) * (new - 1))
-    fs_bytes = fsdp_bytes_check("FSDP serving", model, fs_calls)
+    fs_bytes = fsdp_bytes_check(f"{cfg.name} FSDP serving", model, fs_calls)
     prefill_gathered = sum(nb for _, nb in lm.fsdp_calls(cfg, "prefill", mesh, rules))
     with torch.inference_mode():
-        la = api.prefill_fn(cfg, tp_rules, mesh)(base, {"tokens": prompts})[0]
-        lb = api.prefill_fn(cfg, rules, mesh)(model, {"tokens": prompts})[0]
+        lb = api.prefill_fn(cfg, rules, mesh)(model, ins)[0].to(la.device)
     peak = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(lb).all() and ((got >= 0) & (got < cfg.vocab)).all()):
+        raise AssertionError(f"{cfg.name} FSDP serving: non-finite logits or ids outside "
+                             f"the vocabulary")
     exact = bool(torch.equal(la, lb)) and bool((got == want).all())
     diff = float((la.float() - lb.float()).abs().max())
     first = float((got[:, 0] == want[:, 0]).mean())
@@ -5405,8 +5511,10 @@ def fsdp_serve(dev, seed):
             f"differ at {where.shape[0]} of {la.numel()} entries (first {where[:4].tolist()}), "
             f"max |diff| {diff:.3g}; tokens equal {share:.1%}: held to 3f's bounds")
         if not (diff <= TPF_LOGIT_TOL and first == 1.0):
-            raise AssertionError(f"FSDP serving: prefill logits differ by {diff:.3g} "
-                                 f"(bound {TPF_LOGIT_TOL}) or first tokens differ")
+            raise AssertionError(f"{cfg.name} FSDP serving: prefill logits differ by "
+                                 f"{diff:.3g} (bound {TPF_LOGIT_TOL}) or first tokens differ")
+    if keep is not None:
+        keep["tokens"] = got
     res = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, batch=b, prompt=p,
                new=new, mesh=TP_MESH, init_s=init_s, prefill_ms=f_p_ms,
                decode_ms_median=float(np.median(f_d_ms)), tp_prefill_ms=p_ms,
@@ -5414,31 +5522,38 @@ def fsdp_serve(dev, seed):
                prefill_logits_max_diff=diff, tokens_equal_share=share,
                first_tokens_equal=first, fsdp_calls=len(fs_calls), tp_calls=len(tp_calls),
                fsdp_bytes_per_rank=fs_bytes, tp_bytes_per_rank=tp_bytes,
-               prefill_gathered_bytes_per_rank=prefill_gathered, peak_bytes=peak)
+               prefill_gathered_bytes_per_rank=prefill_gathered, apart=apart,
+               peak_bytes=peak)
     log(f"  {cfg.name} ({n_params:,} parameters, {cfg.n_layers} layers) bf16 with FSDP rules "
-        f"on data {groups} x model {size} (seeded with the tensor-parallel copy in "
-        f"{init_s:.1f} s): prefill {f_p_ms:.2f} ms (tensor-parallel alone {p_ms:.2f}), decode "
-        f"{res['decode_ms_median']:.2f} ms a step median (tensor-parallel alone "
-        f"{res['tp_decode_ms_median']:.2f}); {'bit-equal' if exact else 'NOT bit-equal'} to "
-        f"the tensor-parallel run (prefill logits and all {b} x {new} tokens); "
+        f"on data {groups} x model {size} ({'the tensor-parallel run first, apart' if apart else 'seeded with the tensor-parallel copy'} in "
+        f"{init_s:.1f} s), {b} x {p} + {new}: prefill {f_p_ms:.2f} ms (tensor-parallel alone "
+        f"{p_ms:.2f}), decode {res['decode_ms_median']:.2f} ms a step median (tensor-parallel "
+        f"alone {res['tp_decode_ms_median']:.2f}); {'bit-equal' if exact else 'NOT bit-equal'} "
+        f"to the tensor-parallel run (prefill logits and all {b} x {new} tokens); "
         f"{len(fs_calls)} FSDP calls == lm.fsdp_calls, {fs_bytes / 1e9:.3f} GB a rank "
         f"(prefill {prefill_gathered / 1e6:.1f} MB of gathered blocks), {len(tp_calls)} "
         f"model-axis calls == lm.tp_calls, {tp_bytes / 1e6:.3f} MB a rank; peak "
-        f"{peak / 1e9:.2f} GB (both models)")
-    del base, model, la, lb
+        f"{peak / 1e9:.2f} GB")
+    del model, la, lb
+    if not apart:
+        del base
     gc.collect()
     torch.cuda.empty_cache()
     return res
 
 
-def fsdp_step_check(dev, seed):
-    """(b) one float32 step (TF32 off) of the 2-layer cut at full width with
-    FSDP rules on (data 2, model 4) against the tensor-parallel step of the
-    same weights and batch: the loss and every leaf's gradient within
-    TP_REL_TOL of its largest, the records of the gradient (remat's
-    recompute, each gathered leaf's reduce-scatter) and then of the whole
-    GSPMD step (the clip's and AdamW's calls) equal to the byte models,
-    the parameters after AdamW within TP_REL_TOL of each leaf's largest."""
+def fsdp_step_check(dev, seed, cfg=None, shape=None, mesh_sizes=TP_MESH):
+    """(b) one float32 step (TF32 off) of ``cfg`` (the 2-layer cut of
+    deepseek-7b at full width by default) on ``shape`` = (rows, text
+    tokens, microbatches) with FSDP rules on ``mesh_sizes`` (data 2, model
+    4 by default; with a ``pod`` axis, FSDP over pod and data) against the
+    tensor-parallel step of the same weights and batch: the loss and every
+    leaf's gradient within TP_REL_TOL of its largest (TPF_LEAF_TOL's leaves
+    their own), the records of the gradient (remat's recompute, each
+    gathered leaf's reduce-scatter) and then of the whole GSPMD step (the
+    clip's and the optimizer's calls) equal to the byte models, the
+    parameters after the update within TP_REL_TOL of each leaf's
+    largest."""
     import numpy as np
     import torch
 
@@ -5448,13 +5563,15 @@ def fsdp_step_check(dev, seed):
     from repro_torch.models import api, lm
     from repro_torch.train import optim, step as step_mod
 
-    base_cfg = configs.get_config(FSDP_ARCH)
-    cfg = dataclasses.replace(base_cfg, n_layers=RESTART_LAYERS, param_dtype="float32",
-                              compute_dtype="float32")
-    rows, seq, mb = FSDP_STEP
-    mesh = SimMesh(*TP_MESH)
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=RESTART_LAYERS,
+                                  param_dtype="float32", compute_dtype="float32")
+    rows, text, mb = shape or FSDP_STEP
+    seq = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+    mesh = SimMesh(*mesh_sizes)
     rules, tp_rules = rules_for_mesh(mesh, fsdp=True), rules_for_mesh(mesh)
-    size, groups = mesh.shape["model"], mesh.shape["data"]
+    size = mesh.shape["model"]
+    groups = mesh.ranks // size
     batch = device_batch(SyntheticLM(cfg, rows, seq), 1, dev)
     torch.cuda.reset_peak_memory_stats()
     with exact_float32():
@@ -5466,7 +5583,7 @@ def fsdp_step_check(dev, seed):
         model.fsdp.reset()
         loss1, g1 = step_mod._grads_of(api.train_loss_fn(cfg, rules, mesh), model, batch, mb)
         g1 = api.global_leaves(model, g1)
-        tcalls = lm.tp_calls(cfg, "train", rows // mb // groups, seq, size) * mb
+        tcalls = lm.tp_calls(cfg, "train", rows // mb // groups, text, size) * mb
         fcalls = lm.fsdp_calls(cfg, "train", mesh, rules) * mb
         grad_tp = tp_bytes_check("FSDP gradient's model axis", model, tcalls, ordered=False)
         grad_fs = fsdp_bytes_check("FSDP gradient", model, fcalls, ordered=False)
@@ -5476,9 +5593,10 @@ def fsdp_step_check(dev, seed):
         gc.collect()
         torch.cuda.empty_cache()
         worst = worst_leaf(errs)
-        if not (loss_err <= TP_REL_TOL and errs[worst] <= TP_REL_TOL):
-            raise AssertionError(f"FSDP step: loss rel err {loss_err:.3g}, gradient "
-                                 f"{worst} {errs[worst]:.3g} > {TP_REL_TOL}")
+        over = {k: e for k, e in errs.items() if not e <= TPF_LEAF_TOL.get(k, TP_REL_TOL)}
+        if not loss_err <= TP_REL_TOL or over:
+            raise AssertionError(f"{cfg.name} FSDP step: loss rel err {loss_err:.3g}, leaves "
+                                 f"over their bound: {over}")
         sa, sb = (optim.get(cfg.optimizer).init(m) for m in (base, model))
         fa = step_mod.build_train_step(cfg, mesh=mesh, rules=tp_rules, microbatches=mb,
                                        lr_kw=TRAIN_LR)
@@ -5499,9 +5617,10 @@ def fsdp_step_check(dev, seed):
         perrs = leaf_rel_errs(_tree_of(got), _tree_of(want))
         pworst = worst_leaf(perrs)
         if perrs[pworst] > TP_REL_TOL:
-            raise AssertionError(f"FSDP step: parameter {pworst} after AdamW "
-                                 f"{perrs[pworst]:.3g} > {TP_REL_TOL}")
-    res = dict(layers=RESTART_LAYERS, rows=rows, seq=seq, microbatches=mb,
+            raise AssertionError(f"{cfg.name} FSDP step: parameter {pworst} after the "
+                                 f"update {perrs[pworst]:.3g} > {TP_REL_TOL}")
+    res = dict(arch=cfg.name, layers=cfg.n_layers, mesh=mesh_sizes, rows=rows, seq=seq,
+               microbatches=mb, optimizer=cfg.optimizer,
                loss=float(loss0), loss_rel_err=loss_err, worst_leaf=worst,
                worst_rel_err=errs[worst], params_worst_leaf=pworst,
                params_worst_rel_err=perrs[pworst], grad_fsdp_bytes_per_rank=grad_fs,
@@ -5509,10 +5628,11 @@ def fsdp_step_check(dev, seed):
                step_tp_bytes_per_rank=step_tp, fsdp_calls=len(fcalls),
                step_loss=float(mb_["loss"]), tp_step_loss=float(ma["loss"]),
                peak_bytes=torch.cuda.max_memory_allocated())
-    log(f"  float32 (TF32 off) {RESTART_LAYERS}-layer cut, {rows} x {seq} tokens in {mb} "
+    log(f"  {cfg.name} float32 (TF32 off) {cfg.n_layers}-layer cut on "
+        f"{dict(zip(mesh_sizes[1], mesh_sizes[0]))}, {rows} x {seq} tokens in {mb} "
         f"microbatches, FSDP rules against the tensor-parallel step: loss {float(loss1):.6f} "
         f"(tensor-parallel {float(loss0):.6f}, rel err {loss_err:.2e}), every leaf's gradient "
-        f"within {errs[worst]:.2e} of its largest (worst {worst}), after AdamW every "
+        f"within {errs[worst]:.2e} of its largest (worst {worst}), after {cfg.optimizer} every "
         f"parameter within {perrs[pworst]:.2e} (worst {pworst}); {len(fcalls)} FSDP calls "
         f"== the byte model (remat's recompute included), {grad_fs / 1e9:.3f} GB a rank, the "
         f"whole step {step_fs / 1e9:.3f} GB (model axis {step_tp / 1e9:.3f} GB); peak "
@@ -5533,15 +5653,19 @@ def _tree_of(flat):
     return out
 
 
-def fsdp_train(dev, seed):
-    """(b) deepseek-7b at full width cut to FSDP_TRAIN_LAYERS layers on
-    (data 2, model 4), FSDP_TRAIN_STEPS bfloat16 steps through
-    ``train.loop.train`` (remat, AdamW, the GSPMD step, the config's
-    microbatches), first tensor-parallel alone, then with FSDP rules: every
-    loss finite, the first bit-equal to the tensor-parallel run's and the
-    others within FSDP_LOSS_TOL of them (the clip's norm sums the shards in
-    another order); step ms of both, tokens a second, 6ND against the
-    bfloat16 peak, peak memory."""
+def fsdp_train(dev, seed, cfg=None, shape=None, plain=True):
+    """(b) ``cfg`` (deepseek-7b at full width cut to FSDP_TRAIN_LAYERS
+    layers by default) on (data 2, model 4), ``shape`` = (steps, rows,
+    tokens, microbatches) (FSDP_TRAIN_STEPS bfloat16 steps of
+    FSDP_TRAIN_BATCH x FSDP_TRAIN_SEQ in the config's microbatches by
+    default) through ``train.loop.train`` (remat, the config's optimizer,
+    the GSPMD step), unsharded first where ``plain``, then tensor-parallel
+    alone, then with FSDP rules: every loss finite, the FSDP run's first
+    bit-equal to the tensor-parallel run's and the others within
+    FSDP_LOSS_TOL of them (the clip's norm sums the shards in another
+    order), and each within FSDP_LOSS_TOL of the unsharded run's; step ms
+    of each, tokens a second, 6ND against the bfloat16 peak, peak
+    memory."""
     import numpy as np
     import torch
 
@@ -5550,24 +5674,28 @@ def fsdp_train(dev, seed):
     from repro_torch.models import api
     from repro_torch.train import loop
 
-    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=FSDP_TRAIN_LAYERS)
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=FSDP_TRAIN_LAYERS)
+    steps, rows_n, seq, mb = shape or (FSDP_TRAIN_STEPS, FSDP_TRAIN_BATCH, FSDP_TRAIN_SEQ,
+                                       cfg.train_microbatches)
     mesh = SimMesh(*TP_MESH)
     runs = {}
-    for name, rules in (("tp", rules_for_mesh(mesh)), ("fsdp", rules_for_mesh(mesh, fsdp=True))):
+    kinds = [("plain", None, None)] if plain else []
+    kinds += [("tp", mesh, rules_for_mesh(mesh)), ("fsdp", mesh, rules_for_mesh(mesh, fsdp=True))]
+    for name, on, rules in kinds:
         torch.cuda.reset_peak_memory_stats()
         rows = []
         t0 = time.perf_counter()
-        out = loop.train(cfg, FSDP_TRAIN_BATCH, FSDP_TRAIN_SEQ,
-                         loop.LoopConfig(n_steps=FSDP_TRAIN_STEPS,
-                                         microbatches=cfg.train_microbatches,
-                                         lr_kw=TRAIN_LR, log_every=FSDP_TRAIN_STEPS),
+        out = loop.train(cfg, rows_n, seq,
+                         loop.LoopConfig(n_steps=steps, microbatches=mb, lr_kw=TRAIN_LR,
+                                         log_every=steps),
                          seed=seed, on_metrics=lambda s, m, rows=rows: rows.append(m),
-                         device=dev, mesh=mesh, rules=rules)
-        if (out["params"].fsdp is not None) != (name == "fsdp"):
+                         device=dev, mesh=on, rules=rules)
+        if (getattr(out["params"], "fsdp", None) is not None) != (name == "fsdp"):
             raise AssertionError(f"train.loop.train did not take the {name} step")
         step_s = [r["step_time"] for r in rows]
         runs[name] = dict(losses=out["losses"], step_s=step_s,
-                          step_s_median=float(np.median(step_s[1:])),
+                          step_s_median=float(np.median(step_s[1:] or step_s)),
                           peak_bytes=torch.cuda.max_memory_allocated(),
                           wall_s=time.perf_counter() - t0)
         del out
@@ -5576,26 +5704,39 @@ def fsdp_train(dev, seed):
     got, want = np.asarray(runs["fsdp"]["losses"]), np.asarray(runs["tp"]["losses"])
     rel = np.abs(got - want) / np.abs(want)
     if not (np.isfinite(got).all() and got[0] == want[0] and rel.max() <= FSDP_LOSS_TOL):
-        raise AssertionError(f"FSDP training: losses {got.tolist()} against the "
+        raise AssertionError(f"{cfg.name} FSDP training: losses {got.tolist()} against the "
                              f"tensor-parallel run's {want.tolist()}")
+    plain_rel = None
+    if plain:
+        ref = np.asarray(runs["plain"]["losses"])
+        plain_rel = float(max((np.abs(x - ref) / np.abs(ref)).max() for x in (got, want)))
+        if not (np.isfinite(ref).all() and plain_rel <= FSDP_LOSS_TOL):
+            raise AssertionError(f"{cfg.name} training: FSDP losses {got.tolist()} and "
+                                 f"tensor-parallel {want.tolist()} against the unsharded "
+                                 f"run's {ref.tolist()}")
     med = runs["fsdp"]["step_s_median"]
-    tokens = FSDP_TRAIN_BATCH * FSDP_TRAIN_SEQ
+    tokens = rows_n * seq
     n_params = api.param_counts(cfg)["total"]
-    flops = api.model_flops(cfg, configs.ShapeConfig("smoke", FSDP_TRAIN_SEQ,
-                                                     FSDP_TRAIN_BATCH, "train"))
-    res = dict(runs["fsdp"], layers=FSDP_TRAIN_LAYERS, params=n_params, mesh=TP_MESH,
-               steps=FSDP_TRAIN_STEPS, tokens_per_s=tokens / med, model_flops=flops,
+    flops = api.model_flops(cfg, configs.ShapeConfig("smoke", seq, rows_n, "train"))
+    res = dict(runs["fsdp"], arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               mesh=TP_MESH, steps=steps, batch=rows_n, seq=seq, microbatches=mb,
+               optimizer=cfg.optimizer, tokens_per_s=tokens / med, model_flops=flops,
                peak_share=flops / med / H100_BF16_FLOPS, loss_rel_err=float(rel.max()),
-               tp=runs["tp"])
+               plain_loss_rel_err=plain_rel, tp=runs["tp"], plain=runs.get("plain"))
     tp_med = runs["tp"]["step_s_median"]
-    log(f"  {cfg.name} cut to {FSDP_TRAIN_LAYERS} layers ({n_params:,} parameters) on data 2 x "
-        f"model 4: {FSDP_TRAIN_STEPS} steps of {FSDP_TRAIN_BATCH} x {FSDP_TRAIN_SEQ} tokens in "
-        f"{cfg.train_microbatches} microbatches, losses {', '.join(f'{x:.4f}' for x in got)} "
-        f"(tensor-parallel alone {', '.join(f'{x:.4f}' for x in want)}, within "
-        f"{rel.max():.2e}); step {med * 1e3:.1f} ms median of steps 2-{FSDP_TRAIN_STEPS} "
-        f"(first {runs['fsdp']['step_s'][0] * 1e3:.1f} ms; tensor-parallel alone "
-        f"{tp_med * 1e3:.1f} ms), {tokens / med:,.0f} tokens/s, 6ND {res['peak_share']:.1%} of "
-        f"the bf16 peak; peak {res['peak_bytes'] / 1e9:.2f} GB (tensor-parallel alone "
+    unsharded = ""
+    if plain:
+        unsharded = (f"; unsharded {', '.join(f'{x:.4f}' for x in runs['plain']['losses'])} "
+                     f"(within {plain_rel:.2e}; step {runs['plain']['step_s_median'] * 1e3:.1f} "
+                     f"ms, peak {runs['plain']['peak_bytes'] / 1e9:.2f} GB)")
+    log(f"  {cfg.name} cut to {cfg.n_layers} layers ({n_params:,} parameters, {cfg.optimizer}) "
+        f"on data 2 x model 4: {steps} steps of {rows_n} x {seq} tokens in {mb} microbatches, "
+        f"losses {', '.join(f'{x:.4f}' for x in got)} (tensor-parallel alone "
+        f"{', '.join(f'{x:.4f}' for x in want)}, within {rel.max():.2e}{unsharded}); step "
+        f"{med * 1e3:.1f} ms median of steps 2-{steps} (first "
+        f"{runs['fsdp']['step_s'][0] * 1e3:.1f} ms; tensor-parallel alone {tp_med * 1e3:.1f} "
+        f"ms), {tokens / med:,.0f} tokens/s, 6ND {res['peak_share']:.1%} of the bf16 peak; "
+        f"peak {res['peak_bytes'] / 1e9:.2f} GB (tensor-parallel alone "
         f"{runs['tp']['peak_bytes'] / 1e9:.2f}); {res['wall_s']:.1f} s")
     return res
 
@@ -5741,21 +5882,10 @@ def fsdp_multi_card(dev, seed, world, backend="nccl"):
     return tp_group(dev, seed, job, world, backend)
 
 
-def run_multi_card(args, dev, card, phase, t_start) -> int:
-    """``--multi-card``: phase 3c(d) over nccl, one rank on each card, then
-    ``launch.train`` under ``torchrun`` with nccl on as many processes,
-    then phase 3e's serving and step over nccl (``tp_multi_card``), then
-    phase 3g's FSDP step over nccl (``fsdp_multi_card``)."""
-    import torch
-
-    world = torch.cuda.device_count()
-    if world < 2:
-        raise AssertionError(f"--multi-card needs several cards, found {world}")
-    out = {"cards": subprocess.run(
-        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()}
-    for line in out["cards"]:
-        log(f"  card {line}")
+def run_multi_card_phases(args, dev, phase, world, out):
+    """``--multi-card``'s phases into ``out``: 3c(d) over nccl, then
+    ``launch.train`` under ``torchrun``, then 3e's and 3g's steps over
+    nccl."""
     phase(f"[3c(d)/27] the gradient sync over nccl, one rank on each of {world} cards")
     out["dist"] = dist_sync(dev, args.seed, backend="nccl", world=world)
     phase(f"[3c(d)/27] launch.train under torchrun, {world} processes, nccl")
@@ -5778,12 +5908,1432 @@ def run_multi_card(args, dev, card, phase, t_start) -> int:
     out["tp"] = tp_multi_card(dev, args.seed, world)
     phase(f"[3g/27] an FSDP float32 train step over nccl, one rank on each of {world} cards")
     out["fsdp"] = fsdp_multi_card(dev, args.seed, world)
+
+
+def run_multi_card(args, dev, card, phase, t_start) -> int:
+    """``--multi-card``: phase 3c(d) over nccl, one rank on each card, then
+    ``launch.train`` under ``torchrun`` with nccl on as many processes,
+    then phase 3e's serving and step over nccl (``tp_multi_card``), then
+    phase 3g's FSDP step over nccl (``fsdp_multi_card``); with ``--coverage
+    lm``, the four families' serving over nccl (``tpf_multi_card``)
+    alone."""
+    import torch
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--multi-card needs several cards, found {world}")
+    out = {"cards": subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()}
+    for line in out["cards"]:
+        log(f"  card {line}")
+    if args.coverage == "lm":
+        phase(f"[coverage lm, group 5] the four families' serving over nccl, one model rank "
+              f"on each of {world} cards")
+        out["families"] = tpf_multi_card(dev, args.seed, world)
+    else:
+        run_multi_card_phases(args, dev, phase, world, out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                            multi_card=out, total_s=time.perf_counter() - t_start,
                            args=vars(args)), f, indent=1, default=float)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# --coverage lm: the LM side's paths that the default run leaves out
+# ---------------------------------------------------------------------------
+
+# group 1, FSDP for the other families on TP_MESH beside tensor parallelism
+# alone; each cut only in depth, expert count or batch (PERF.md section 4
+# reckons the bytes): qwen3-moe at 2 of 94 layers (128 experts each),
+# serving (prompts, prompt tokens, greedy tokens) and bfloat16 steps under
+# Adafactor (steps, rows, tokens, microbatches)
+COV_MOE_ARCH, COV_MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+COV_MOE_SERVE, COV_MOE_TRAIN = (8, 256, 16), (3, 4, 512, 2)
+# its steps at one layer: at two, Adafactor's float32 passes over a
+# [2, 128, 4096, 1536] expert leaf (6.4 GB each) beside the float32
+# gradient (24.9 GB) left the card 3.7 GB short
+COV_MOE_TRAIN_LAYERS = 1
+# gemma3-27b at one 5-local + 1-global period, its prompts past the
+# 1024-token window, served with the defaults and with the ring cache and
+# the in-place decode
+COV_GEMMA_ARCH, COV_GEMMA_LAYERS = "gemma3-27b", 6
+COV_GEMMA_SERVE, COV_GEMMA_TRAIN = (2, 2048, 32), (2, 2, 1056, 1)
+# its steps at two (local) layers, past the window: at six, AdamW's float32
+# passes over the tied 262,144 x 5,376 embedding (5.6 GB each) beside the
+# moments (31 GB) and the float32 gradient (15.5 GB) left the card short
+COV_GEMMA_TRAIN_LAYERS = 2
+# kimi-k2 at its dense first layer and one MoE layer, serving only (its
+# Adafactor step is qwen3-moe's path), its experts cut 384 -> 192: a leaf is
+# drawn whole in float32 (the 384-expert leaf 22.5 GB) beside the 40 GB
+# model, and the FSDP run gathers the MoE layer whole (33.8 GB) beside it
+COV_KIMI_ARCH, COV_KIMI_LAYERS, COV_KIMI_SERVE = "kimi-k2-1t-a32b", 2, (8, 256, 16)
+COV_KIMI_EXPERTS = 192
+# 3f's cuts: jamba's serving only (its float32 step at one period is 53 GB
+# of parameters alone), the float32 steps of internvl2 and whisper
+COV_FSDP_SERVE = {"jamba-v0.1-52b": (4, 512, 16), "internvl2-26b": (8, 256, 16),
+                  "whisper-medium": (8, 256, 16)}
+COV_FSDP_STEP = {"internvl2-26b": (4, 256, 2), "whisper-medium": (4, 256, 2)}
+# group 2, FSDP state on deepseek-7b's 2-layer cut: bfloat16 (rows, tokens,
+# microbatches), (steps, fail at, checkpoint every), the restore's mesh and
+# the pod x data mesh
+COV_STATE_SHAPE, COV_STATE_PLAN = (4, 512, 2), (3, 2, 2)
+COV_STATE_RESTORE = (("data 8, fsdp", (8,), ("data",), True),)
+COV_POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+# group 3, the four families beyond serving at 3f's cuts; jamba's experts
+# cut from 16 to COV_JAMBA_EXPERTS for its steps (one 8-layer period with
+# AdamW in bfloat16 is 13.3 G parameters x 16 B, 213 GB)
+COV_FAMILIES = ("mamba2-130m", "jamba-v0.1-52b", "internvl2-26b", "whisper-medium")
+COV_JAMBA_EXPERTS = 2
+COV_FAMILY_STEP = {"mamba2-130m": (4, 1024, 2), "jamba-v0.1-52b": (4, 512, 2),
+                   "internvl2-26b": (4, 256, 2), "whisper-medium": (4, 256, 2)}
+COV_FAMILY_PLAN = (3, 2, 2)
+# jamba's steps on (data 2, model 2), one of its 2 experts a model rank: on
+# model 4 its expert leaves replicate, and the butterfly step's stacked rows
+# of one (8 x 1.9 GB in float32, and as much again to merge) beside both
+# data groups' gradients and the synced one overran the card
+COV_FAMILY_MESH = {"jamba-v0.1-52b": ((2, 2), ("data", "model"))}
+# jamba's bfloat16 training unsharded (sharded, the GSPMD step holds each
+# data group's float32 gradient, 2 x 13.6 GB, and the clip's copy beside the
+# bfloat16 weights and AdamW's moments, 34 GB: 78 GB) and without its
+# restart (its 34 GB checkpoint took 199 s to restore: over the time a run
+# is given)
+COV_UNSHARDED_TRAIN = ("jamba-v0.1-52b",)
+# the gloo family group: whisper's serving and mamba2's GSPMD step in
+# TP_GLOO_WORLD processes on TP_GLOO_MESH
+COV_GLOO_SERVE = (4, 64, 8)
+COV_GLOO_STEP = (4, 256)
+# group 4: serve_lm's greedy tokens, launch.train's butterfly losses, the
+# prefill's flop count
+COV_SERVE_LM_NEW = 8
+COV_TRAIN_CLI = ("--arch", "olmo-1b", "--smoke", "--steps", "3", "--grad-sync", "butterfly",
+                 "--ranks", "4")
+COV_SYNC_MESH = ((2, 2), ("pod", "data"))
+COV_SYNC_LEAVES = ((2048, 2048), (2048, 6144), (6144,), (1000, 3))
+COV_PREFILL = (8, 512)
+# the LM coverage groups, in the order a user meets them
+LM_GROUPS = ("loss", "fsdp", "state", "families", "other")
+
+
+def cov_family_config(arch, dtype=None, train=False):
+    """3f's cut of ``arch`` (``tpf_config``), jamba's experts cut to
+    COV_JAMBA_EXPERTS for ``train``."""
+    cfg = tpf_config(arch, dtype)
+    if train and cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_experts=COV_JAMBA_EXPERTS)
+    return cfg
+
+
+def cov_loss(dev, seed):
+    """Group 0: phase 3g(b)'s steps (deepseek-7b at full width cut to
+    FSDP_TRAIN_LAYERS layers) unsharded, tensor-parallel and with FSDP
+    rules: the losses of each sharded run within FSDP_LOSS_TOL of the
+    unsharded run's (:func:`fsdp_train`)."""
+    out = fsdp_train(dev, seed, plain=True)
+    losses = out["plain"]["losses"]
+    log(f"  unsharded losses {', '.join(f'{x:.4f}' for x in losses)} at TRAIN_LR "
+        f"{TRAIN_LR}: the sharded runs within {out['plain_loss_rel_err']:.2e} of them")
+    return out
+
+
+def cov_fsdp(dev, seed):
+    """Group 1: FSDP for qwen3-moe (serving, bfloat16 steps under
+    Adafactor), gemma3 (serving with the defaults and with the ring cache
+    and in-place decode, the two runs' tokens equal; steps), kimi-k2
+    (serving, the two models apart), and jamba, internvl2 and whisper at
+    3f's cuts (serving; the float32 step of the two that fit)."""
+    from repro_torch import configs
+
+    out = {}
+    moe = dataclasses.replace(configs.get_config(COV_MOE_ARCH), n_layers=COV_MOE_LAYERS)
+    out["qwen3-moe serve"] = fsdp_serve(dev, seed, moe, COV_MOE_SERVE)
+    out["qwen3-moe train"] = fsdp_train(dev, seed, dataclasses.replace(
+        moe, n_layers=COV_MOE_TRAIN_LAYERS), COV_MOE_TRAIN, plain=False)
+    gemma = dataclasses.replace(configs.get_config(COV_GEMMA_ARCH), n_layers=COV_GEMMA_LAYERS)
+    if gemma.local_window >= COV_GEMMA_SERVE[1]:
+        raise AssertionError(f"gemma3's prompts ({COV_GEMMA_SERVE[1]}) do not pass its "
+                             f"window ({gemma.local_window})")
+    plain, ring = {}, {}
+    out["gemma3 serve"] = fsdp_serve(dev, seed, gemma, COV_GEMMA_SERVE, keep=plain)
+    out["gemma3 serve ring"] = fsdp_serve(
+        dev, seed, dataclasses.replace(gemma, ring_local_cache=True, decode_inplace=True),
+        COV_GEMMA_SERVE, keep=ring)
+    if not (plain["tokens"] == ring["tokens"]).all():
+        raise AssertionError("gemma3: the ring cache's greedy tokens differ from the full "
+                             "cache's")
+    log(f"  gemma3: ring_local_cache + decode_inplace gives the same "
+        f"{plain['tokens'].size} greedy tokens as the full cache, past the "
+        f"{gemma.local_window}-token window")
+    out["gemma3 train"] = fsdp_train(dev, seed, dataclasses.replace(
+        gemma, n_layers=COV_GEMMA_TRAIN_LAYERS), COV_GEMMA_TRAIN, plain=False)
+    kimi = dataclasses.replace(configs.get_config(COV_KIMI_ARCH), n_layers=COV_KIMI_LAYERS,
+                               n_experts=COV_KIMI_EXPERTS)
+    out["kimi-k2 serve"] = fsdp_serve(dev, seed, kimi, COV_KIMI_SERVE, apart=True)
+    for arch, shape in COV_FSDP_SERVE.items():
+        cfg = tpf_config(arch)
+        out[f"{arch} serve"] = fsdp_serve(dev, seed, cfg, shape, apart=cfg.family == "hybrid")
+        if arch in COV_FSDP_STEP:
+            out[f"{arch} step"] = fsdp_step_check(dev, seed, tpf_config(arch, "float32"),
+                                                  COV_FSDP_STEP[arch])
+    return out
+
+
+def cov_state(dev, seed, tmp):
+    """Group 2, on deepseek-7b's 2-layer cut: a bfloat16 run with FSDP
+    rules failed and restarted from its checkpoint, bit-equal to the
+    uninterrupted run; that checkpoint restored onto data 8 with FSDP;
+    the float32 step with FSDP over pod and data (COV_POD_MESH) against
+    tensor parallelism alone on the same mesh, its loss against the (data
+    2, model 4) step's on the same batch (twice FSDP_STEP's rows)."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=RESTART_LAYERS)
+    mesh = SimMesh(*TP_MESH)
+    out = {"restart": restart_check(dev, seed, tmp, cfg, COV_STATE_SHAPE, COV_STATE_PLAN, mesh,
+                                    rules_for_mesh(mesh, fsdp=True), async_save=False)}
+    out["restore"] = elastic_restore(dev, os.path.join(tmp, "ck"), cfg, COV_STATE_RESTORE)
+    shutil.rmtree(os.path.join(tmp, "ck"), ignore_errors=True)
+    rows, seq, mb = FSDP_STEP
+    shape = (rows * 2, seq, mb)  # a row a microbatch for each of pod x data's 4 groups
+    out["step"] = fsdp_step_check(dev, seed, shape=shape)
+    out["pod_step"] = fsdp_step_check(dev, seed, shape=shape, mesh_sizes=COV_POD_MESH)
+    err = abs(out["pod_step"]["loss"] - out["step"]["loss"]) / abs(out["step"]["loss"])
+    if not err <= TP_REL_TOL:
+        raise AssertionError(f"pod x data FSDP: loss {out['pod_step']['loss']} against data 2 "
+                             f"x model 4's {out['step']['loss']}")
+    out["pod_loss_rel_err"] = err
+    log(f"  pod x data x model FSDP step's loss within {err:.2e} of data 2 x model 4's")
+    return out
+
+
+def cov_butterfly_step(arch, dev, seed):
+    """The butterfly step (``build_train_step_butterfly``, the model axis
+    inside) of ``arch`` in float32 on TP_MESH (or its COV_FAMILY_MESH)
+    against its GSPMD step from
+    the same weights and batch: the loss within TP_REL_TOL, every leaf of
+    the clipped gradient the optimizer takes within TP_REL_TOL of its
+    largest (TPF_LEAF_TOL's leaves their own), the butterfly's bytes a
+    rank equal to the byte model. The
+    optimizer is held (it keeps the gradient and moves nothing): the two
+    steps start from one state."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh, sorted_leaves
+    from repro_torch.models import api
+    from repro_torch.train import optim, step as step_mod
+
+    cfg = cov_family_config(arch, "float32", train=True)
+    mesh = SimMesh(*COV_FAMILY_MESH.get(arch, TP_MESH))
+    rules = rules_for_mesh(mesh)
+    groups = mesh.shape["data"]
+    b, text, mb = COV_FAMILY_STEP[arch]
+    seq = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = device_batch(SyntheticLM(cfg, b, seq), 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    res, got = {"arch": arch, "layers": cfg.n_layers, "experts": cfg.n_experts,
+                "mesh": mesh.sizes}, {}
+    with exact_float32():
+        model = api.init_params(cfg, seed, device=dev, rules=rules, mesh=mesh)
+        real = optim.get(cfg.optimizer)
+        for kind in ("gspmd", "butterfly"):
+            caught = {}
+
+            def keep(m, grads, st, lr, caught=caught):
+                caught["grads"] = grads
+                return m, st
+
+            get, optim.get = optim.get, lambda _name: dataclasses.replace(real, apply=keep)
+            try:
+                if kind == "gspmd":
+                    fn = step_mod.build_train_step(cfg, mesh=mesh, rules=rules, microbatches=mb,
+                                                   lr_kw=TRAIN_LR)
+                else:
+                    fn = step_mod.build_train_step_butterfly(cfg, mesh, rules, microbatches=mb,
+                                                             lr_kw=TRAIN_LR)
+            finally:
+                optim.get = get
+            model.tp.reset()
+            t0 = time.perf_counter()
+            _, _, met = fn(model, {}, batch, 1)
+            torch.cuda.synchronize()
+            res[f"{kind}_s"] = time.perf_counter() - t0
+            # the step's bytes a rank less the model axis's: the gradient sync's
+            got[kind] = dict(loss=float(met["loss"]), bytes=int(met.get("bytes_per_rank", 0))
+                             - int(model.tp.bytes_sent[0]))
+            if kind == "butterfly":
+                axis = optim.shard_axes(model)
+                want_bytes = sum(collectives.grad_sync_bytes(
+                    "butterfly", groups, 2,
+                    g.numel() if axis[p] is None else g.numel() // g.shape[axis[p]],
+                    g.element_size()) for p, g in sorted_leaves(caught["grads"]))
+            got[kind]["grads"] = {p: g.cpu() for p, g in
+                                  sorted_leaves(api.global_leaves(model, caught.pop("grads")))}
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = leaf_rel_errs(_tree_of(got["butterfly"]["grads"]), _tree_of(got["gspmd"]["grads"]))
+    worst = worst_leaf(errs)
+    over = {k: e for k, e in errs.items() if not e <= TPF_LEAF_TOL.get(k, TP_REL_TOL)}
+    loss_err = abs(got["butterfly"]["loss"] - got["gspmd"]["loss"]) / abs(got["gspmd"]["loss"])
+    if not loss_err <= TP_REL_TOL or over:
+        raise AssertionError(f"{arch} butterfly step: loss rel err {loss_err:.3g}, leaves over "
+                             f"their bound: {over}")
+    if got["butterfly"]["bytes"] != want_bytes:
+        raise AssertionError(f"{arch} butterfly step: {got['butterfly']['bytes']} B a rank, "
+                             f"the byte model {want_bytes}")
+    res.update(loss=got["gspmd"]["loss"], loss_rel_err=loss_err, worst_leaf=worst,
+               worst_rel_err=errs[worst], sync_bytes_per_rank=want_bytes,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  {arch} ({cfg.n_layers} layers{', %d experts' % cfg.n_experts if cfg.n_experts else ''}"
+        f") float32 butterfly step on data {groups} x model {mesh.shape['model']}, {b} x {seq} "
+        f"tokens in {mb} microbatches, against the GSPMD step: loss {got['butterfly']['loss']:.6f}"
+        f" (GSPMD {got['gspmd']['loss']:.6f}, rel err {loss_err:.2e}), every leaf of the "
+        f"clipped gradient within {errs[worst]:.2e} (worst {worst}); "
+        f"the sync's {want_bytes / 1e9:.4f} GB a rank == the byte model; "
+        f"{res['gspmd_s']:.1f} s / {res['butterfly_s']:.1f} s; peak "
+        f"{res['peak_bytes'] / 1e9:.2f} GB")
+    return res
+
+
+def cov_families(dev, seed, tmp):
+    """Group 3: each family's butterfly step against its GSPMD step, its
+    bfloat16 run on TP_MESH failed and restarted bit-equal (jamba's, its
+    experts cut, unsharded and not restarted, is its training through
+    ``train.loop.train``), whisper's
+    float32 serving and step with its 16 kv heads split 4 a rank on model
+    4 (:func:`tpf_float32`), then the gloo family group: whisper's serving
+    and mamba2's GSPMD step in TP_GLOO_WORLD processes on the card against
+    the simulated ranks."""
+    from repro_torch.dist.sharding import SimMesh, rules_for_mesh
+
+    out = {}
+    for arch in COV_FAMILIES:
+        out[f"{arch} butterfly"] = cov_butterfly_step(arch, dev, seed)
+        b, text, mb = COV_FAMILY_STEP[arch]
+        cfg = cov_family_config(arch, train=True)
+        seq = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+        apart = arch in COV_UNSHARDED_TRAIN
+        mesh = None if apart else SimMesh(*TP_MESH)
+        out[f"{arch} {'train' if apart else 'restart'}"] = restart_check(
+            dev, seed, tmp, cfg, (b, seq, mb), COV_FAMILY_PLAN, mesh,
+            None if mesh is None else rules_for_mesh(mesh), async_save=False,
+            restart=not apart)
+        shutil.rmtree(os.path.join(tmp, "ck"), ignore_errors=True)
+    whisper, mesh = tpf_config("whisper-medium"), SimMesh(*TP_MESH)
+    if whisper.n_kv_heads % mesh.shape["model"] or whisper.n_kv_heads < mesh.shape["model"]:
+        raise AssertionError("whisper's kv heads do not split on the model axis")
+    out["whisper split kv"] = tpf_float32("whisper-medium", dev, seed)
+    out["gloo"] = cov_gloo_families(dev, seed)
+    return out
+
+
+def cov_gloo_families(dev, seed, world=TP_GLOO_WORLD, backend="gloo", mesh=TP_GLOO_MESH):
+    """The gloo family group: whisper's serving (float32 prefill logits and
+    greedy tokens) and mamba2's float32 GSPMD step in ``world`` processes
+    on ``mesh`` against the simulated ranks (:func:`tp_group`)."""
+    b, p, new = COV_GLOO_SERVE
+    rows, seq = COV_GLOO_STEP
+    job = dict(parts=("serve", "step"), serve_cfg=tpf_config("whisper-medium"),
+               serve_batch=b, serve_prompt=p, serve_new=new,
+               step_cfg=tpf_config("mamba2-130m", "float32"), step_kind="gspmd", mesh=mesh,
+               batch=rows, seq=seq)
+    return tp_group(dev, seed, job, world, backend)
+
+
+def tpf_multi_card(dev, seed, world, backend="nccl"):
+    """``--coverage lm --multi-card``: 3f's four families' serving over
+    ``backend``, one model rank a card on (data 1, model ``world``), each
+    process's float32 prefill logits, greedy tokens and record against the
+    simulated ranks on card 0 (jamba's experts cut: its float32 period does
+    not fit twice on card 0)."""
+    out = {}
+    for arch in COV_FAMILIES:
+        cfg = cov_family_config(arch, train=True)
+        _, b, p, new = TPF_SERVE[arch]
+        job = dict(parts=("serve",), serve_cfg=cfg, serve_batch=b, serve_prompt=p,
+                   serve_new=new, mesh=((1, world), ("data", "model")))
+        out[arch] = tp_group(dev, seed, job, world, backend)
+    return out
+
+
+def cli_lines(main, argv):
+    """``main(argv)`` in this process, its standard output's lines; raises
+    on a non-zero exit."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    if rc:
+        raise AssertionError(f"{main.__module__} {' '.join(argv)}: exit {rc}")
+    return buf.getvalue().splitlines()
+
+
+def cov_serve_lm(dev):
+    """``repro_torch.launch.serve_lm`` for every arch's reduced config on the
+    card and with ``--device cpu``, greedy: the printed tokens equal (TF32
+    off)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+
+    out = {}
+    for arch in configs.ARCH_NAMES:
+        argv = ["--arch", arch, "--temperature", "0", "--new", str(COV_SERVE_LM_NEW)]
+        toks = {}
+        t0 = time.perf_counter()
+        with exact_float32():
+            for name in (dev.type, "cpu"):
+                lines = cli_lines(serve_lm.main, argv + ["--device", name])
+                toks[name] = next(ln for ln in lines if ln.startswith("sample token ids:"))
+        if toks[dev.type] != toks["cpu"]:
+            raise AssertionError(f"serve_lm --arch {arch}: {toks[dev.type]} on the card, "
+                                 f"{toks['cpu']} on the CPU")
+        out[arch] = dict(tokens=toks["cpu"].split(":", 1)[1].strip(),
+                         seconds=time.perf_counter() - t0)
+    log(f"  serve_lm on the card == --device cpu (greedy, {COV_SERVE_LM_NEW} tokens) for all "
+        f"{len(out)} archs: {', '.join(out)}")
+    return out
+
+
+def cov_train_cli(dev):
+    """``repro_torch.launch.train`` with ``--grad-sync butterfly`` over 4
+    simulated ranks on the card against the same command with the
+    one-device step (``--grad-sync xla``): the printed losses (the logged
+    step's, the first and the last) within their printed precision (TF32
+    off)."""
+    import re
+
+    from repro_torch.launch import train
+
+    losses = {}
+    with exact_float32():
+        for sync in ("butterfly", "xla"):
+            argv = [a if a != "butterfly" else sync for a in COV_TRAIN_CLI]
+            lines = cli_lines(train.main, argv + ["--device", dev.type])
+            losses[sync] = [float(x) for ln in lines for m in re.findall(
+                r"^step +\d+ loss ([0-9.]+)|^done: first loss ([0-9.]+) -> last ([0-9.]+)", ln)
+                for x in m if x]
+    got, want = losses["butterfly"], losses["xla"]
+    if len(want) != 3 or len(got) != 3 or max(abs(a - b) for a, b in zip(got, want)) > 1e-4 \
+            or not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"launch.train --grad-sync butterfly: {losses}")
+    log(f"  launch.train {' '.join(COV_TRAIN_CLI)} on the card: losses {got} == the one-device "
+        f"step's {want}")
+    return losses
+
+
+def cov_pod_data_syncs(dev, seed):
+    """The gradient syncs over ``("pod", "data")`` on COV_SYNC_MESH: every
+    method (and the int8 wire) on seeded float32 leaves of qwen3-1.7b's
+    shapes, on the card against the same calls on the CPU (the sums within
+    SYNC_REL_TOL of each leaf's largest, or the int8 wire's quantized
+    values equal), every rank's bytes equal to ``grad_sync_bytes`` over the
+    axes' sizes."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.dist.sharding import SimMesh
+
+    mesh = SimMesh(*COV_SYNC_MESH)
+    axes, p = mesh.axis_names, mesh.ranks
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    leaves = [torch.randn((p,) + shape, generator=gen) for shape in COV_SYNC_LEAVES]
+    out = {}
+    for method, fanout in DIST_CASES:
+        rec = {"bit_equal": True, "rel_err": 0.0}
+        comms = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            comms[name] = collectives.Communicator(mesh, d)
+        for g in leaves:
+            res = {}
+            for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                x = g.to(d)
+                if method == "int8":
+                    y = collectives.sync_leaf_int8(x, comms[name], fanout=fanout, axes=axes)
+                else:
+                    y = collectives.sync_leaf(x, comms[name], method=method, fanout=fanout,
+                                              axes=axes)
+                res[name] = y.cpu()
+            rec["bit_equal"] &= bool(torch.equal(res["card"], res["cpu"]))
+            rec["rel_err"] = max(rec["rel_err"], rel_err(res["card"], res["cpu"]))
+        want = sum(collectives.grad_sync_bytes("butterfly" if method == "int8" else method,
+                                               mesh.sizes, fanout, g[0].numel(), 4,
+                                               "int8" if method == "int8" else None)
+                   for g in leaves)
+        for name, c in comms.items():
+            if not (c.bytes_sent == want).all():
+                raise AssertionError(f"pod x data sync {method} fanout {fanout} on {name}: bytes "
+                                     f"{c.bytes_sent} != the byte model {want}")
+        bound = SYNC_REL_TOL if method != "int8" else 1.0 / 127
+        if not rec["rel_err"] <= bound:
+            raise AssertionError(f"pod x data sync {method} fanout {fanout}: the card is "
+                                 f"{rec['rel_err']:.3g} from the CPU")
+        rec["bytes_per_rank"] = want
+        out[f"{method} fanout {fanout}"] = rec
+    log(f"  gradient syncs over (pod, data) on {dict(zip(axes, mesh.sizes))}: every method on "
+        f"the card == the CPU ({', '.join(k + (' bit-equal' if v['bit_equal'] else ' %.1e' % v['rel_err']) for k, v in out.items())}); "
+        f"bytes a rank == grad_sync_bytes over the axes' sizes")
+    return out
+
+
+def cov_prefill_flops(dev, seed):
+    """``FlopCounterMode``'s count of qwen3-1.7b's prefill (COV_PREFILL rows
+    and tokens) on the card equal to the same call under fake tensors in
+    this process (``launch.hlo_stats.measure``)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import configs
+    from repro_torch.launch import hlo_stats
+    from repro_torch.models import api
+
+    cfg = configs.get_config(LM_ARCH)
+    b, p = COV_PREFILL
+    fn = api.prefill_fn(cfg)
+    model = api.init_params(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    with torch.inference_mode():
+        real = hlo_stats.measure(fn, model, {"tokens": toks})
+    real.out = None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with FakeTensorMode(), torch.inference_mode():
+        fake = hlo_stats.measure(fn, api.build_model(cfg, torch.device("cpu")),
+                                 {"tokens": torch.zeros((b, p), dtype=toks.dtype)})
+    fake.out = None
+    if real.flops != fake.flops or real.flops_by_op != fake.flops_by_op or real.flops <= 0:
+        raise AssertionError(f"prefill: the card counts {real.flops:.6g} flops "
+                             f"({real.flops_by_op}), fake tensors {fake.flops:.6g} "
+                             f"({fake.flops_by_op})")
+    out = dict(batch=b, prompt=p, flops=real.flops, flops_by_op=real.flops_by_op,
+               real_peak_bytes=real.memory["peak_bytes_per_device"],
+               fake_peak_bytes=fake.memory["peak_bytes_per_device"])
+    log(f"  {cfg.name} prefill of {b} x {p} in FlopCounterMode on the card == under fake "
+        f"tensors: {real.flops:.6g} flops exactly "
+        f"({', '.join(f'{k} {v:.6g}' for k, v in real.flops_by_op.items())}); peak card "
+        f"{out['real_peak_bytes'] / 1e9:.3f} GB, fake {out['fake_peak_bytes'] / 1e9:.3f} GB")
+    return out
+
+
+def cov_other(dev, seed):
+    """Group 4: serve_lm for every arch, launch.train's butterfly sync,
+    GPipe on (stage 4, data 2), the (pod, data) gradient syncs, the
+    prefill's flop count."""
+    out = {"serve_lm": cov_serve_lm(dev), "train_cli": cov_train_cli(dev)}
+    with exact_float32():
+        out["gpipe"] = gpipe(dev, seed, data=2)
+    gc.collect()
+    __import__("torch").cuda.empty_cache()
+    out["syncs"] = cov_pod_data_syncs(dev, seed)
+    out["prefill_flops"] = cov_prefill_flops(dev, seed)
+    return out
+
+
+def run_lm_coverage(dev, seed, tmp, groups=LM_GROUPS, phase=log):
+    """``--coverage lm``: ``groups`` of LM_GROUPS in order, each after
+    ``phase``'s line; the graph kernels' counts read around the whole and
+    held at 0 (none of the four is on these paths)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    steps = {"loss": ("0, deepseek-7b's loss: the steps of 3g(b) unsharded, "
+                      "tensor-parallel and with FSDP", lambda: cov_loss(dev, seed)),
+             "fsdp": ("1, FSDP for qwen3-moe, gemma3, kimi-k2, jamba, internvl2 and whisper "
+                      "beside tensor parallelism", lambda: cov_fsdp(dev, seed)),
+             "state": ("2, FSDP state: restart, restore onto data 8, pod x data",
+                       lambda: cov_state(dev, seed, tmp)),
+             "families": ("3, the four families beyond serving: butterfly steps, restarts, "
+                          "jamba's training, split kv heads, the gloo family group",
+                          lambda: cov_families(dev, seed, tmp)),
+             "other": ("4, serve_lm, launch.train's butterfly, GPipe on data 2, the (pod, "
+                       "data) syncs, the prefill's flops", lambda: cov_other(dev, seed))}
+    out = {}
+    build.reset_launches()
+    for name in groups:
+        label, fn = steps[name]
+        phase(f"[coverage lm, group {label}]")
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        log(f"  group {name}: {out[name + '_s']:.1f} s")
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the LM coverage launched graph kernels: {launched}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --coverage graph: the traversals over the mesh, their kernel sites, the
+# per-group syncs and the serving and ops stack
+# ---------------------------------------------------------------------------
+
+# the one-axis run's syncs of each traversal over the mesh; the 32-lane wave
+# and the 4-lane BC wave of phases 11 and 13
+COV_WAVE_SYNCS = ("butterfly", "adaptive")
+COV_PROGRAM_SYNCS = {"pagerank": ("butterfly", "sparse"), "kcore": ("butterfly", "adaptive"),
+                     "tri": ("butterfly", "adaptive")}
+COV_ENGINE_ROOTS = 40
+COV_ENGINE_SSSP = 2
+# the straddle inputs of tests/test_torch_axes_sync.py: active words a rank
+# by pod, the capacity, the adaptive threshold, the words a rank
+COV_STRADDLE = ((3, 40), 16, 0.02, 256)
+COV_STRADDLE_MESH = ((2, 4), ("pod", "data"))
+# the serving stack's runs: (a) one service, traced, metrics on a free port,
+# a swap after COV_SWAP_AFTER requests, mutations recorded; (b) two replicas
+# under the batch faults, a stall (on an op before the first mutation batch:
+# a victim behind the read version is not stalled) past the router's
+# timeout, and a kill
+COV_SWAP_AFTER = 20
+COV_CHAOS = ("kill-one@op=20;stall@op=2:ms=8000;drop-batch@batch=1;dup-batch@batch=2;"
+             "corrupt-batch@batch=3;delay-batch@batch=4:ms=300")
+# the router's timeout, past which the hedge fires (its hard timeout twice
+# it): under the stall, above a scale-20 wave beside mutation batches and a
+# replica's rebuild (at 0.5 s an H100 run failed 13 of 50 requests on the
+# hard timeout, at 2 s 5, with requests of 3.2 s)
+COV_ROUTER_TIMEOUT_S = 5.0
+CONSOLE_ROUTES = ("/debug/requests", "/debug/replicas", "/debug/cache", "/debug/slo",
+                  "/debug/events", "/dashboard", "/metrics", "/healthz")
+# the keys of the reference console's JSON answers (repro.service.console)
+CONSOLE_KEYS = {"/debug/requests": {"available", "inflight", "recent"},
+                "/debug/replicas": {"available", "head_seq", "replicas", "n_serving"},
+                "/debug/cache": {"available"},
+                "/debug/slo": {"available", "objectives", "alerts"},
+                "/debug/events": {"count", "trace_id", "events"},
+                "/healthz": {"status", "replicas"}}
+
+
+class KernelCensus:
+    """Every kernel wrapper's calls inside the block, by path: the launch
+    count of each (name, shapes) site and a copy of its first call's
+    arguments (``sites``), for holding each site against its plain version
+    after the paths have run. ``path`` names the calls that follow."""
+
+    def __init__(self):
+        self.path = None
+        self.sites = {}
+        self._saved = []
+
+    def __enter__(self):
+        from repro_torch.kernels import bitmap_merge, ops
+
+        targets = [(bitmap_merge, "bitmap_or_reduce")]
+        targets += [(ops, n) for n in ("frontier_gather_full", "frontier_gather",
+                                       "frontier_scatter")]
+        for mod, name in targets:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved = []
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            if self.path is not None:
+                shapes = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+                key = (name, self.path, shapes, tuple(sorted(
+                    (k, v) for k, v in kwargs.items() if isinstance(v, (int, bool)))))
+                site = self.sites.get(key)
+                if site is None:
+                    site = self.sites[key] = dict(
+                        launches=0, args=tuple(a.clone() if hasattr(a, "clone") else a
+                                               for a in args), kwargs=dict(kwargs))
+                site["launches"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def cases(self):
+        """One ``check_kernel`` case a site: its first call's arguments,
+        the least bytes it must move."""
+        import torch
+
+        out = []
+        for (name, path, shapes, _), site in self.sites.items():
+            args, kwargs = site["args"], dict(site["kwargs"])
+            case = dict(name=name, cell="kronecker", path=path,
+                        plane="mesh " + " ".join(str(s) for s in shapes), args=args,
+                        kwargs=kwargs, launches=site["launches"])
+            if name == "bitmap_or_reduce":
+                k = args[0].shape[1]
+                case["bytes"] = nbytes(args[0]) // k * (k + 1)
+            elif name == "frontier_gather_full":
+                words, src = args[:2]
+                case["ids_sorted"] = kwargs.pop("ids_sorted", False)
+                case["bytes"] = distinct_word_bytes(src >> 5) + nbytes(src) + src.numel()
+            elif name == "frontier_gather":
+                words, ws, src = args[:3]
+                ww = kwargs["ww"]
+                window = (ws.long() * ww)[..., None] + torch.arange(ww, device=ws.device)
+                case["bytes"] = distinct_word_bytes(window) + nbytes(ws, src) + src.numel()
+            else:
+                active, win, dst = args[:3]
+                case["bytes"] = scatter_least_bytes(active, win, dst, active.shape[0]
+                                                    * kwargs["n_windows"] * kwargs["ww"])
+            out.append(case)
+        return out
+
+
+def axes_pair(label, census, one, hier, compare, must_merge=False):
+    """``one()`` and ``hier()`` (the one-axis and the mesh run of one path)
+    each once with the launch counts set to 0 just before, the mesh run's
+    kernel calls under ``census`` as ``label``: ``compare(one_out,
+    mesh_out)`` must hold, the launches equal, and where ``must_merge``
+    ``bitmap_or_reduce`` launched. Returns ``(mesh out, summary)``."""
+    o1, ms1, l1, _ = timed_run(one)
+    census.path = label
+    try:
+        om, msm, lm, peak = timed_run(hier)
+    finally:
+        census.path = None
+    compare(o1, om)
+    if lm != l1:
+        raise AssertionError(f"{label}: launches {lm} != the one-axis run's {l1}")
+    if must_merge and not lm.get("bitmap_or_reduce"):
+        raise AssertionError(f"{label}: bitmap_or_reduce never launched ({lm})")
+    return om, dict(ms=msm, one_axis_ms=ms1, launches=lm, peak_bytes=peak)
+
+
+def cov_traversals(kron, small, fanout, seed, dev, census):
+    """Group 6: each traversal over the (pod, data) mesh against the
+    one-axis P-rank run of the same roots and sync: the 32-lane MS-BFS wave
+    under butterfly and adaptive, a 4-lane BC wave, PageRank (within
+    PR_SLACK), k-core and triangles at their small scales, the query
+    engine's BFS, SSSP and CC batch, and a streaming repair under the
+    butterfly on a deep copy of the partition. Each traced run's bytes a
+    rank equal the byte model over the axes' sizes at every level; the
+    paths that must merge launch ``bitmap_or_reduce``. Returns the paths'
+    summaries and a function a path to run it once more (the profiles)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import programs
+    from repro_torch.analytics import msbfs
+    from repro_torch.analytics.engine import BFSQueryEngine
+    from repro_torch.core import bfs, collectives, flightrec
+    from repro_torch.graph import csr
+    from repro_torch.traversal import bc, sssp
+
+    g, pg, arrays = kron["g"], kron["pg"], kron["arrays"]
+    mesh = axes_mesh(pg.p)
+    axes, sizes = mesh.axis_names, mesh.sizes
+    paths, reruns = {}, {}
+
+    def equal_outputs(label):
+        def compare(a, b):
+            a, b = a[:3], b[:3]
+            if not (torch.equal(a[0], b[0]) and tuple(a[1:]) == tuple(b[1:])):
+                raise AssertionError(f"{label}: differs from the one-axis run "
+                                     f"({tuple(b[1:])} / {tuple(a[1:])})")
+        return compare
+
+    # the multi-source wave
+    roots = csr.largest_component_roots(g, LANES, np.random.default_rng(seed + 1),
+                                        labels=kron["labels"])
+    for sync in COV_WAVE_SYNCS:
+        label = f"axes wave {sync}"
+        one_cfg = bfs.BFSConfig(fanout=fanout, sync=sync, mode="direction_optimizing")
+        cfg = dataclasses.replace(one_cfg, axes=axes)
+        one = msbfs.build_msbfs_fn(pg, one_cfg, LANES, device=dev)
+        hier = msbfs.build_msbfs_fn(pg, cfg, LANES, device=dev, mesh=mesh)
+        hier(arrays, roots)
+        out, summ = axes_pair(label, census, lambda: one(arrays, roots),
+                              lambda: hier(arrays, roots), equal_outputs(label),
+                              must_merge=sync == "butterfly")
+        n_words = msbfs.wave_rows(pg) * msbfs.lane_words(LANES)
+        ct = collectives.Communicator(mesh, dev)
+        per_level = LevelBytes(ct)
+        traced = msbfs.build_msbfs_fn(pg, cfg, LANES, device=dev, trace=True,
+                                      trace_levels=out[1], mesh=mesh)
+        tout = traced(arrays, roots, ct, level_ms=per_level)
+        if not torch.equal(tout[0], out[0]):
+            raise AssertionError(f"{label}: the traced wave differs")
+        trace = flightrec.TraversalTrace.from_buffer(
+            tout[3], algo="msbfs", sync=sync, p=pg.p, fanout=fanout, n_words=n_words,
+            capacity=cfg.resolved_capacity(n_words), density_threshold=cfg.density_threshold,
+            axis_sizes=sizes)
+        summ.update(levels=out[1], scanned=float(out[2]), lanes=LANES,
+                    bytes_per_rank=level_bytes_check(label, trace, per_level, pg.p, out[1]))
+        paths[label] = summ
+        reruns[label] = lambda fn=hier: fn(arrays, roots)
+        log(f"  {label}: {LANES} lanes == one-axis P={pg.p} ({out[1]} levels, "
+            f"{float(out[2]):.0f} edges); launches {summ['launches']}; bytes a rank "
+            f"{summ['bytes_per_rank']:,} == the model at every level; {summ['ms']:.3f} ms "
+            f"(one axis {summ['one_axis_ms']:.3f})")
+        del out, tout
+        torch.cuda.empty_cache()
+
+    # the BC wave: lane levels exact, the dependency sums within BC's 1e-4
+    label = "axes bc butterfly"
+    bc_roots = csr.largest_component_roots(g, BC_LANES, np.random.default_rng(seed + 3),
+                                           labels=kron["labels"]).tolist()
+    one_cfg = bfs.BFSConfig(fanout=fanout, sync="butterfly", mode="top_down")
+    cfg = dataclasses.replace(one_cfg, axes=axes)
+    one = bc.build_bc_fn(pg, one_cfg, BC_LANES, device=dev)
+    hier = bc.build_bc_fn(pg, cfg, BC_LANES, device=dev, mesh=mesh)
+    lanes1, lanesm = {}, {}
+
+    def bc_compare(a, b):
+        if not (torch.equal(lanes1["levels"], lanesm["levels"]) and a[1:] == b[1:]):
+            raise AssertionError(f"{label}: lane levels or depth differ from the one-axis run")
+        if not torch.allclose(b[0], a[0], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{label}: dependency sums differ from the one-axis run by "
+                                 f"{float((b[0] - a[0]).abs().max())}")
+
+    hier(arrays, bc_roots)
+    out, summ = axes_pair(label, census, lambda: one(arrays, bc_roots, lanes=lanes1),
+                          lambda: hier(arrays, bc_roots, lanes=lanesm), bc_compare,
+                          must_merge=True)
+    n_flat = msbfs.wave_rows(pg) * msbfs.lane_words(BC_LANES)
+    or_comm = collectives.Communicator(mesh, dev)
+    per_level = LevelBytes(or_comm)
+    traced = bc.build_bc_fn(pg, cfg, BC_LANES, device=dev, trace=True, trace_levels=out[1],
+                            mesh=mesh)
+    tout = traced(arrays, bc_roots, or_comm=or_comm, level_ms=per_level)
+    trace = flightrec.TraversalTrace.from_buffer(
+        tout[-1], algo="bc", sync="butterfly", p=pg.p, fanout=fanout, n_words=n_flat,
+        capacity=cfg.resolved_capacity(n_flat), axis_sizes=sizes)
+    summ.update(depth=out[1], scanned=float(out[2]), lanes=BC_LANES,
+                max_abs_diff=float((out[0] - one(arrays, bc_roots)[0]).abs().max()),
+                forward_bytes_per_rank=level_bytes_check(label, trace, per_level, pg.p,
+                                                         out[1]))
+    paths[label], reruns[label] = summ, lambda fn=hier: fn(arrays, bc_roots)
+    log(f"  {label}: {BC_LANES} lanes' levels == one-axis, dependency sums within rtol "
+        f"and atol 1e-4 (max abs diff {summ['max_abs_diff']:.3g}); {out[1]} levels; launches {summ['launches']}; "
+        f"forward OR bytes a rank {summ['forward_bytes_per_rank']:,} == the model at every "
+        f"level; {summ['ms']:.3f} ms (one axis {summ['one_axis_ms']:.3f})")
+    del out, tout, lanes1, lanesm
+    torch.cuda.empty_cache()
+
+    # the vertex programs: PageRank on the Kronecker graph (deterministic
+    # algorithms: its scatter_add), k-core and triangles at their scales
+    for algo, syncs in COV_PROGRAM_SYNCS.items():
+        parts = kron if algo == "pagerank" else small[algo]
+        prog = programs.by_name(algo)
+        for sync in syncs:
+            label = f"axes {algo} {sync}"
+            one_cfg = programs.ProgramConfig(fanout=fanout, sync=sync)
+            cfg = dataclasses.replace(one_cfg, axes=axes)
+            ppg, parr = parts["pg"], parts["arrays"]
+            one = programs.build_program_fn(ppg, prog, one_cfg, device=dev)
+            hier = programs.build_program_fn(ppg, prog, cfg, device=dev, mesh=mesh)
+            arg = prog.default_arg(ppg, dev)
+
+            def compare(a, b, label=label, algo=algo):
+                if algo == "pagerank":
+                    diff = float((a[0] - b[0]).abs().max())
+                    ok = diff <= PR_SLACK
+                else:
+                    ok = all(torch.equal(x, y) for x, y in zip(a[:-2], b[:-2]))
+                if not ok or a[-2:] != b[-2:]:
+                    raise AssertionError(f"{label}: differs from the one-axis run "
+                                         f"(rounds {b[-2]} / {a[-2]})")
+
+            ctx = deterministic() if algo == "pagerank" else contextlib.nullcontext()
+            with ctx:
+                out, summ = axes_pair(label, census, lambda: one(parr, arg),
+                                      lambda: hier(parr, arg), compare,
+                                      must_merge=algo != "pagerank" and sync == "butterfly")
+                n_words = programs.program_msg_words(ppg, prog)
+                ct = collectives.Communicator(mesh, dev)
+                per_level = LevelBytes(ct)
+                traced = programs.build_program_fn(ppg, prog, cfg, device=dev, trace=True,
+                                                   trace_levels=out[-2], mesh=mesh)
+                tout = traced(parr, arg, ct, level_ms=per_level)
+            trace = flightrec.TraversalTrace.from_buffer(
+                tout[-1], algo=algo, sync=sync, p=ppg.p, fanout=fanout, n_words=n_words,
+                capacity=cfg.resolved_capacity(n_words),
+                density_threshold=cfg.density_threshold, axis_sizes=sizes)
+            summ.update(rounds=out[-2], work=float(out[-1]), scale=parts["scale"],
+                        bytes_per_rank=level_bytes_check(label, trace, per_level, ppg.p,
+                                                         out[-2]))
+            if algo == "pagerank":
+                summ["max_abs_diff"] = float((out[0] - timed_run(one, parr, arg)[0][0])
+                                             .abs().max())
+            paths[label] = summ
+            reruns[label] = lambda fn=hier, a=parr, x=arg: fn(a, x)
+            log(f"  {label} (scale {summ['scale']}): == one-axis "
+                f"{'within PR_SLACK' if algo == 'pagerank' else 'bit for bit'}, {out[-2]} "
+                f"rounds; launches {summ['launches']}; bytes a rank {summ['bytes_per_rank']:,} "
+                f"== the model at every round; {summ['ms']:.3f} ms (one axis "
+                f"{summ['one_axis_ms']:.3f})")
+            del out, tout
+            torch.cuda.empty_cache()
+
+    # the query engine: a batch of BFS, SSSP and CC queries
+    label = "axes engine"
+    eroots = csr.largest_component_roots(g, COV_ENGINE_ROOTS, np.random.default_rng(seed + 7),
+                                         labels=kron["labels"]).tolist()
+    ecfg = bfs.BFSConfig(fanout=fanout, sync="butterfly")
+    engines = {}
+
+    def batch(eng):
+        return (eng.query(eroots), eng.sssp(eroots[:COV_ENGINE_SSSP]),
+                eng.vertex_program("cc"))
+
+    def engine_compare(a, b):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{label}: answers differ from the one-axis engine's")
+        if engines["one"].stats != engines["mesh"].stats:
+            raise AssertionError(f"{label}: stats {engines['mesh'].stats} != "
+                                 f"{engines['one'].stats}")
+
+    engines["one"] = BFSQueryEngine(pg, ecfg, lanes=LANES, device=dev)
+    engines["mesh"] = BFSQueryEngine(pg, dataclasses.replace(ecfg, axes=axes), lanes=LANES,
+                                     device=dev, mesh=mesh)
+    _, summ = axes_pair(label, census, lambda: batch(engines["one"]),
+                        lambda: batch(engines["mesh"]), engine_compare, must_merge=True)
+    summ.update(bfs=len(eroots), sssp=COV_ENGINE_SSSP, cc=1,
+                waves=engines["mesh"].stats.waves)
+    paths[label] = summ
+    log(f"  {label}: {len(eroots)} BFS, {COV_ENGINE_SSSP} SSSP and one CC query == the "
+        f"one-axis engine's, stats equal ({summ['waves']} waves); launches "
+        f"{summ['launches']}; {summ['ms']:.1f} ms (one axis {summ['one_axis_ms']:.1f})")
+    del engines
+    torch.cuda.empty_cache()
+
+    paths.update(cov_repair(kron, fanout, seed, dev, census, mesh))
+    return paths, reruns
+
+
+def cov_repair(kron, fanout, seed, dev, census, mesh):
+    """A streaming repair over the mesh: a seeded mixed batch cut to the
+    slack, patched in place on a deep copy of the partition
+    (:func:`mutation_setup`), each cached BFS and SSSP row repaired under
+    the butterfly over ``("pod", "data")`` equal bit for bit to the
+    one-axis repair and to the from-scratch traversal of the mutated copy,
+    the bytes a rank equal to the one-axis run's, a tainted repair
+    launching ``bitmap_or_reduce``."""
+    import numpy as np
+
+    from repro_torch.core import collectives
+    from repro_torch.dynamic import delta, repair
+    from repro_torch.traversal import sssp
+
+    mut = mutation_setup(kron, fanout, seed, dev, REPAIR_ROOTS)
+    pg, eng = mut["pg"], mut["engine"]
+    batch, kept = fitting_batch(mut["overlay"], pg, mut["rng"], MUTATION_INSERTS,
+                                MUTATION_DELETES, WEIGHT)
+    update = mut["overlay"].apply(batch)
+    if not delta.apply_update_to_partition(pg, update):
+        raise AssertionError("axes repair: the in-place patch refused a batch cut to the slack")
+    eng.refresh_arrays()
+    out = {}
+    for r in mut["roots"]:
+        for kind in ("bfs", "sssp"):
+            label = f"axes repair {kind} {r}"
+            want = mut["scratch"][kind](eng._arrays, r)
+            row = mut["rows"][kind, r]
+            comms = {}
+
+            def run(on, cfg):
+                comms[on] = collectives.Communicator(mesh if on == "mesh" else pg.p, dev)
+                return repair.repair_row(pg, row, update, cfg, unit_weight=kind == "bfs",
+                                         arrays=eng._arrays, device=dev, comm=comms[on],
+                                         mesh=mesh if on == "mesh" else None)
+
+            def compare(a, b, kind=kind, r=r):
+                if not (np.array_equal(a[0], b[0]) and np.array_equal(b[0], want)
+                        and a[1:] == b[1:]):
+                    raise AssertionError(f"axes repair: {kind} root {r} differs from the "
+                                         f"one-axis repair or from scratch")
+                if not np.array_equal(comms["mesh"].bytes_sent, comms["one"].bytes_sent):
+                    raise AssertionError(f"axes repair: {kind} root {r}: bytes "
+                                         f"{comms['mesh'].bytes_sent} != one-axis "
+                                         f"{comms['one'].bytes_sent}")
+
+            tainted = repair.repair_seeds(row, update, unit_weight=kind == "bfs")[1].size > 0
+            res, summ = axes_pair(label, census,
+                                  lambda: run("one", sssp.SSSPConfig(fanout=fanout)),
+                                  lambda: run("mesh", sssp.SSSPConfig(fanout=fanout,
+                                                                      axes=mesh.axis_names)),
+                                  compare, must_merge=tainted)
+            summ.update(root=r, iters=res[2], touched=res[1], tainted=tainted,
+                        bytes_per_rank=int(comms["mesh"].bytes_sent[0]))
+            out[label] = summ
+            log(f"  {label}: == one-axis and from scratch; {res[2]} iterations, "
+                f"{res[1]:,} touched, tainted {tainted}; launches {summ['launches']}; "
+                f"{summ['bytes_per_rank']:,} B a rank (== one axis); {summ['ms']:.1f} ms "
+                f"(one axis {summ['one_axis_ms']:.1f})")
+    log(f"  axes repair: {kept} inserts and {MUTATION_DELETES} deletes patched in place")
+    return out
+
+
+def cov_sites(census, paths):
+    """Group 7: every (kernel, shapes) site the mesh paths called, on its
+    first call's arguments, held exactly against the plain version and
+    timed (``check_kernel``), with its launches in its path's run."""
+    rows = []
+    for case in census.cases():
+        launches = case.pop("launches")
+        rec = check_kernel(case)
+        rec["launches"] = launches
+        rows.append(rec)
+        del case["args"]
+    census.sites.clear()
+    return rows
+
+
+def straddle_words(case_counts, n_words, seed, mesh, base=None):
+    """uint32 words as int32 ``[P, n_words]``: each rank ``case_counts[pod]``
+    active words (nonzero, or lowered below ``base``), as
+    ``tests/test_torch_axes_sync.py``'s ``_words``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p, per_pod = mesh.ranks, mesh.ranks // mesh.sizes[0]
+    x = np.zeros((p, n_words), np.uint32) if base is None else np.tile(base, (p, 1))
+    for r in range(p):
+        n = case_counts[r // per_pod % len(case_counts)]
+        ii = rng.choice(n_words, size=n, replace=False)
+        if base is None:
+            x[r, ii] = rng.integers(1, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+        else:
+            x[r, ii] = (base[ii] * rng.random(n)).astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+def cov_straddle(dev, census):
+    """Group 8: the per-group branches. The straddle inputs (one pod's
+    ranks under the capacity, the other's over it) through
+    ``butterfly_or_sparse``/``_adaptive`` and ``butterfly_reduce_sparse``/
+    ``_adaptive`` (MIN against a shared reference, ADD in delta mode) over
+    ``axes=("data",)`` on COV_STRADDLE_MESH at fanouts 2 and 4, on the card
+    against the same calls on CPU tensors: every rank's words and bytes
+    equal, the pods' bytes apart (they took different branches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives as coll, monoid as mono
+    from repro_torch.dist.sharding import SimMesh
+
+    counts, cap, thr, nw = COV_STRADDLE
+    mesh = SimMesh(*COV_STRADDLE_MESH)
+    axes = ("data",)
+    out = {}
+    cpu = torch.device("cpu")
+    for fanout in (2, 4):
+        for kind in ("sparse", "adaptive"):
+            extra = {} if kind == "sparse" else dict(density_threshold=thr)
+            rng = np.random.default_rng(fanout)
+            ref = rng.integers(1 << 20, 2**32, size=nw, dtype=np.uint64).astype(np.uint32)
+            ref_t = torch.from_numpy(ref.view(np.int32))
+            cases = {
+                "or": (straddle_words(counts, nw, fanout * 10 + 1, mesh),
+                       lambda x, c, d: getattr(coll, f"butterfly_or_{kind}")(
+                           x, c, fanout=fanout, capacity=cap, axes=axes, **extra)),
+                "min": (straddle_words(counts, nw, fanout, mesh, base=ref),
+                        lambda x, c, d: getattr(coll, f"butterfly_reduce_{kind}")(
+                            x, c, mono.MIN_U32, fanout=fanout, capacity=cap, axes=axes,
+                            ref=ref_t.to(d), **extra)),
+                "add": (straddle_words(counts, nw, fanout + 1, mesh),
+                        lambda x, c, d: getattr(coll, f"butterfly_reduce_{kind}")(
+                            x, c, mono.ADD_U32, fanout=fanout, capacity=cap, axes=axes,
+                            **extra)),
+            }
+            for op, (x, fn) in cases.items():
+                label = f"straddle {op} {kind} fanout {fanout}"
+                got = {}
+                for d in (dev, cpu):
+                    comm = coll.Communicator(mesh, d)
+                    census.path = label if d == dev else None
+                    try:
+                        got[d.type] = (fn(x.to(d), comm, d).cpu(), comm.bytes_sent.copy())
+                    finally:
+                        census.path = None
+                (a, ba), (b, bb) = got[dev.type], got["cpu"]
+                if not (torch.equal(a, b) and np.array_equal(ba, bb)):
+                    raise AssertionError(f"{label}: the card's words or bytes differ from the "
+                                         f"CPU's ({ba} / {bb})")
+                if len(set(ba.tolist())) < 2:
+                    raise AssertionError(f"{label}: every group took one branch ({ba})")
+                out[label] = dict(bytes_per_rank=ba.tolist())
+    log(f"  the per-group branches over (data,) on {dict(zip(mesh.axis_names, mesh.sizes))}, "
+        f"pods of {counts} active words against capacity {cap}: {len(out)} syncs on the card == "
+        f"the CPU bit for bit, the pods' bytes apart (e.g. "
+        f"{next(iter(out.values()))['bytes_per_rank']})")
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fetch_console(port, want_replicas, deadline_s=120.0):
+    """Each of CONSOLE_ROUTES over HTTP on localhost, once the run serves
+    them: ``{route: (status, body)}``, JSON routes decoded. Returns None if
+    the server never answered before ``deadline_s``."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    t_end = time.monotonic() + deadline_s
+    while time.monotonic() < t_end:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                health = _json.loads(r.read())
+            if len(health.get("replicas", [])) == want_replicas:
+                break
+        except (urllib.error.URLError, OSError, ValueError):
+            pass
+        time.sleep(0.1)
+    else:
+        return None
+    out = {}
+    for route in CONSOLE_ROUTES:
+        try:
+            with urllib.request.urlopen(base + route, timeout=30) as r:
+                status, body, ctype = r.status, r.read().decode(), r.headers.get(
+                    "Content-Type", "")
+        except urllib.error.HTTPError as exc:  # /healthz: 503 once no replica serves
+            status, body, ctype = exc.code, exc.read().decode(), exc.headers.get(
+                "Content-Type", "")
+        out[route] = (status, _json.loads(body) if "json" in ctype else body)
+    return out
+
+
+def run_cli_with_console(argv, port, replicas):
+    """``serve_graph.main(argv)`` in a thread of this process while its
+    console's routes are fetched over HTTP: ``(exit code, routes)``."""
+    from repro_torch.launch import serve_graph
+
+    box = {}
+
+    def target():
+        try:
+            box["rc"] = serve_graph.main(argv)
+        except BaseException as exc:  # noqa: BLE001  (re-raised by the caller)
+            box["exc"] = exc
+
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    routes = fetch_console(port, replicas)
+    th.join()
+    if "exc" in box:
+        raise box["exc"]
+    return box["rc"], routes
+
+
+def check_console(label, routes, replicas):
+    """The console's answers: every route 200 (``/healthz`` 503 where no
+    replica serves), each JSON route's keys those of the reference's
+    console (CONSOLE_KEYS), the replica table's rows, the dashboard's HTML
+    and the Prometheus text."""
+    if routes is None:
+        raise AssertionError(f"{label}: the console never answered")
+    bad = {r: s for r, (s, _) in routes.items()
+           if s != 200 and not (r == "/healthz" and s == 503)}
+    if bad:
+        raise AssertionError(f"{label}: console routes answered {bad}")
+    for route, keys in CONSOLE_KEYS.items():
+        body = routes[route][1]
+        if not isinstance(body, dict) or not keys <= set(body):
+            raise AssertionError(f"{label}: {route} answered keys "
+                                 f"{sorted(body) if isinstance(body, dict) else type(body)}, "
+                                 f"the reference's console has {sorted(keys)}")
+    rows = routes["/debug/replicas"][1]["replicas"]
+    if len(rows) != replicas:
+        raise AssertionError(f"{label}: /debug/replicas has {len(rows)} rows, {replicas} "
+                             f"replicas run")
+    if "<html" not in routes["/dashboard"][1].lower() or "# TYPE" not in routes["/metrics"][1]:
+        raise AssertionError(f"{label}: the dashboard or the metrics text is malformed")
+    return {r: (sorted(b) if isinstance(b, dict) else len(b)) for r, (_, b) in routes.items()}
+
+
+def cov_serving(args, dev, kron, fanout, seed, out_dir):
+    """Group 9: the serving and ops stack at ``args.cli_scale``. (a) one
+    ``serve_graph.main`` traced, with metrics on a free port, a graph swap,
+    mutations recorded; (b) two replicas under COV_CHAOS's batch faults and
+    a stall on the killed replica's op, the router's timeout short; each
+    run's console routes and metrics fetched over HTTP while it serves,
+    its stats' keys the reference's, every event valid. Then the recorded
+    updates replayed by ``launch.bfs_run --updates``; ``fault_exemplar``
+    over (b)'s events (:func:`replayed_exemplar`); BC served by the service
+    on a copy of phase 7's partition against phase 13's wave."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import events
+    from repro_torch.launch import bfs_run
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(ROOT, "tests", "event_schema.json")) as f:
+        schema = _json.load(f)
+    base = ["--scale", str(args.cli_scale), "--edge-factor", str(args.edge_factor),
+            "--ranks", str(args.ranks), "--fanout", str(fanout), "--device", dev.type,
+            "--seed", str(seed), "--qps", str(CLI_QPS), "--duration", str(args.cli_seconds),
+            "--mutate-rate", str(CLI_MUTATE_RATE), "--mutate-edges", str(CLI_MUTATE_EDGES),
+            "--slo-config", os.path.join(ROOT, "examples", "slo_chaos.json")]
+    out = {}
+    runs = {
+        "a": ["--swap-after", str(COV_SWAP_AFTER), "--trace", "trace.json",
+              "--record-updates", "updates.jsonl"],
+        "b": ["--replicas", "2", "--chaos", COV_CHAOS, "--chaos-seed", str(CLI_CHAOS_SEED),
+              "--router-timeout-s", str(COV_ROUTER_TIMEOUT_S), "--trace", "trace.json"],
+    }
+    for name, extra in runs.items():
+        d = os.path.join(out_dir, name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        extra = [os.path.join(d, x) if x.endswith((".json", ".jsonl")) else x for x in extra]
+        port = free_port()
+        argv = base + extra + ["--metrics-port", str(port),
+                               "--events", os.path.join(d, "events.jsonl"),
+                               "--slo-verdict", os.path.join(d, "verdict.json"),
+                               "--stats-json", os.path.join(d, "stats.json")]
+        replicas = 2 if name == "b" else 1
+        log(f"  serve_graph {' '.join(argv)}")
+        t0 = time.perf_counter()
+        rc, routes = run_cli_with_console(argv, port, replicas)
+        wall_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"serve_graph ({name}): exit {rc}")
+        keys = check_console(f"serve_graph ({name})", routes, replicas)
+        with open(os.path.join(d, "stats.json")) as f:
+            doc = _json.load(f)
+        tele = doc["telemetry"]
+        fb = tele["faults"]
+        if set(doc) != STATS_KEYS | ({"trace"} if "trace" in doc else set()) \
+                or set(fb) != FAULT_KEYS:
+            raise AssertionError(f"serve_graph ({name}): stats keys {sorted(doc)}, faults "
+                                 f"{sorted(fb)}")
+        errs = events.validate_events_file(os.path.join(d, "events.jsonl"), schema)
+        with open(os.path.join(d, "events.jsonl")) as f:
+            evs = [_json.loads(line) for line in f if line.strip()]
+        if errs or not evs:
+            raise AssertionError(f"serve_graph ({name}): {len(evs)} events, violations "
+                                 f"{errs[:5]}")
+        if tele["failed"] or tele["completed"] != tele["submitted"]:
+            raise AssertionError(f"serve_graph ({name}): {tele['failed']} failed of "
+                                 f"{tele['submitted']}, {tele['completed']} completed")
+        rec = dict(wall_s=wall_s, submitted=tele["submitted"], completed=tele["completed"],
+                   failed=tele["failed"], p50_ms=tele["latency_ms"]["p50"],
+                   p99_ms=tele["latency_ms"]["p99"], faults=fb, events=len(evs),
+                   console=keys)
+        if name == "a":
+            for f_name in ("trace.json", "updates.jsonl"):
+                if not os.path.getsize(os.path.join(d, f_name)):
+                    raise AssertionError(f"serve_graph (a): {f_name} is empty")
+            with open(os.path.join(d, "trace.json")) as f:
+                rec["trace_events"] = len(_json.load(f)["traceEvents"])
+        else:
+            want = {"kill-replica", "stall-wave", "drop-batch", "dup-batch", "corrupt-batch",
+                    "delay-batch"}
+            missing = {k for k in want if not fb["injected"].get(k)}
+            if missing or not fb["hedges"] or not fb["recoveries"]:
+                raise AssertionError(f"serve_graph (b): faults {fb} (not injected: {missing})")
+            rec["exemplar"] = replayed_exemplar(evs)
+
+        out[name] = rec
+        log(f"  serve_graph ({name}): {tele['completed']}/{tele['submitted']} completed, "
+            f"{tele['failed']} failed; p50 {rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} ms; "
+            f"faults {json.dumps({k: v for k, v in fb.items() if v})}; {len(evs)} events "
+            f"valid; console {len(routes)} routes 200 over HTTP; {wall_s:.1f} s")
+    lines = cli_lines(bfs_run.main, [
+        "--scale", str(args.cli_scale), "--edge-factor", str(args.edge_factor), "--ranks",
+        str(args.ranks), "--fanout", str(fanout), "--seed", str(seed), "--roots", "2",
+        "--device", dev.type, "--updates", os.path.join(out_dir, "a", "updates.jsonl")])
+    replay = [ln for ln in lines if ln.startswith("replayed updates")]
+    if not replay:
+        raise AssertionError(f"bfs_run --updates: no replay line in {lines[-5:]}")
+    out["replay"] = replay[0]
+    log(f"  bfs_run --updates on the card: {replay[0]}")
+    out["bc"] = cov_service_bc(kron, fanout, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def replayed_exemplar(evs):
+    """``serve_graph.fault_exemplar`` over run (b)'s event log (its events
+    emitted again into a log of their own): the pick is the trace of the
+    newest event an injection stamped (``kill-replica`` or
+    ``stall-wave``), the stalled request's trace holds the hedge, and the
+    log held a stall."""
+    from repro_torch.core.events import EventLog
+    from repro_torch.launch import serve_graph
+
+    log_ = EventLog(capacity=len(evs) + 1)
+    for e in evs:
+        log_.emit(e["kind"], e["name"], subsystem=e.get("subsystem", ""),
+                  trace_id=e.get("trace_id", ""), args=e.get("args"))
+    pick = serve_graph.fault_exemplar(log_)()
+    stamped = [e for e in evs if e["kind"] == "chaos" and e["trace_id"]
+               and e["name"] in ("kill-replica", "stall-wave")]
+    stalls = [e["trace_id"] for e in stamped if e["name"] == "stall-wave"]
+    hedged = {e["trace_id"] for e in evs if e["kind"] == "retry" and e["name"] == "hedge"}
+    if not stalls or pick is None or pick["trace_id"] != stamped[-1]["trace_id"]:
+        raise AssertionError(f"fault_exemplar: {pick} under stalls {stalls}, the newest "
+                             f"injection {stamped[-1:]}")
+    if not set(stalls) & hedged:
+        raise AssertionError(f"fault_exemplar: no stalled request was hedged ({stalls}, "
+                             f"hedged {sorted(hedged)})")
+    log(f"  fault_exemplar over run (b)'s {len(evs)} events: {pick['source']} "
+        f"{pick['trace_id']} (the newest injection's trace); the stalled request "
+        f"{stalls[0]} holds its hedge")
+    return pick
+
+
+def cov_service_bc(kron, fanout, seed, dev):
+    """``bc`` requests for phase 13's BC_LANES roots through
+    ``GraphQueryService`` (one lane a wave) on a deep copy of the Kronecker
+    partition: the answers' sum within BC's 1e-4 of phase 13's wave on the
+    same roots."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import bfs
+    from repro_torch.graph import csr
+    from repro_torch.service import GraphQueryService
+    from repro_torch.traversal import bc
+
+    g, pg = kron["g"], kron["pg"]
+    roots = csr.largest_component_roots(g, BC_LANES, np.random.default_rng(seed + 3),
+                                        labels=kron["labels"]).tolist()
+    cfg = bfs.BFSConfig(fanout=fanout, sync="butterfly", mode="top_down")
+    wave = bc.build_bc_fn(pg, cfg, BC_LANES, device=dev)(kron["arrays"], roots)
+    want = bc.assemble_bc(pg, wave[0].cpu())
+    del wave
+    # one lane a wave: a 4-lane wave at scale 23 peaks at 60.5 GB, beside the
+    # service's own placement of the copy
+    svc = GraphQueryService(copy.deepcopy(pg), dev, cfg, lanes=1, n_real=g.n_real)
+    try:
+        t0 = time.perf_counter()
+        got = sum(np.asarray(f.result(timeout=600), np.float64)
+                  for f in [svc.submit("bc", r) for r in roots])
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        svc.stop()
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"service bc: differs from phase 13's wave by "
+                             f"{np.abs(got - want).max()}")
+    log(f"  service bc: {len(roots)} requests' sum == phase 13's {BC_LANES}-lane wave within "
+        f"rtol and atol 1e-4 (max abs diff {np.abs(got - want).max():.3g}); {ms:.1f} ms")
+    return dict(roots=roots, ms=ms, max_abs_diff=float(np.abs(got - want).max()))
+
+
+def run_graph_coverage(args, dev, phase, out_dir):
+    """``--coverage graph``: phase 2's build, phase 7's Kronecker partition
+    on (pod, data), then groups 6-9 in order; a profile of each mesh path
+    for its merges' in-run ms."""
+    import torch
+
+    from repro_torch.graph import generators
+    from repro_torch.kernels import build
+
+    phase("[coverage graph] build and ETL")
+    if dev.type == "cuda":  # a rehearsal on the CPU takes the plain routes
+        t0 = time.perf_counter()
+        lib = build.build()
+        build.library()
+        log(f"  built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    kron = etl(f"kronecker scale {args.scale} EF {args.edge_factor}, weights 1..{WEIGHT}",
+               lambda: generators.kronecker(args.scale, args.edge_factor, seed=args.seed,
+                                            max_weight=WEIGHT),
+               args.ranks, dev, "direction_optimizing")
+    kron["scale"] = args.scale
+    small = {}
+    for what, scale in (("kcore", args.kcore_scale), ("tri", args.tri_scale)):
+        small[what] = etl(f"kronecker scale {scale} EF {args.edge_factor} ({what})",
+                          lambda scale=scale: generators.kronecker(
+                              scale, args.edge_factor, seed=args.seed),
+                          args.ranks, dev, "top_down")
+        small[what]["scale"] = scale
+    out = {}
+    with KernelCensus() as census:
+        phase(f"[coverage graph, group 6] traversals over pod {args.ranks // AXES_POD_SIZE} x "
+              f"data {AXES_POD_SIZE} against the one-axis P={args.ranks} runs")
+        out["paths"], reruns = cov_traversals(kron, small, args.fanout, args.seed, dev, census)
+        phase("[coverage graph, group 8] the per-group branches (straddle inputs)")
+        out["straddle"] = cov_straddle(dev, census)
+    phase("[coverage graph, group 7] every kernel site of groups 6 and 8, exact and timed")
+    out["sites"] = cov_sites(census, out["paths"])
+    for label, run in reruns.items():
+        torch.cuda.empty_cache()
+        out["paths"][label]["profile"] = merge_profile(label, run)
+    site_rows = cov_site_table(out["sites"], out["paths"])
+    del reruns
+    torch.cuda.empty_cache()
+    phase(f"[coverage graph, group 9] the serving and ops stack at scale {args.cli_scale}")
+    out["serving"] = cov_serving(args, dev, kron, args.fanout, args.seed,
+                                 os.path.join(args.cli_out, "coverage"))
+    return out, site_rows
+
+
+def cov_site_table(rows, paths):
+    """Each site's launches in its path's run, isolated ms, in-run ms a
+    launch (its path's profile, where the path has one and the profiler
+    saw every launch: the mean over the path's merges), bound and gap a
+    run; logged."""
+    log("  site (path): launches a run | isolated ms | in-run ms a launch | bound ms (MB) | "
+        "gap ms a run")
+    for rec in rows:
+        prof = paths.get(rec["path"], {}).get("profile") or {}
+        per = prof.get("ms_per_launch") if rec["name"] == "bitmap_or_reduce" else None
+        rec["run_ms_per_launch"] = per
+        rec["gap_ms"] = None if per is None else (per - rec["bound_ms"]) * rec["launches"]
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
+        per_s = "not measured" if per is None else f"{per:.4f}"
+        gap_s = "not measured" if per is None else f"{rec['gap_ms']:.3f}"
+        log(f"    {rec['name']} @{rec['plane']} ({rec['path']}): {rec['launches']} | "
+            f"{rec['ms']:.4f} | {per_s} | {rec['bound_ms']:.4f} ({rec['bytes'] / 1e6:.2f}) | "
+            f"{gap_s}")
+    return rows
+
+
+def run_coverage(args, dev, card, phase, t_start, tmp) -> int:
+    """``--coverage lm`` or ``--coverage graph``: its groups, the peak, the
+    results (``--out``), the kernel sites' line (graph) and the ``ok``
+    line."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    sites = []
+    if args.coverage == "lm":
+        out = run_lm_coverage(dev, args.seed, tmp, tuple(args.groups.split(",")), phase)
+    else:
+        out, sites = run_graph_coverage(args, dev, phase, args.cli_out)
+    out["total_s"] = time.perf_counter() - t_start
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
+        f"{out['total_s']:.0f} s")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                           coverage=args.coverage, results=out, args=vars(args)), f,
+                      indent=1, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                      else float(x))
+    if sites:
+        print(json.dumps({"sites": sites}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5825,8 +7375,19 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-card", action="store_true",
                     help="on a machine with several cards: run the card line, phase "
                          "3c(d) over nccl with one rank on each card, and launch.train "
-                         "under torchrun with nccl, alone")
+                         "under torchrun with nccl, alone (with --coverage lm: the four "
+                         "families' serving over nccl alone)")
+    ap.add_argument("--coverage", choices=("lm", "graph"), default=None,
+                    help="run the card line and the paths the default run leaves out: "
+                         "the LM side's (lm) or the traversals over the mesh, their kernel "
+                         "sites, the per-group syncs and the serving stack (graph)")
+    ap.add_argument("--groups", default=",".join(LM_GROUPS),
+                    help=f"--coverage lm's groups to run, in order (of {','.join(LM_GROUPS)})")
     args = ap.parse_args(argv)
+    if args.coverage == "lm" and not set(args.groups.split(",")) <= set(LM_GROUPS):
+        ap.error(f"--groups: choose from {','.join(LM_GROUPS)}")
+    if args.coverage == "lm":  # its models fill the card in blocks of many sizes
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", CHILD_ALLOC_CONF)
 
     import numpy as np
     import torch
@@ -5864,6 +7425,8 @@ def run_phases(args, dev, card, phase, t_start, ck_tmp) -> int:
     ck = os.path.join(ck_tmp, "ck")
     if args.multi_card:
         return run_multi_card(args, dev, card, phase, t_start)
+    if args.coverage:
+        return run_coverage(args, dev, card, phase, t_start, ck_tmp)
     if args.lm_only or args.train_only:
         lm_out = {}
         if args.lm_only:

@@ -6,7 +6,10 @@ The port of ``examples/serve_lm.py``, every flag kept: the reduced config
 of ``--arch``, seeded weights, ``--batch`` random prompts of
 ``--prompt-len`` tokens (seeded patches or frames for the VLM and whisper),
 ``--new`` tokens greedy (``--temperature 0``) or sampled. ``--device``
-picks the device (the card unless ``--device cpu``).
+picks the device (the card unless ``--device cpu``). The weights are drawn
+on the CPU and carried to the device (:func:`seeded_model`), so a command
+serves the same model, and greedy decoding gives the same tokens, on every
+device, as the reference's ``jax.random`` weights do.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def main(argv=None) -> int:
     from repro_torch.serve import engine
 
     cfg = configs.reduced(configs.get_config(args.arch))
-    model = api.init_params(cfg, 0, device=args.device)
+    model = seeded_model(cfg, args.device)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
                               dtype=torch.int32)
@@ -58,5 +61,15 @@ def main(argv=None) -> int:
     return 0
 
 
+def seeded_model(cfg, device, seed: int = 0):
+    """``cfg``'s seeded weights drawn on the CPU (a device's own generator
+    draws other numbers for the same seed) and carried to ``device``."""
+    from repro_torch.models import api
+
+    return api.from_reference(cfg, api.to_reference(api.init_params(cfg, seed, device="cpu")),
+                              device=device)
+
+
 if __name__ == "__main__":
     raise SystemExit(main())
+

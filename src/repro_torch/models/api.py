@@ -293,7 +293,20 @@ def to_reference(model: nn.Module) -> Dict:
     stacked: Dict = {}
     for path, lead, prms in param_leaves(model):
         shd.tree_set(stacked, path, stack_leaf(lead, prms))
-    return shd.tree_map(to_numpy, global_leaves(model, stacked))
+    out = shd.tree_map(to_numpy, global_leaves(model, stacked))
+    for path, pd in empty_leaves(model):
+        shd.tree_set(out, path, to_numpy(torch.zeros(
+            pd.shape, dtype=shd.resolve_dtype(pd, model.cfg.param_dtype))))
+    return out
+
+
+def empty_leaves(model: nn.Module) -> List[Tuple[Tuple[str, ...], PD]]:
+    """(path, PD) of each leaf of the reference's tree that holds no
+    element and so no parameter of ``model``: a layer group of length 0,
+    as gemma3's ``periods`` below one period's depth."""
+    index = _param_index(model)
+    return [(path, pd) for path, pd in shd.tree_leaves_with_path(param_defs(model.cfg))
+            if path not in index and 0 in pd.shape]
 
 
 def _load(model: nn.Module, leaves) -> nn.Module:
@@ -305,6 +318,8 @@ def _load(model: nn.Module, leaves) -> nn.Module:
     seen = set()
     for path, full in leaves:
         key = "/".join(path)
+        if path not in index and 0 in tuple(full.shape):
+            continue  # a layer group of length 0 (empty_leaves)
         if path not in index:
             raise ValueError(f"parameter tree has leaf {key!r}, which the "
                              f"{name} model does not")
