@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import collectives, flightrec
 from repro_torch.core import frontier as fr
 from repro_torch.core import loop
+from repro_torch.core.tracing import span
 from repro_torch.dist.sharding import SimMesh
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.partition import PartitionedGraph
@@ -241,10 +242,11 @@ def place_arrays(pg: PartitionedGraph, layout: Optional[blocks.BFSKernelLayout] 
     a weighted partition's ``edge_weight``/``in_weight`` come as int32
     tensors holding the uint32 weights' bit patterns."""
     dev = resolve_device(device)
-    planes = dict(pg.arrays())
-    if layout is not None:
-        planes.update(layout.arrays)
-    return _place(planes, dev)
+    with span("etl.place_arrays"):
+        planes = dict(pg.arrays())
+        if layout is not None:
+            planes.update(layout.arrays)
+        return _place(planes, dev)
 
 
 def place_layout(layout: blocks.BFSKernelLayout, *, device="cuda") -> Dict[str, torch.Tensor]:
@@ -295,6 +297,11 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
     :class:`~repro_torch.core.collectives.Communicator`) collects the
     merge's bytes per rank; a list ``level_ms`` takes each level's wall
     time in ms, the clock stopping after the device has finished the level.
+    Each call is a ``bfs.search`` span (args ``root``, ``levels``) holding
+    a ``loop.level`` span a level, and in it the level's phases:
+    ``bfs.expand`` (arg ``pull``), ``bfs.edge_counts``, ``bfs.sync``,
+    ``bfs.update`` and ``bfs.readback``, the host's wait for the level's
+    counts (a last ``bfs.readback`` reads ``scanned``).
 
     ``trace=True`` appends the flight-recorder buffer
     ``int32[trace_levels, TRACE_COLS]`` (:mod:`.flightrec`) to the output:
@@ -321,8 +328,7 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
         """bool[P, vmax]: each rank's bits of its owned vertex range."""
         return fr.unpack(torch.gather(words, 1, word_cols))[:, :vmax]
 
-    def run(arrays, root: int, comm: Optional[collectives.Communicator] = None, *,
-            level_ms: Optional[list] = None):
+    def traverse(arrays, root, comm, level_ms):
         root = int(root)
         if not 0 <= root < pg.n:
             raise ValueError(f"root {root} outside [0, {pg.n})")
@@ -338,23 +344,29 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
 
         def step(s: _State):
             # -- Phase 1: traversal
-            if s.pull:
-                gq = _expand_pull(arrays, s.frontier, s.visited, n_words,
-                                  cfg.use_kernels, meta)
-            else:
-                gq = _expand_push(arrays, s.frontier, n_words, cfg.use_kernels, meta)
+            with span("bfs.expand", pull=s.pull):
+                if s.pull:
+                    gq = _expand_pull(arrays, s.frontier, s.visited, n_words,
+                                      cfg.use_kernels, meta)
+                else:
+                    gq = _expand_push(arrays, s.frontier, n_words, cfg.use_kernels, meta)
             # edges examined this level (honest TEPS accounting)
-            m_f = (deg_out * (own(s.frontier) & owned)).sum(1)
-            m_u = (deg_out * (~own(s.visited) & owned)).sum(1)
+            with span("bfs.edge_counts"):
+                m_f = (deg_out * (own(s.frontier) & owned)).sum(1)
+                m_u = (deg_out * (~own(s.visited) & owned)).sum(1)
             # -- Phase 2: frontier synchronization
-            if trace:
-                stats = flightrec.or_sync_stats(gq, cfg)
-            new = _sync_frontier(gq, cfg, comm) & ~s.visited
-            visited = s.visited | new
-            d_owned = s.d_owned.masked_fill_(own(new) & owned, s.level + 1)
-            scanned = s.scanned + (m_u if s.pull else m_f).to(torch.float32)
-            n_new, g_mf, g_mu = torch.stack(
-                [fr.popcount(new[0]), m_f.sum(), m_u.sum()]).tolist()
+            with span("bfs.sync"):
+                if trace:
+                    stats = flightrec.or_sync_stats(gq, cfg)
+                merged = _sync_frontier(gq, cfg, comm)
+            with span("bfs.update"):
+                new = merged & ~s.visited
+                visited = s.visited | new
+                d_owned = s.d_owned.masked_fill_(own(new) & owned, s.level + 1)
+                scanned = s.scanned + (m_u if s.pull else m_f).to(torch.float32)
+                counts = torch.stack([fr.popcount(new[0]), m_f.sum(), m_u.sum()])
+            with span("bfs.readback"):
+                n_new, g_mf, g_mu = counts.tolist()
             # -- Direction-optimizing switch (Beamer alpha/beta), in
             # float32 as the reference compares
             pull = s.pull
@@ -376,8 +388,17 @@ def build_bfs_fn(pg: PartitionedGraph, cfg: BFSConfig,
         tbuf = flightrec.zeros(t_levels, dev) if trace else None
         s = loop.host_while(cond, step, init, trace_buffer=tbuf, level_ms=level_ms,
                             sync=device_sync(dev))
-        out = (s.d_owned, s.level, float(s.scanned.sum()))
+        with span("bfs.readback"):
+            out = (s.d_owned, s.level, float(s.scanned.sum()))
         return out + (tbuf,) if trace else out
+
+    def run(arrays, root: int, comm: Optional[collectives.Communicator] = None, *,
+            level_ms: Optional[list] = None):
+        with span("bfs.search", root=int(root)) as sp:
+            out = traverse(arrays, root, comm, level_ms)
+            if sp is not None:
+                sp.args["levels"] = out[1]
+        return out
 
     return run
 

@@ -41,7 +41,8 @@ wire bit-cast to int32 words, never converted.
 
 Where the reference picks a branch on the device (``lax.cond``), the port
 reads the deciding counts on the host: one read per call of the sparse
-(overflow guard) and adaptive syncs, none for the dense ones.
+(overflow guard) and adaptive syncs, none for the dense ones; each read is
+a ``sync.readback`` span (:mod:`repro_torch.core.tracing`).
 
 **Axes.** A :class:`Communicator` carries a
 :class:`~repro_torch.dist.sharding.SimMesh` (one ``data`` axis of P ranks
@@ -81,6 +82,7 @@ from repro_torch.core import butterfly
 from repro_torch.core import frontier as fr
 from repro_torch.core import monoid as mono
 from repro_torch.core.monoid import Monoid
+from repro_torch.core.tracing import span
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import SimMesh
 from repro_torch.kernels import bitmap_merge, ref as kref
@@ -225,15 +227,19 @@ class Communicator:
     def group_max(self, counts: Sequence[torch.Tensor], axes: Axes = None) -> np.ndarray:
         """int64[K, R]: each of the ``K`` per-rank statistics ``counts[k][R]``
         maxed over each rank's group over ``axes`` (the reference's
-        ``pmax`` over the axes), read on the host in one transfer."""
+        ``pmax`` over the axes), read on the host in one transfer (a
+        ``sync.readback`` span)."""
         stack = torch.stack([c.to(torch.int64) for c in counts])
         gid = self.group_ids(axes)
         n = int(gid.max()) + 1
         if n == 1:
-            return stack.amax(1, keepdim=True).cpu().numpy()[:, gid]
-        idx = torch.as_tensor(gid, device=stack.device).expand_as(stack)
-        gmax = stack.new_full((stack.shape[0], n), torch.iinfo(torch.int64).min)
-        return gmax.scatter_reduce_(1, idx, stack, "amax").cpu().numpy()[:, gid]
+            gmax = stack.amax(1, keepdim=True)
+        else:
+            idx = torch.as_tensor(gid, device=stack.device).expand_as(stack)
+            gmax = stack.new_full((stack.shape[0], n), torch.iinfo(torch.int64).min)
+            gmax = gmax.scatter_reduce_(1, idx, stack, "amax")
+        with span("sync.readback"):
+            return gmax.cpu().numpy()[:, gid]
 
     def rings(self, axes: Axes = None) -> List[Tuple[Tuple[int, ...], int]]:
         """``(perm, n)`` for each axis of ``axes``: the ``+1`` ring shift

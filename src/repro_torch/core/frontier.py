@@ -19,6 +19,12 @@ lacks ``>>``, ``~``, ``nonzero`` and scatter reductions for ``uint32``.
 bits are used, and no word is compared or reduced as a signed number — the
 reference's "scatter-max == scatter-OR" shortcut breaks on a word whose
 bit 31 is set, so it has no counterpart here.
+
+:func:`pack` and :func:`unpack` copy a small table of constants from the
+host to the words' device on each call.  On a card PyTorch ends that copy
+by synchronising the stream, so the host waits there for the work queued
+before it: the copy runs in a ``frontier.upload`` span
+(:mod:`repro_torch.core.tracing`), where the host's waits are counted.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import monoid
+from repro_torch.core.tracing import span
 from repro_torch.graph.csr import WORD_BITS
 
 __all__ = ["WORD_BITS", "pack", "unpack", "lane_pack", "lane_unpack", "get_bits",
@@ -35,9 +42,14 @@ __all__ = ["WORD_BITS", "pack", "unpack", "lane_pack", "lane_unpack", "get_bits"
 _BYTE_SHIFTS = (0, 1, 2, 3, 4, 5, 6, 7)
 
 
+def _upload(values, device) -> torch.Tensor:
+    """uint8 ``values`` copied to ``device`` (a wait on a card)."""
+    with span("frontier.upload"):
+        return torch.tensor(values, dtype=torch.uint8, device=device)
+
+
 def _byte_weights(device) -> torch.Tensor:
-    return torch.tensor([1 << s for s in _BYTE_SHIFTS], dtype=torch.uint8,
-                        device=device)
+    return _upload([1 << s for s in _BYTE_SHIFTS], device)
 
 
 def pack(bits: torch.Tensor) -> torch.Tensor:
@@ -56,7 +68,7 @@ def pack(bits: torch.Tensor) -> torch.Tensor:
 def unpack(words: torch.Tensor) -> torch.Tensor:
     """int32[..., w] -> bool[..., w*32]: inverse of :func:`pack`."""
     octets = words.contiguous().view(torch.uint8)
-    shifts = torch.tensor(_BYTE_SHIFTS, dtype=torch.uint8, device=words.device)
+    shifts = _upload(_BYTE_SHIFTS, words.device)
     bits = (octets.unsqueeze(-1) >> shifts) & 1
     return bits.reshape(*words.shape[:-1], words.shape[-1] * WORD_BITS).bool()
 

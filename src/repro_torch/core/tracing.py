@@ -35,16 +35,33 @@ Event model (deliberately smaller than OpenTelemetry):
 * every recorded event additionally carries a ``span_id`` — an 8-hex id
   unique within the tracer — so two same-named events on one trace (the
   original attempt and its hedged retry, say) stay distinguishable after
-  export (``args["span_id"]``).
+  export (``args["span_id"]``);
+* a span opened as a context (:meth:`Tracer.span`, :func:`span`) also
+  carries ``parent_id``, the ``span_id`` of the innermost span of the same
+  tracer open on the same thread when it opened (omitted at the top), so
+  each name's self time can be read (:func:`span_times`).
+
+**Spans inside the program.**  :func:`recording` sets a process-wide
+current tracer (:data:`NULL_TRACER` otherwise) and :func:`span` opens a
+span on it without the call site holding a tracer.  While a
+``torch.profiler`` session records, :func:`span` also opens a
+``record_function`` range of the same name on the calling thread, tracer
+or not, so the program's spans sit in the device trace on the profiler's
+own clock beside the device operations they launched.  torch is looked up
+in ``sys.modules`` and never imported here.  Off (no tracer, no profiler),
+:func:`span` reads the current tracer, asks torch whether a profiler
+records, and returns a shared null context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import sys
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 #: schema tag stamped on every exported trace document
 CHROME_SCHEMA = "request_trace/v1"
@@ -52,19 +69,23 @@ CHROME_SCHEMA = "request_trace/v1"
 
 class _SpanHandle:
     """Mutable handle yielded by :meth:`Tracer.span`: mutate ``.args``
-    inside the ``with`` block and the final dict lands on the event."""
+    inside the ``with`` block and the final dict lands on the event;
+    ``t0`` and ``t1`` are the span's two clock points (tracer-clock
+    seconds), ``t1`` set when the block exits."""
 
-    __slots__ = ("args",)
+    __slots__ = ("args", "t0", "t1")
 
     def __init__(self, args: Dict[str, Any]):
         self.args = args
 
 
 class _OpenSpan:
-    """Context manager measuring one span's wall interval."""
+    """Context manager measuring one span's wall interval.  On a recording
+    tracer it takes its ``span_id`` and ``parent_id`` when it opens; on
+    :data:`NULL_TRACER` it only reads the clock (:func:`clocked`)."""
 
     __slots__ = ("_tracer", "_name", "_track", "_cat", "_trace_id",
-                 "_handle", "_t0")
+                 "_handle", "_ids")
 
     def __init__(self, tracer, name, track, cat, trace_id, args):
         self._tracer = tracer
@@ -75,15 +96,22 @@ class _OpenSpan:
         self._handle = _SpanHandle(dict(args or {}))
 
     def __enter__(self) -> _SpanHandle:
-        self._t0 = self._tracer.now()
+        if self._tracer.enabled:
+            self._ids = self._tracer._open()
+        self._handle.t0 = self._tracer.now()
         return self._handle
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        t1 = self._handle.t1 = self._tracer.now()
+        if not self._tracer.enabled:
+            return
+        self._tracer._close()
         if exc_type is not None:
             self._handle.args.setdefault("error", exc_type.__name__)
         self._tracer.add_span(
-            self._name, self._t0, self._tracer.now(), track=self._track,
+            self._name, self._handle.t0, t1, track=self._track,
             cat=self._cat, trace_id=self._trace_id, args=self._handle.args,
+            ids=self._ids,
         )
 
 
@@ -96,6 +124,7 @@ class Tracer:
         self._events: List[Dict[str, Any]] = []
         self._t0 = clock()
         self._next_span = 0  # span_id allocator (8-hex, unique per tracer)
+        self._local = threading.local()  # each thread's open context spans
 
     enabled = True
 
@@ -118,6 +147,21 @@ class Tracer:
         self._next_span += 1
         return f"{self._next_span:08x}"
 
+    def _open(self):
+        """A context span opens: its ``(span_id, parent_id)``, the parent
+        the innermost span open on this thread ("" at the top)."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        with self._lock:
+            span_id = self._new_span_id()
+        ids = (span_id, stack[-1] if stack else "")
+        stack.append(span_id)
+        return ids
+
+    def _close(self) -> None:
+        self._local.stack.pop()
+
     # --- recording --------------------------------------------------------
 
     def add_span(
@@ -130,8 +174,11 @@ class Tracer:
         cat: str = "",
         trace_id: str = "",
         args: Optional[Dict[str, Any]] = None,
+        ids: Optional[tuple] = None,
     ) -> None:
-        """Record a completed ``[t0, t1]`` interval (tracer-clock seconds)."""
+        """Record a completed ``[t0, t1]`` interval (tracer-clock seconds);
+        ``ids`` is the ``(span_id, parent_id)`` a context span took when it
+        opened."""
         ev = {
             "kind": "span",
             "name": name,
@@ -142,8 +189,13 @@ class Tracer:
             "trace_id": trace_id,
             "args": dict(args or {}),
         }
+        if ids is not None:
+            ev["span_id"] = ids[0]
+            if ids[1]:
+                ev["parent_id"] = ids[1]
         with self._lock:
-            ev["span_id"] = self._new_span_id()
+            if ids is None:
+                ev["span_id"] = self._new_span_id()
             self._events.append(ev)
 
     def span(
@@ -216,6 +268,8 @@ class Tracer:
                 args["trace_id"] = ev["trace_id"]
             if ev.get("span_id"):
                 args["span_id"] = ev["span_id"]
+            if ev.get("parent_id"):
+                args["parent_id"] = ev["parent_id"]
             rec = {
                 "name": ev["name"],
                 "cat": ev["cat"] or "serve",
@@ -307,6 +361,104 @@ NULL_TRACER = _NullTracer()
 
 
 # ---------------------------------------------------------------------------
+# Spans inside the program: the process-wide current tracer
+# ---------------------------------------------------------------------------
+
+_current = NULL_TRACER
+
+
+class _Off:
+    """The shared context of a span nothing records: yields ``None``."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class _Mirrored:
+    """A span inside a ``torch.profiler.record_function`` range of its
+    name; yields the span's handle."""
+
+    __slots__ = ("_inner", "_range")
+
+    def __init__(self, inner, name: str):
+        self._inner = inner
+        self._range = sys.modules["torch"].profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        try:
+            self._inner.__exit__(*exc)
+        finally:
+            self._range.__exit__(*exc)
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session records in this process."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+@contextlib.contextmanager
+def recording(tracer):
+    """``with recording(Tracer()) as tr: ...``: inside the block
+    :func:`span` records on ``tracer`` (the process-wide current tracer,
+    restored on exit)."""
+    global _current
+    before, _current = _current, tracer
+    try:
+        yield tracer
+    finally:
+        _current = before
+
+
+def span(name: str, **args):
+    """``with span("bfs.expand", pull=True): ...``: a span on the current
+    tracer, ``args`` its arguments, and a profiler range of ``name`` while
+    a ``torch.profiler`` session records.  Yields the span's handle when
+    a tracer records it, ``None`` otherwise."""
+    tracer = _current
+    inner = tracer.span(name, args=args) if tracer.enabled else _OFF
+    return _Mirrored(inner, name) if _profiling() else inner
+
+
+def clocked(name: str, **args):
+    """:func:`span` whose handle is always yielded with its two clock
+    points (``t0``, ``t1``), for a caller that times the block whether a
+    tracer records or not."""
+    inner = _OpenSpan(_current, name, "main", "", "", args)
+    return _Mirrored(inner, name) if _profiling() else inner
+
+
+def span_times(events: Iterable[Dict[str, Any]]) -> Dict[str, Dict[str, float]]:
+    """Each span name's ``count``, ``total_s`` (the spans' durations
+    summed) and ``self_s`` (each span's duration less the part its
+    children cover: the spans whose ``parent_id`` is its ``span_id``)."""
+    spans = [ev for ev in events if ev["kind"] == "span"]
+    covered: Dict[str, int] = {}
+    for ev in spans:
+        if ev.get("parent_id"):
+            covered[ev["parent_id"]] = covered.get(ev["parent_id"], 0) + ev["dur_us"]
+    out: Dict[str, Dict[str, float]] = {}
+    for ev in spans:
+        row = out.setdefault(ev["name"], {"count": 0, "total_s": 0.0, "self_s": 0.0})
+        row["count"] += 1
+        row["total_s"] += ev["dur_us"] / 1e6
+        row["self_s"] += max(ev["dur_us"] - covered.get(ev["span_id"], 0), 0) / 1e6
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Minimal JSON-schema validation (the container has no ``jsonschema``)
 # ---------------------------------------------------------------------------
 
@@ -317,8 +469,8 @@ def validate_schema(doc: Any, schema: Dict[str, Any], path: str = "$") -> List[s
     ``additionalProperties`` (bool), ``items``, ``enum``, ``minimum``,
     ``const``.  Returns a list of human-readable violations (empty =
     valid).  NOT a general validator — exactly enough for
-    ``tests/trace_schema.json``, kept in-repo because the image has no
-    ``jsonschema`` package."""
+    ``tests/trace_schema.json`` and ``tests/torch_trace_schema.json``, kept
+    in-repo because the image has no ``jsonschema`` package."""
     errs: List[str] = []
     typ = schema.get("type")
     if typ is not None:

@@ -22,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.tracing import span
+
 # Bits per bitmap word, the port's one definition (the reference keeps its
 # own in repro/core/frontier.py).
 WORD_BITS = np.iinfo(np.uint32).bits
@@ -148,39 +150,41 @@ def from_edges(
     src: np.ndarray, dst: np.ndarray, n: int, *, symmetrize: bool = True,
     weights: Optional[np.ndarray] = None,
 ) -> Graph:
-    """ETL: (optionally) symmetrize, drop self-loops, dedup, sort, build CSR.
+    """ETL: (optionally) symmetrize, drop self-loops, dedup, sort, build CSR
+    (an ``etl.from_edges`` span).
 
     ``weights`` (any integer dtype, cast to uint32) ride along: symmetrize
     mirrors them, dedup keeps the minimum over duplicate edges.
     """
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
-    if weights is not None:
-        weights = np.asarray(weights, dtype=np.uint32)
-        if weights.shape != src.shape:
-            raise ValueError(
-                f"weights shape {weights.shape} != edges shape {src.shape}")
-    if symmetrize:
-        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    with span("etl.from_edges"):
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
         if weights is not None:
-            weights = np.concatenate([weights, weights])
-    keep = src != dst
-    src, dst = src[keep], dst[keep]
-    if weights is not None:
-        weights = weights[keep]
-    n_pad = max(_pad32(n), WORD_BITS)
-    key, weights = unique_keys((src << 32) | dst, weights)
-    src = (key >> 32).astype(np.int32)
-    dst = (key & 0xFFFFFFFF).astype(np.int32)
-    row_offsets = np.zeros(n_pad + 1, dtype=np.int64)
-    counts = np.bincount(src, minlength=n_pad)
-    row_offsets[1:] = np.cumsum(counts)
-    g = Graph(
-        n=n_pad, n_real=n, src=src, dst=dst, row_offsets=row_offsets,
-        symmetric=symmetrize, weights=weights,
-    )
-    g.validate()
-    return g
+            weights = np.asarray(weights, dtype=np.uint32)
+            if weights.shape != src.shape:
+                raise ValueError(
+                    f"weights shape {weights.shape} != edges shape {src.shape}")
+        if symmetrize:
+            src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+            if weights is not None:
+                weights = np.concatenate([weights, weights])
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        if weights is not None:
+            weights = weights[keep]
+        n_pad = max(_pad32(n), WORD_BITS)
+        key, weights = unique_keys((src << 32) | dst, weights)
+        src = (key >> 32).astype(np.int32)
+        dst = (key & 0xFFFFFFFF).astype(np.int32)
+        row_offsets = np.zeros(n_pad + 1, dtype=np.int64)
+        counts = np.bincount(src, minlength=n_pad)
+        row_offsets[1:] = np.cumsum(counts)
+        g = Graph(
+            n=n_pad, n_real=n, src=src, dst=dst, row_offsets=row_offsets,
+            symmetric=symmetrize, weights=weights,
+        )
+        g.validate()
+        return g
 
 
 def with_weights(g: Graph, weights: np.ndarray) -> Graph:

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.tracing import span
 from repro_torch.graph import csr
 from repro_torch.graph.csr import WORD_BITS
 
@@ -169,83 +170,88 @@ def synthetic_shapes(n: int, m_directed: int, p: int, *, lane_pad: int = 128,
 
 
 def partition_1d(g: csr.Graph, p: int, *, lane_pad: int = 128) -> PartitionedGraph:
-    """Split vertices into ``p`` contiguous ranges with near-equal edges."""
-    if not g._validated:  # corrupt inputs fail here, not as wrong traversals
-        g.validate()
-    cum = g.row_offsets  # int64[n+1], cumulative out-degree
-    bounds: List[int] = [0]
-    for i in range(1, p):
-        target = g.n_edges * i // p
-        b = int(np.searchsorted(cum, target, side="left"))
-        b = min(max(_round32(b), bounds[-1]), g.n)
-        bounds.append(b)
-    bounds.append(g.n)
-    v_start = np.array(bounds[:-1], dtype=np.int32)
-    v_end = np.array(bounds[1:], dtype=np.int32)
-    v_count = v_end - v_start
+    """Split vertices into ``p`` contiguous ranges with near-equal edges (an
+    ``etl.partition_1d`` span; its loops over the ranks each an
+    ``etl.partition_1d.ranks`` span)."""
+    with span("etl.partition_1d"):
+        if not g._validated:  # corrupt inputs fail here, not as wrong traversals
+            g.validate()
+        cum = g.row_offsets  # int64[n+1], cumulative out-degree
+        bounds: List[int] = [0]
+        with span("etl.partition_1d.ranks"):
+            for i in range(1, p):
+                target = g.n_edges * i // p
+                b = int(np.searchsorted(cum, target, side="left"))
+                b = min(max(_round32(b), bounds[-1]), g.n)
+                bounds.append(b)
+        bounds.append(g.n)
+        v_start = np.array(bounds[:-1], dtype=np.int32)
+        v_end = np.array(bounds[1:], dtype=np.int32)
+        v_count = v_end - v_start
 
-    # --- out-edges per rank (already sorted by (src, dst) globally)
-    e_lo = cum[v_start]
-    e_hi = cum[v_end]
-    edge_count = (e_hi - e_lo).astype(np.int32)
+        # --- out-edges per rank (already sorted by (src, dst) globally)
+        e_lo = cum[v_start]
+        e_hi = cum[v_end]
+        edge_count = (e_hi - e_lo).astype(np.int32)
 
-    # --- in-edges per rank (CSC view, grouped by destination)
-    in_offsets, in_src_all, in_dst_all, in_w_all = csr.in_csr(g)
-    ie_lo = in_offsets[v_start]
-    ie_hi = in_offsets[v_end]
-    in_count = (ie_hi - ie_lo).astype(np.int32)
+        # --- in-edges per rank (CSC view, grouped by destination)
+        in_offsets, in_src_all, in_dst_all, in_w_all = csr.in_csr(g)
+        ie_lo = in_offsets[v_start]
+        ie_hi = in_offsets[v_end]
+        in_count = (ie_hi - ie_lo).astype(np.int32)
 
-    emax = int(max(1, max(edge_count.max(initial=0), in_count.max(initial=0))))
-    emax = (emax + lane_pad - 1) // lane_pad * lane_pad
-    vmax = int(max(WORD_BITS, v_count.max(initial=0)))
-    vmax = _round32(vmax)
-    wmax = vmax // WORD_BITS
+        emax = int(max(1, max(edge_count.max(initial=0), in_count.max(initial=0))))
+        emax = (emax + lane_pad - 1) // lane_pad * lane_pad
+        vmax = int(max(WORD_BITS, v_count.max(initial=0)))
+        vmax = _round32(vmax)
+        wmax = vmax // WORD_BITS
 
-    edge_src = np.zeros((p, emax), dtype=np.int32)
-    edge_dst = np.zeros((p, emax), dtype=np.int32)
-    in_src = np.zeros((p, emax), dtype=np.int32)
-    in_dst = np.zeros((p, emax), dtype=np.int32)
-    deg_out = np.zeros((p, vmax), dtype=np.int32)
-    edge_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
-    in_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
-    degrees = g.out_degree
-    for i in range(p):
-        s, e = int(e_lo[i]), int(e_hi[i])
-        edge_src[i, : e - s] = g.src[s:e]
-        edge_dst[i, : e - s] = g.dst[s:e]
-        if g.weighted:
-            edge_weight[i, : e - s] = g.weights[s:e]
-        s, e = int(ie_lo[i]), int(ie_hi[i])
-        in_src[i, : e - s] = in_src_all[s:e]
-        in_dst[i, : e - s] = in_dst_all[s:e]
-        if g.weighted:
-            in_weight[i, : e - s] = in_w_all[s:e]
-        deg_out[i, : v_count[i]] = degrees[v_start[i] : v_end[i]]
+        edge_src = np.zeros((p, emax), dtype=np.int32)
+        edge_dst = np.zeros((p, emax), dtype=np.int32)
+        in_src = np.zeros((p, emax), dtype=np.int32)
+        in_dst = np.zeros((p, emax), dtype=np.int32)
+        deg_out = np.zeros((p, vmax), dtype=np.int32)
+        edge_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
+        in_weight = np.zeros((p, emax), dtype=np.uint32) if g.weighted else None
+        degrees = g.out_degree
+        with span("etl.partition_1d.ranks"):
+            for i in range(p):
+                s, e = int(e_lo[i]), int(e_hi[i])
+                edge_src[i, : e - s] = g.src[s:e]
+                edge_dst[i, : e - s] = g.dst[s:e]
+                if g.weighted:
+                    edge_weight[i, : e - s] = g.weights[s:e]
+                s, e = int(ie_lo[i]), int(ie_hi[i])
+                in_src[i, : e - s] = in_src_all[s:e]
+                in_dst[i, : e - s] = in_dst_all[s:e]
+                if g.weighted:
+                    in_weight[i, : e - s] = in_w_all[s:e]
+                deg_out[i, : v_count[i]] = degrees[v_start[i] : v_end[i]]
 
-    # Exchanged bitmap length: whole graph + one rank window of slack so
-    # every rank can slice its aligned [word_start, word_start+wmax)
-    # window without clamping; padded to the 128-word boundary.
-    n_words = g.n // WORD_BITS + wmax
-    n_words = (n_words + lane_pad - 1) // lane_pad * lane_pad
+        # Exchanged bitmap length: whole graph + one rank window of slack so
+        # every rank can slice its aligned [word_start, word_start+wmax)
+        # window without clamping; padded to the 128-word boundary.
+        n_words = g.n // WORD_BITS + wmax
+        n_words = (n_words + lane_pad - 1) // lane_pad * lane_pad
 
-    return PartitionedGraph(
-        p=p,
-        n=g.n,
-        n_words=n_words,
-        n_edges=g.n_edges,
-        vmax=vmax,
-        emax=emax,
-        v_start=v_start,
-        v_count=v_count,
-        word_start=(v_start // WORD_BITS).astype(np.int32),
-        wmax=wmax,
-        edge_src=edge_src,
-        edge_dst=edge_dst,
-        edge_count=edge_count,
-        in_src=in_src,
-        in_dst=in_dst,
-        in_count=in_count,
-        deg_out=deg_out,
-        edge_weight=edge_weight,
-        in_weight=in_weight,
-    )
+        return PartitionedGraph(
+            p=p,
+            n=g.n,
+            n_words=n_words,
+            n_edges=g.n_edges,
+            vmax=vmax,
+            emax=emax,
+            v_start=v_start,
+            v_count=v_count,
+            word_start=(v_start // WORD_BITS).astype(np.int32),
+            wmax=wmax,
+            edge_src=edge_src,
+            edge_dst=edge_dst,
+            edge_count=edge_count,
+            in_src=in_src,
+            in_dst=in_dst,
+            in_count=in_count,
+            deg_out=deg_out,
+            edge_weight=edge_weight,
+            in_weight=in_weight,
+        )

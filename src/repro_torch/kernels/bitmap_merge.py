@@ -4,13 +4,15 @@ replaces ``repro.kernels.bitmap_merge``.
 The butterfly merge of :mod:`repro_torch.core.collectives` calls it once
 per round, on the accumulator stacked with the ``digit - 1`` buffers the
 round received.  A tensor on the CPU goes to the plain version in
-:mod:`.ref`; a CUDA tensor goes to ``csrc/bitmap_merge.cu``.
+:mod:`.ref`; a CUDA tensor goes to ``csrc/bitmap_merge.cu``.  Each call
+runs in a ``kernels.or_reduce`` span (:mod:`repro_torch.core.tracing`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.tracing import span
 from repro_torch.kernels import bounds, build, ref
 
 
@@ -22,10 +24,11 @@ def bitmap_or_reduce(stack: torch.Tensor) -> torch.Tensor:
     if k < 1:
         raise ValueError("nothing to merge: K == 0")
     bounds.tally("bitmap_or_reduce", lambda: bounds.or_reduce_bytes(stack))
-    if build.route(stack) == "plain":
-        return ref.bitmap_or_reduce(stack)
-    out = torch.empty((b, w), dtype=torch.int32, device=dev)
-    if out.numel():
-        build.launch("bitmap_or_reduce", dev, stack.data_ptr(), out.data_ptr(),
-                     b, k, w)
-    return out
+    with span("kernels.or_reduce"):
+        if build.route(stack) == "plain":
+            return ref.bitmap_or_reduce(stack)
+        out = torch.empty((b, w), dtype=torch.int32, device=dev)
+        if out.numel():
+            build.launch("bitmap_or_reduce", dev, stack.data_ptr(), out.data_ptr(),
+                         b, k, w)
+        return out

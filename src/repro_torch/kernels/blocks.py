@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.tracing import span
 from repro_torch.graph.csr import WORD_BITS
 
 
@@ -182,130 +183,140 @@ class BFSKernelLayout:
 
 
 def build_bfs_layout(pg, *, eb: int = 512, scatter_ww: int = 64) -> BFSKernelLayout:
-    """Build stacked kernel layouts for a :class:`PartitionedGraph`."""
-    p = pg.p
-    # -- top-down gather (edge_src is (src,dst)-sorted)
-    ww_g = max(
-        required_gather_ww(pg.edge_src[i], int(pg.edge_count[i]), eb) for i in range(p)
-    )
-    g_layouts = [
-        build_gather_layout(
-            pg.edge_src[i], int(pg.edge_count[i]), pg.n_words, eb=eb, ww=ww_g
-        )
-        for i in range(p)
-    ]
-    full = any(g.full for g in g_layouts)
-    if full:  # rebuild all in full mode for uniformity
-        g_layouts = [
-            build_gather_layout(
-                pg.edge_src[i], int(pg.edge_count[i]), pg.n_words, eb=eb, ww=10**9
+    """Build stacked kernel layouts for a :class:`PartitionedGraph` (an
+    ``etl.build_bfs_layout`` span; its loops over the ranks in
+    ``etl.build_bfs_layout.ranks`` spans, one a stage)."""
+    with span("etl.build_bfs_layout"):
+        p = pg.p
+        # -- top-down gather (edge_src is (src,dst)-sorted)
+        with span("etl.build_bfs_layout.ranks"):
+            ww_g = max(
+                required_gather_ww(pg.edge_src[i], int(pg.edge_count[i]), eb) for i in range(p)
             )
-            for i in range(p)
-        ]
-    nb_g = max(g.block_ws.shape[0] for g in g_layouts)
+            g_layouts = [
+                build_gather_layout(
+                    pg.edge_src[i], int(pg.edge_count[i]), pg.n_words, eb=eb, ww=ww_g
+                )
+                for i in range(p)
+            ]
+            full = any(g.full for g in g_layouts)
+            if full:  # rebuild all in full mode for uniformity
+                g_layouts = [
+                    build_gather_layout(
+                        pg.edge_src[i], int(pg.edge_count[i]), pg.n_words, eb=eb, ww=10**9
+                    )
+                    for i in range(p)
+                ]
+            nb_g = max(g.block_ws.shape[0] for g in g_layouts)
 
-    # -- top-down scatter (re-sort owned edges by dst)
-    s_layouts = []
-    for i in range(p):
-        c = int(pg.edge_count[i])
-        order = np.argsort(pg.edge_dst[i, :c], kind="stable")
-        s_layouts.append(
-            build_scatter_layout(
-                pg.edge_dst[i, :c][order], order, c, pg.n_words, eb=eb, ww=scatter_ww
+        # -- top-down scatter (re-sort owned edges by dst)
+        with span("etl.build_bfs_layout.ranks"):
+            s_layouts = []
+            for i in range(p):
+                c = int(pg.edge_count[i])
+                order = np.argsort(pg.edge_dst[i, :c], kind="stable")
+                s_layouts.append(
+                    build_scatter_layout(
+                        pg.edge_dst[i, :c][order], order, c, pg.n_words, eb=eb, ww=scatter_ww
+                    )
+                )
+            nb_s = max(s.block_win.shape[0] for s in s_layouts)
+
+        # -- bottom-up: full gather over in_src / windowed gather over in_dst,
+        #    scatter along in_dst (already dst-sorted, identity order)
+        with span("etl.build_bfs_layout.ranks"):
+            ww_pd = max(
+                required_gather_ww(pg.in_dst[i], int(pg.in_count[i]), eb) for i in range(p)
             )
-        )
-    nb_s = max(s.block_win.shape[0] for s in s_layouts)
+            pd_layouts = [
+                build_gather_layout(
+                    pg.in_dst[i], int(pg.in_count[i]), pg.n_words, eb=eb, ww=ww_pd
+                )
+                for i in range(p)
+            ]
+        with span("etl.build_bfs_layout.ranks"):
+            ps_layouts = []
+            for i in range(p):
+                c = int(pg.in_count[i])
+                ps_layouts.append(
+                    build_scatter_layout(
+                        pg.in_dst[i, :c],
+                        np.arange(c),
+                        c,
+                        pg.n_words,
+                        eb=eb,
+                        ww=scatter_ww,
+                    )
+                )
+            nb_ps = max(s.block_win.shape[0] for s in ps_layouts)
+        nb_in = max(1, -(-pg.emax // eb))  # in_src full-gather chunk blocks
 
-    # -- bottom-up: full gather over in_src / windowed gather over in_dst,
-    #    scatter along in_dst (already dst-sorted, identity order)
-    ww_pd = max(
-        required_gather_ww(pg.in_dst[i], int(pg.in_count[i]), eb) for i in range(p)
-    )
-    pd_layouts = [
-        build_gather_layout(
-            pg.in_dst[i], int(pg.in_count[i]), pg.n_words, eb=eb, ww=ww_pd
-        )
-        for i in range(p)
-    ]
-    ps_layouts = []
-    for i in range(p):
-        c = int(pg.in_count[i])
-        ps_layouts.append(
-            build_scatter_layout(
-                pg.in_dst[i, :c],
-                np.arange(c),
-                c,
-                pg.n_words,
-                eb=eb,
-                ww=scatter_ww,
+        in_src_b = np.zeros((p, nb_in, eb), np.int32)
+        with span("etl.build_bfs_layout.ranks"):
+            for i in range(p):
+                flat = pg.in_src[i]
+                in_src_b[i].reshape(-1)[: flat.shape[0]] = flat
+
+        def stack_gather(ls, nb):
+            ws = _pad_blocks([l.block_ws for l in ls], nb, lambda a: np.int32(0))
+            sl = _pad_blocks(
+                [l.src_local for l in ls], nb, lambda a: np.zeros(a.shape[1:], np.int32)
             )
+            return ws, sl
+
+        def stack_scatter(ls, nb):
+            # padding blocks repeat the last window id (keeps block_win sorted)
+            # with first=0 and all-invalid slots -> they OR nothing.
+            bw = _pad_blocks([l.block_win for l in ls], nb, lambda a: a[-1])
+            bf = _pad_blocks([l.block_first for l in ls], nb, lambda a: np.int32(0))
+            dl = _pad_blocks(
+                [l.dst_local for l in ls],
+                nb,
+                lambda a: np.full(a.shape[1:], scatter_ww * 32, np.int32),
+            )
+            pm = _pad_blocks(
+                [l.perm for l in ls], nb, lambda a: np.zeros(a.shape[1:], np.int32)
+            )
+            return bw, bf, dl, pm
+
+        # the ranks' layouts padded and stacked
+        with span("etl.build_bfs_layout.ranks"):
+            tg_ws, tg_src = stack_gather(g_layouts, nb_g)
+            ts_bw, ts_bf, ts_dl, ts_pm = stack_scatter(s_layouts, nb_s)
+            nb_pd = max(l.block_ws.shape[0] for l in pd_layouts)
+            pg_ws, pg_dst = stack_gather(pd_layouts, nb_pd)
+            ps_bw, ps_bf, ps_dl, ps_pm = stack_scatter(ps_layouts, nb_ps)
+
+        meta = dict(
+            eb=eb,
+            gather_ww=g_layouts[0].ww,
+            gather_full=int(full),
+            gather_words_pad=g_layouts[0].words_pad,
+            pull_gather_ww=pd_layouts[0].ww,
+            pull_gather_full=int(pd_layouts[0].full),
+            pull_gather_words_pad=pd_layouts[0].words_pad,
+            scatter_ww=scatter_ww,
+            scatter_words_pad=s_layouts[0].words_pad,
+            scatter_windows=s_layouts[0].n_windows,
+            nb_in=nb_in,
+            # full-gather planes whose ids ascend within each rank: out-edge
+            # sources (edge_src is sorted) and in-edge destinations; in_src_blocks
+            # follows in_dst's order, so its sources are not sorted
+            sorted_planes=("tdg_src", "pug_dst"),
         )
-    nb_ps = max(s.block_win.shape[0] for s in ps_layouts)
-    nb_in = max(1, -(-pg.emax // eb))  # in_src full-gather chunk blocks
-
-    in_src_b = np.zeros((p, nb_in, eb), np.int32)
-    for i in range(p):
-        flat = pg.in_src[i]
-        in_src_b[i].reshape(-1)[: flat.shape[0]] = flat
-
-    def stack_gather(ls, nb):
-        ws = _pad_blocks([l.block_ws for l in ls], nb, lambda a: np.int32(0))
-        sl = _pad_blocks(
-            [l.src_local for l in ls], nb, lambda a: np.zeros(a.shape[1:], np.int32)
+        arrays = dict(
+            tdg_ws=tg_ws,
+            tdg_src=tg_src,
+            tds_win=ts_bw,
+            tds_first=ts_bf,
+            tds_dst=ts_dl,
+            tds_perm=ts_pm,
+            pug_ws=pg_ws,
+            pug_dst=pg_dst,
+            pus_win=ps_bw,
+            pus_first=ps_bf,
+            pus_dst=ps_dl,
+            pus_perm=ps_pm,
+            in_src_blocks=in_src_b,
         )
-        return ws, sl
-
-    def stack_scatter(ls, nb):
-        # padding blocks repeat the last window id (keeps block_win sorted)
-        # with first=0 and all-invalid slots -> they OR nothing.
-        bw = _pad_blocks([l.block_win for l in ls], nb, lambda a: a[-1])
-        bf = _pad_blocks([l.block_first for l in ls], nb, lambda a: np.int32(0))
-        dl = _pad_blocks(
-            [l.dst_local for l in ls],
-            nb,
-            lambda a: np.full(a.shape[1:], scatter_ww * 32, np.int32),
-        )
-        pm = _pad_blocks(
-            [l.perm for l in ls], nb, lambda a: np.zeros(a.shape[1:], np.int32)
-        )
-        return bw, bf, dl, pm
-
-    tg_ws, tg_src = stack_gather(g_layouts, nb_g)
-    ts_bw, ts_bf, ts_dl, ts_pm = stack_scatter(s_layouts, nb_s)
-    nb_pd = max(l.block_ws.shape[0] for l in pd_layouts)
-    pg_ws, pg_dst = stack_gather(pd_layouts, nb_pd)
-    ps_bw, ps_bf, ps_dl, ps_pm = stack_scatter(ps_layouts, nb_ps)
-
-    meta = dict(
-        eb=eb,
-        gather_ww=g_layouts[0].ww,
-        gather_full=int(full),
-        gather_words_pad=g_layouts[0].words_pad,
-        pull_gather_ww=pd_layouts[0].ww,
-        pull_gather_full=int(pd_layouts[0].full),
-        pull_gather_words_pad=pd_layouts[0].words_pad,
-        scatter_ww=scatter_ww,
-        scatter_words_pad=s_layouts[0].words_pad,
-        scatter_windows=s_layouts[0].n_windows,
-        nb_in=nb_in,
-        # full-gather planes whose ids ascend within each rank: out-edge
-        # sources (edge_src is sorted) and in-edge destinations; in_src_blocks
-        # follows in_dst's order, so its sources are not sorted
-        sorted_planes=("tdg_src", "pug_dst"),
-    )
-    arrays = dict(
-        tdg_ws=tg_ws,
-        tdg_src=tg_src,
-        tds_win=ts_bw,
-        tds_first=ts_bf,
-        tds_dst=ts_dl,
-        tds_perm=ts_pm,
-        pug_ws=pg_ws,
-        pug_dst=pg_dst,
-        pus_win=ps_bw,
-        pus_first=ps_bf,
-        pus_dst=ps_dl,
-        pus_perm=ps_pm,
-        in_src_blocks=in_src_b,
-    )
-    return BFSKernelLayout(meta=meta, arrays=arrays)
+        return BFSKernelLayout(meta=meta, arrays=arrays)

@@ -78,6 +78,12 @@ def _schema():
         return json.load(f)
 
 
+def _torch_schema():
+    """The port's own schema: the repo's, with the span ids typed."""
+    with open(os.path.join(os.path.dirname(__file__), "torch_trace_schema.json")) as f:
+        return json.load(f)
+
+
 # ---------------------------------------------------------------------------
 # Tracer core
 # ---------------------------------------------------------------------------
@@ -501,3 +507,176 @@ def test_hedged_retry_shares_trace_id_with_distinct_span_ids():
     (hedge_ev,) = log.query(kind="retry", trace_id=tid)
     assert hedge_ev["name"] == "hedge"
     assert hedge_ev["args"]["hedge_to"] == 1
+
+
+# ---------------------------------------------------------------------------
+# parents, self time, the process-wide current tracer, the profiler mirror
+# ---------------------------------------------------------------------------
+
+
+def test_context_spans_carry_the_innermost_open_span_as_parent():
+    ticks = iter(float(t) for t in range(9)).__next__
+    tr = Tracer(clock=ticks)
+    with tr.span("outer"):
+        with tr.span("a"):
+            pass
+        with tr.span("b"):
+            with tr.span("c"):
+                pass
+        tr.add_span("interval", 0.0, 1.0)  # an interval given whole: no parent
+    by = {ev["name"]: ev for ev in tr.events()}
+    assert "parent_id" not in by["outer"] and "parent_id" not in by["interval"]
+    assert by["a"]["parent_id"] == by["b"]["parent_id"] == by["outer"]["span_id"]
+    assert by["c"]["parent_id"] == by["b"]["span_id"]
+    # ids are taken when a span opens: unique, the outer span's first
+    ids = [ev["span_id"] for ev in tr.events()]
+    assert len(set(ids)) == len(ids) and by["outer"]["span_id"] == min(ids)
+    doc = tr.to_chrome()
+    c = next(e for e in doc["traceEvents"] if e["name"] == "c")
+    assert c["args"]["parent_id"] == by["b"]["span_id"]
+    assert validate_schema(doc, _torch_schema()) == []
+    # the port's schema types the ids; the repo's leaves args open
+    c["args"]["parent_id"] = 7
+    assert validate_schema(doc, _torch_schema()) != []
+    assert validate_schema(doc, _schema()) == []
+
+
+def test_parents_are_per_thread_and_popped_on_exceptions():
+    tr = Tracer()
+    gate = threading.Barrier(2)
+
+    def worker():
+        with tr.span("other-thread"):
+            gate.wait(timeout=10)
+            gate.wait(timeout=10)
+
+    th = threading.Thread(target=worker)
+    th.start()
+    with tr.span("main-thread"):
+        gate.wait(timeout=10)
+        with pytest.raises(ValueError):
+            with tr.span("raises"):
+                raise ValueError
+        with tr.span("after"):
+            pass
+        gate.wait(timeout=10)
+    th.join(timeout=10)
+    assert not th.is_alive()
+    by = {ev["name"]: ev for ev in tr.events()}
+    assert "parent_id" not in by["other-thread"]
+    assert by["raises"]["parent_id"] == by["after"]["parent_id"] == by["main-thread"]["span_id"]
+    assert by["raises"]["args"]["error"] == "ValueError"
+
+
+def test_span_times_give_total_self_and_count():
+    # outer [0, 10] holds a [1, 3] and a [4, 8]; the second holds c [5, 6]
+    ticks = iter(float(t) for t in (0, 0, 1, 3, 4, 5, 6, 8, 10, 10)).__next__
+    tr = Tracer(clock=ticks)
+    with tr.span("outer"):
+        with tr.span("a"):
+            pass
+        with tr.span("a"):
+            with tr.span("c"):
+                pass
+    tr.instant("ignored")
+    times = tracing.span_times(tr.events())
+    assert times == {"outer": {"count": 1, "total_s": 10.0, "self_s": 4.0},
+                     "a": {"count": 2, "total_s": 6.0, "self_s": 5.0},
+                     "c": {"count": 1, "total_s": 1.0, "self_s": 1.0}}
+
+
+def test_module_span_records_on_the_current_tracer_only_inside_recording():
+    assert tracing._current is NULL_TRACER
+    with tracing.span("nobody", k=1) as sp:
+        assert sp is None
+    first, second = Tracer(), Tracer()
+    with tracing.recording(first) as tr:
+        assert tr is first and tracing._current is first
+        with tracing.span("level", index=3) as sp:
+            assert sp.args == {"index": 3}
+            with tracing.recording(second):
+                with tracing.span("inner"):
+                    pass
+            assert tracing._current is first
+            with tracing.span("child"):
+                pass
+    assert tracing._current is NULL_TRACER
+    assert [ev["name"] for ev in second.events()] == ["inner"]
+    assert "parent_id" not in second.events()[0]  # parents stay within a tracer
+    child, level = first.events()
+    assert level["args"] == {"index": 3} and child["parent_id"] == level["span_id"]
+    # restored after an exception too
+    with pytest.raises(RuntimeError):
+        with tracing.recording(first):
+            raise RuntimeError
+    assert tracing._current is NULL_TRACER
+
+
+def test_clocked_span_gives_its_clock_points_with_or_without_a_tracer():
+    with tracing.clocked("loop.level", index=0) as h:
+        pass
+    assert h.t1 >= h.t0 > 0
+    tr = Tracer()
+    with tracing.recording(tr):
+        with tracing.clocked("loop.level", index=1) as h:
+            pass
+    (ev,) = tr.events()
+    assert ev["dur_us"] == tr._us(h.t1) - tr._us(h.t0) and ev["args"] == {"index": 1}
+
+
+def test_off_span_is_one_shared_null_context():
+    assert tracing.span("a") is tracing.span("b", x=1)
+
+
+def _annotations(prof):
+    return [e.name for e in prof.events() if e.name.startswith("t.")]
+
+
+def test_spans_mirror_into_a_recording_profiler_with_the_tracer_off():
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.span("t.outer", root=1):
+            with tracing.span("t.inner"):
+                torch.ones(4).sum()
+    assert len(_annotations(prof)) == 2 and set(_annotations(prof)) == {"t.outer", "t.inner"}
+    names = {(e["name"], e.get("cat")) for e in _chrome_events(prof)}
+    assert {("t.outer", "user_annotation"), ("t.inner", "user_annotation")} <= names
+    # recorded and mirrored at once; nothing mirrored once the profiler stops
+    tr = Tracer()
+    with tracing.recording(tr):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with tracing.span("t.both"):
+                pass
+        with tracing.span("t.after"):
+            pass
+    assert _annotations(prof) == ["t.both"]
+    assert [ev["name"] for ev in tr.events()] == ["t.both", "t.after"]
+
+
+def _chrome_events(prof):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "t.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def test_services_explicit_tracer_is_not_the_current_tracer():
+    """The serving tier's ``tracer=`` wiring records on the tracer it was
+    given, whatever tracer the program's spans record on."""
+    from repro_torch.service.router import ReplicaRouter
+
+    given, current = Tracer(), Tracer()
+    router = ReplicaRouter([_HedgeStub(0), _HedgeStub(1)], timeout_s=5.0,
+                           heartbeat_interval_s=None, tracer=given)
+    try:
+        with tracing.recording(current):
+            assert router.query("bfs", 3, timeout=10.0).replica in (0, 1)
+    finally:
+        router.stop()
+    assert {"route:bfs"} <= {ev["name"] for ev in given.events()}
+    assert current.events() == []
+    assert validate_schema(given.to_chrome(), _torch_schema()) == []
